@@ -1,0 +1,52 @@
+"""ompi_tpu_torch — the PyTorch/CUDA port of ompi_tpu.
+
+The same communication framework with MPI semantics, on torch tensors:
+a stacked ``(nranks, *local)`` tensor holds one row per rank on the
+communicator's device (an NVIDIA card, or the CPU when the caller binds
+the world there), and collectives lower to tensor operations over the
+rank axis. The package keeps ``ompi_tpu``'s module layout, so each
+module's counterpart sits at the same path:
+
+- ``mca``         — framework/component selection, typed MCA vars
+                    (env prefix ``OMPI_TPU_TORCH_MCA_``).
+- ``core``        — communicators, groups, datatypes, ops, errhandlers.
+- ``coll``        — priority-selected collective components: ``torch``
+                    (device), ``basic`` (host oracle), ``self``.
+- ``accelerator`` — buffer locus, H2D/D2H copies, CUDA streams/events.
+- ``runtime``     — init/finalize and world binding.
+- ``ops``         — hand-written CUDA kernels (``csrc/``) behind torch
+                    wrappers, with their plain torch versions.
+- ``models``      — the flagship transformer.
+
+It imports torch, numpy and the standard library — never JAX, and never
+``ompi_tpu``.
+"""
+
+from ompi_tpu_torch.api.mpi import (  # noqa: F401
+    # constants
+    IN_PLACE, UNDEFINED, SUCCESS, ERR_COMM, ERR_TYPE, ERR_OP, ERR_ARG,
+    ERR_COUNT, ERR_BUFFER, ERR_RANK, ERR_ROOT, ERR_TRUNCATE, ERR_OTHER,
+    CONGRUENT, IDENT, SIMILAR, UNEQUAL,
+    THREAD_SINGLE, THREAD_FUNNELED, THREAD_SERIALIZED, THREAD_MULTIPLE,
+    # datatypes
+    FLOAT, DOUBLE, INT, LONG, CHAR, BYTE, SHORT, UNSIGNED, UNSIGNED_LONG,
+    INT8_T, INT16_T, INT32_T, INT64_T, UINT8_T, UINT16_T, UINT32_T, UINT64_T,
+    C_BOOL, FLOAT16, BFLOAT16, C_FLOAT_COMPLEX, C_DOUBLE_COMPLEX,
+    FLOAT_INT, DOUBLE_INT, LONG_INT, SHORT_INT, TWOINT,
+    Datatype,
+    # ops
+    SUM, PROD, MAX, MIN, LAND, LOR, LXOR, BAND, BOR, BXOR, MAXLOC, MINLOC, Op,
+    # objects
+    Communicator, Group, Errhandler, Info,
+    ERRORS_ARE_FATAL, ERRORS_RETURN, ERRORS_ABORT,
+    MPIError,
+    # lifecycle
+    Init, Init_thread, Finalize, Initialized, Finalized, Wtime, Wtick,
+    get_comm_world, get_comm_self, COMM_NULL,
+    # helpers
+    op_create, error_string, from_numpy_dtype, from_torch_dtype,
+    INFO_ENV, INFO_NULL, Comm_set_errhandler, Comm_get_errhandler,
+)
+from ompi_tpu_torch.runtime.init import _reset_for_tests  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,4 @@
+from ompi_tpu_torch.accelerator.framework import (  # noqa: F401
+    LOCUS_DEVICE, LOCUS_HOST, Event, Stream, accel_framework, check_addr,
+    current_module, select_for_devices, to_device, to_host, to_numpy,
+)

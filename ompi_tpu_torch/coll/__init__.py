@@ -1,0 +1,9 @@
+"""Collective framework — mirrors ``ompi/mca/coll``.
+
+Components:
+- ``torch`` — the device component: collectives as tensor operations over
+              the rank axis of the stacked tensor (the ``coll/xla`` role).
+- ``basic`` — host/NumPy linear algorithms (fallback + correctness
+              oracle, mirrors coll/basic).
+- ``self``  — size-1 communicators (mirrors coll/self).
+"""

@@ -1,0 +1,332 @@
+"""Communicators — rank groups bound to devices, single-controller.
+
+Behavioral spec: ``ompi/communicator`` — ``ompi_communicator_t`` holds a
+group, a CID, and the ``c_coll`` vtable of selected collective modules;
+``ompi_comm_split`` (``comm.c:749``), dup; CID allocation is a
+distributed agreement (``comm_cid.c:61-109``).
+
+Single-controller model, as in the JAX package: one process drives every
+rank, and a rank's local buffer is one row of a stacked tensor of shape
+``(N, *local)``. The stacked tensor lives on the communicator's device
+(its first device): ``init(devices=[cuda:0] * 8)`` puts 8 ranks on one
+card, ``devices=["cpu"] * 8`` puts them on the CPU. Spreading rows over
+several cards waits for the per-rank (``torch.distributed``) tier.
+``MPI_Comm_split`` is a row subset: a child communicator's members are
+parent ranks, and its stacked buffers have one row per member. CID
+agreement collapses to a controller-side counter.
+
+Collectives here are the framework-level entry points: argument/locus
+validation and errhandler invocation, then dispatch through the
+per-communicator ``c_coll`` vtable populated by priority selection
+(``coll_base_comm_select.c:234-273``).
+"""
+from __future__ import annotations
+
+import itertools
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ompi_tpu_torch.accelerator import LOCUS_DEVICE, check_addr, to_numpy
+from ompi_tpu_torch.core import op as op_mod
+from ompi_tpu_torch.core.datatype import torch_dtype
+from ompi_tpu_torch.core.errhandler import (ERR_ARG, ERR_COMM, ERR_COUNT,
+                                            ERR_OP, ERR_ROOT,
+                                            ERRORS_ARE_FATAL, Errhandler,
+                                            MPIError)
+from ompi_tpu_torch.core.group import Group, UNDEFINED
+from ompi_tpu_torch.core.info import Info
+
+
+# Sentinel mirroring MPI_IN_PLACE: "sendbuf is recvbuf".
+class _InPlaceType:
+    def __repr__(self):
+        return "MPI_IN_PLACE"
+
+
+IN_PLACE = _InPlaceType()
+
+_cid_lock = threading.Lock()
+_cid_counter = itertools.count(0)
+
+
+def _next_cid() -> int:
+    """CID agreement (comm_cid.c:61-109). Single-controller: allocation
+    order is globally observed by construction, so the iterative
+    allreduce over available CIDs reduces to a monotone counter."""
+    with _cid_lock:
+        return next(_cid_counter)
+
+
+class Communicator:
+    def __init__(self, group: Group, devices: Sequence[Any], *,
+                 name: str = "", parent: Optional["Communicator"] = None,
+                 info: Optional[Info] = None,
+                 errhandler: Optional[Errhandler] = None):
+        if len(devices) != group.size:
+            raise MPIError(ERR_ARG, "devices must match group size")
+        self.group = group
+        self.devices = tuple(torch.device(d) for d in devices)
+        # where this communicator's stacked buffers live
+        self.device = self.devices[0]
+        self.cid = _next_cid()
+        self.name = name or f"comm#{self.cid}"
+        self.info = info.dup() if info else Info()
+        self.errhandler = errhandler or (
+            parent.errhandler if parent is not None else ERRORS_ARE_FATAL)
+        self._freed = False
+        # sub-eager dispatch cache: per-(shape, dtype, op) resolution of
+        # the hottest allreduce call shape straight to the selected
+        # module's entry point — validation is a pure function of the key
+        # and runs once
+        self._subeager: Dict[tuple, Any] = {}
+        from ompi_tpu_torch.coll.framework import comm_select_coll
+        self.c_coll: Dict[str, Any] = comm_select_coll(self)
+
+    # ------------------------------------------------------------------
+    @property
+    def size(self) -> int:
+        return self.group.size
+
+    def rank(self) -> int:
+        """Single-controller: the controller drives all ranks; per-rank
+        identity lives in the stacked axis. Returns 0 for API parity."""
+        return 0
+
+    def _err(self, error_class: int, msg: str = ""):
+        return self.errhandler.invoke(self, error_class, msg)
+
+    def _check(self) -> None:
+        if self._freed:
+            raise MPIError(ERR_COMM, "communicator has been freed")
+
+    # -- buffer helpers -------------------------------------------------
+    def put(self, host_array) -> torch.Tensor:
+        """Copy a host array (or a tensor) onto this communicator's device
+        in the stacked wire layout. Always a copy: the result never
+        aliases the caller's memory."""
+        if isinstance(host_array, torch.Tensor):
+            return host_array.to(self.device, copy=True)
+        return torch.tensor(np.asarray(host_array), device=self.device)
+
+    def alloc(self, local_shape: Tuple[int, ...], dtype=torch.float32,
+              fill: Optional[float] = None) -> torch.Tensor:
+        """Allocate a stacked buffer (size, *local_shape) on this
+        communicator's device."""
+        shape = (self.size,) + tuple(local_shape)
+        dt = torch_dtype(dtype)
+        if fill is None:
+            return torch.zeros(shape, dtype=dt, device=self.device)
+        return torch.full(shape, fill, dtype=dt, device=self.device)
+
+    def stack(self, per_rank: Sequence[Any]) -> torch.Tensor:
+        """Build a stacked buffer from per-rank host arrays or tensors."""
+        if len(per_rank) != self.size:
+            self._err(ERR_COUNT, "need one array per rank")
+        if all(isinstance(a, torch.Tensor) for a in per_rank):
+            return torch.stack([a.to(self.device) for a in per_rank])
+        return self.put(np.stack([np.asarray(a) for a in per_rank]))
+
+    def shard(self, stacked, rank: int) -> np.ndarray:
+        """Rank ``rank``'s view of a stacked buffer (host copy)."""
+        if isinstance(stacked, torch.Tensor):
+            return to_numpy(stacked[rank])
+        return np.array(stacked[rank])
+
+    # -- validation + dispatch -----------------------------------------
+    def _coll(self, func: str):
+        self._check()
+        m = self.c_coll.get(func)
+        if m is None:
+            self._err(ERR_ARG, f"no coll component provides {func} "
+                               f"for {self.name}")
+        return m
+
+    def _validate_op(self, op):
+        if not isinstance(op, op_mod.Op) or op.fn is None:
+            self._err(ERR_OP, "invalid reduction op")
+        return op
+
+    def _validate_root(self, root: int):
+        if not (0 <= root < self.size):
+            self._err(ERR_ROOT, f"root {root} out of range")
+        return root
+
+    def _validate_stacked(self, buf, lead: int = 1):
+        if check_addr(buf) is None:
+            self._err(ERR_ARG, "buffer must be a torch tensor or numpy array")
+        if buf.ndim < lead or buf.shape[0] != self.size:
+            self._err(ERR_COUNT,
+                      f"stacked buffer must have leading axis {self.size}, "
+                      f"got {tuple(getattr(buf, 'shape', ()))}")
+        return buf
+
+    @staticmethod
+    def _deliver(y, recvbuf):
+        """A distinct tensor ``recvbuf`` receives the result in place (and
+        is returned); otherwise the new tensor is the result."""
+        if isinstance(recvbuf, torch.Tensor):
+            recvbuf.copy_(torch.as_tensor(y))
+            return recvbuf
+        return y
+
+    # ==================================================================
+    # Collectives (blocking). Stacked-tensor API: input leading axis =
+    # rank, result returned as a new tensor (a distinct ``recvbuf``
+    # tensor, where a call takes one, receives it in place). IN_PLACE
+    # passes recvbuf as the input.
+    # ==================================================================
+    def allreduce(self, sendbuf, op=op_mod.SUM, *, recvbuf=None):
+        if sendbuf is IN_PLACE:
+            sendbuf = recvbuf       # MPI_IN_PLACE (allreduce.c.in:54,78-79)
+        # sub-eager fast path: device buffer, no recvbuf — shape/dtype/op
+        # were validated when the key was filled (validity is a pure
+        # function of the key), so a repeat call is one dict probe. The
+        # freed-op and freed-comm checks stay per call.
+        if (recvbuf is None and getattr(op, "fn", None) is not None
+                and check_addr(sendbuf) == LOCUS_DEVICE):
+            key = (sendbuf.shape, sendbuf.dtype, op.uid)
+            fn = self._subeager.get(key)
+            if fn is None:
+                self._validate_stacked(sendbuf)
+                self._validate_op(op)
+                fn = self._subeager[key] = self._coll("allreduce").allreduce
+                return fn(sendbuf, op)
+            self._check()
+            return fn(sendbuf, op)
+        self._validate_stacked(sendbuf)
+        self._validate_op(op)
+        y = self._coll("allreduce").allreduce(sendbuf, op)
+        return self._deliver(y, recvbuf)
+
+    def reduce(self, sendbuf, op=op_mod.SUM, root: int = 0, *, recvbuf=None):
+        """in (N, *s) -> out (N, *s), root's row significant."""
+        if sendbuf is IN_PLACE:
+            sendbuf = recvbuf
+        self._validate_stacked(sendbuf)
+        self._validate_op(op)
+        self._validate_root(root)
+        y = self._coll("reduce").reduce(sendbuf, op, root)
+        return self._deliver(y, recvbuf)
+
+    def bcast(self, buf, root: int = 0):
+        self._validate_stacked(buf)
+        self._validate_root(root)
+        return self._coll("bcast").bcast(buf, root)
+
+    def allgather(self, sendbuf):
+        """in (N, *s) -> out (N, N, *s): out[r, j] = rank j's sendbuf."""
+        self._validate_stacked(sendbuf)
+        return self._coll("allgather").allgather(sendbuf)
+
+    def gather(self, sendbuf, root: int = 0):
+        """in (N, *s) -> out (N, N, *s), rows valid at root only."""
+        self._validate_stacked(sendbuf)
+        self._validate_root(root)
+        return self._coll("gather").gather(sendbuf, root)
+
+    def scatter(self, sendbuf, root: int = 0):
+        """in (N, N, *s) (root's row of chunks) -> out (N, *s)."""
+        self._validate_stacked(sendbuf, lead=2)
+        self._validate_root(root)
+        return self._coll("scatter").scatter(sendbuf, root)
+
+    def alltoall(self, sendbuf):
+        """in (N, N, *s) -> out (N, N, *s): out[j, i] = in[i, j]."""
+        self._validate_stacked(sendbuf, lead=2)
+        if sendbuf.shape[1] != self.size:
+            self._err(ERR_COUNT, "alltoall needs one chunk per peer")
+        return self._coll("alltoall").alltoall(sendbuf)
+
+    def reduce_scatter_block(self, sendbuf, op=op_mod.SUM):
+        """in (N, N, *s) -> out (N, *s): out[r] = reduce_i in[i, r]."""
+        self._validate_stacked(sendbuf, lead=2)
+        if sendbuf.shape[1] != self.size:
+            self._err(ERR_COUNT, "reduce_scatter_block needs one chunk "
+                                 "per peer")
+        self._validate_op(op)
+        return self._coll("reduce_scatter_block").reduce_scatter_block(
+            sendbuf, op)
+
+    def scan(self, sendbuf, op=op_mod.SUM):
+        self._validate_stacked(sendbuf)
+        self._validate_op(op)
+        return self._coll("scan").scan(sendbuf, op)
+
+    def exscan(self, sendbuf, op=op_mod.SUM):
+        self._validate_stacked(sendbuf)
+        self._validate_op(op)
+        return self._coll("exscan").exscan(sendbuf, op)
+
+    def barrier(self) -> None:
+        self._coll("barrier").barrier()
+
+    # ==================================================================
+    # Communicator algebra
+    # ==================================================================
+    def dup(self, info: Optional[Info] = None) -> "Communicator":
+        self._check()
+        return self.__class__(Group(self.group.world_ranks), self.devices,
+                              name=f"{self.name}.dup", parent=self,
+                              info=info or self.info,
+                              errhandler=self.errhandler)
+
+    def split(self, colors: Sequence[int], keys: Optional[Sequence[int]] = None
+              ) -> List[Optional["Communicator"]]:
+        """MPI_Comm_split (comm.c:749). ``colors[r]``/``keys[r]`` are rank
+        r's arguments; returns one entry per rank — the new communicator
+        containing that rank (shared object) or None (MPI_COMM_NULL) for
+        color == UNDEFINED. Children are parent-row subsets."""
+        self._check()
+        if keys is None:
+            keys = [0] * self.size
+        if len(colors) != self.size or len(keys) != self.size:
+            self._err(ERR_ARG, "need color/key per rank")
+        by_color: Dict[int, List[int]] = {}
+        for r, c in enumerate(colors):
+            if c != UNDEFINED:
+                by_color.setdefault(c, []).append(r)
+        out: List[Optional[Communicator]] = [None] * self.size
+        # Deterministic order over colors = identical CID allocation on
+        # every rank (the agreement property of comm_cid.c).
+        for c in sorted(by_color):
+            members = sorted(by_color[c], key=lambda r: (keys[r], r))
+            g = Group([self.group.world_ranks[r] for r in members])
+            devs = [self.devices[r] for r in members]
+            newc = self.__class__(
+                g, devs, name=f"{self.name}.split({c})",
+                parent=self, errhandler=self.errhandler)
+            for r in members:
+                out[r] = newc
+        return out
+
+    def compare(self, other: "Communicator") -> int:
+        from ompi_tpu_torch.core.group import (CONGRUENT, IDENT, SIMILAR,
+                                               UNEQUAL)
+        if self is other:
+            return IDENT
+        g = self.group.compare(other.group)
+        if g == IDENT:
+            return CONGRUENT
+        return SIMILAR if g == SIMILAR else UNEQUAL
+
+    def free(self) -> None:
+        self._freed = True
+
+    def set_errhandler(self, errh: Errhandler) -> None:
+        self.errhandler = errh
+
+    def get_errhandler(self) -> Errhandler:
+        return self.errhandler
+
+    def set_name(self, name: str) -> None:
+        self.name = name
+
+    def get_name(self) -> str:
+        return self.name
+
+    def __repr__(self):
+        return (f"Communicator({self.name}, size={self.size}, "
+                f"cid={self.cid}, device={self.device})")
