@@ -29,6 +29,15 @@ Phases, one or more lines each:
                 batch (2) and at batch 64, through the flash-fold kernel
                 (its launch count read around these runs), against the
                 same forward through the plain fold.
+6. train      — ``dryrun_multichip(8)`` on the card (the JAX dryrun's
+                pp=2 x dp=1 x tp=2 x sp=2 step, dp=2 against dp=1, Ulysses
+                against dense attention) and the same ``_run_flagship``
+                on the CPU, whose losses must match the card's; the
+                combined step at the flagship's full width (float32,
+                MoE), with replicated leaves checked across ranks after
+                each step; the dense ``sgd_train_step`` on dp=2 x tp=2 x
+                sp=2 against the single-device step. Step times (host
+                clock), peak memory, and no kernel launch in training.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -51,10 +60,13 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 
 import ompi_tpu_torch as MPI
+from ompi_tpu_torch import entry as E
 from ompi_tpu_torch.entry import CONFIG, entry
 from ompi_tpu_torch.models import transformer as T
 from ompi_tpu_torch.ops import _build
 from ompi_tpu_torch.ops import flash_attention as FA
+from ompi_tpu_torch.parallel import InGraphComm, Mesh, P
+from ompi_tpu_torch.parallel.mesh import tree_leaves
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside
 # the tensor cores, TF32 on them (3xTF32 runs three TF32 products for each
@@ -502,6 +514,140 @@ def phase_flagship() -> int:
     return launches
 
 
+# -- phase 6 -----------------------------------------------------------
+def _device_share(fn, iters: int = 3) -> str:
+    """Kernels, device time and the device's busy share of the wall time
+    per ``fn()`` call, from ``torch.profiler`` (CUPTI) over ``iters``
+    calls after one warm-up; "not measured" when the profiler records no
+    device time. The profiler's own host cost lengthens the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / iters
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in dev) / iters
+    if dev_us <= 0:
+        return "device time not measured (the profiler recorded none)"
+    kernels = sum(e.count for e in dev) / iters
+    return (f"{kernels:.0f} device ops, {dev_us / 1e3:.3f} ms device time "
+            f"in {wall_us / 1e3:.3f} ms wall per step under the profiler: "
+            f"device busy {dev_us / wall_us:.1%}, idle "
+            f"{1 - dev_us / wall_us:.1%}")
+
+
+def _losses_close(got, want, what):
+    """The JAX dryrun's tolerances: step 1 rtol 1e-4 / atol 1e-5, step 2
+    rtol 2e-3 / atol 1e-4."""
+    for i, (a, b, rtol, atol) in enumerate(zip(got, want, (1e-4, 2e-3),
+                                               (1e-5, 1e-4))):
+        check(abs(a - b) <= atol + rtol * abs(b),
+              f"{what} step-{i + 1} loss {a} != {b}")
+
+
+def phase_train(smi: str) -> None:
+    """The training path on the card: no kernel launches (the train
+    steps need autograd, which the flash kernel lacks), fp32 products."""
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "the train checks assume fp32 products (allow_tf32 is on)")
+    dev = torch.device("cuda", 0)
+    before = FA.launches
+
+    # (1) the JAX dryrun's step, dp=2 against dp=1 and Ulysses, on the
+    # card; the same step on the CPU must give the same losses
+    res = E.dryrun_multichip(8)
+    tok_dry = np.random.default_rng(0).integers(
+        0, E.DRYRUN_CONFIG.vocab, (8, E.DRYRUN_CONFIG.seq + 1))
+    cpu = E._run_flagship(2, 1, 2, 2, tok_dry, device="cpu")
+    _losses_close(res["dp1"], cpu, "card vs CPU")
+    phase("train", f"dryrun losses: card dp=1 {res['dp1']}, dp=2 "
+          f"{res['dp2']}, CPU dp=1 {cpu}; Ulysses max abs err "
+          f"{res['ulysses_err']:.3g}")
+    _, _, p, step = E.flagship_step(2, 1, 2, 2, tok_dry, device=dev)
+    dry_ms = host_ms(lambda: step(p), iters=10, warmup=2)
+
+    # (2) the combined step at the flagship's full width, float32, MoE
+    cfg = dataclasses.replace(CONFIG, dtype=torch.float32, moe=True,
+                              moe_experts=2)
+    tok = np.random.default_rng(1).integers(0, cfg.vocab, (8, cfg.seq + 1))
+    torch.cuda.reset_peak_memory_stats()
+    mesh, specs, p, step = E.flagship_step(2, 1, 2, 2, tok, cfg=cfg,
+                                           device=dev)
+    for i in range(2):
+        p, loss = step(p)
+        loss = float(mesh.unshard(loss, P()))
+        div = mesh.divergence(p, specs)
+        check(np.isfinite(loss), f"full-width step {i + 1}: loss {loss}")
+        check(div <= 1e-6, f"full-width step {i + 1}: replicated leaves "
+              f"differ by {div:.3g}")
+        check(all(bool(torch.isfinite(x).all()) for x in tree_leaves(p)),
+              f"full-width step {i + 1}: non-finite params")
+        phase("train", f"full-width pp=2 x dp=1 x tp=2 x sp=2 step "
+              f"{i + 1}: loss {loss:.6f}, largest divergence of a "
+              f"replicated leaf across its ranks {div:.3g} (limit 1e-6)")
+    peak = torch.cuda.max_memory_allocated()
+    full_ms = host_ms(lambda: step(p), iters=10, warmup=2)
+
+    # (3) the dense step on dp=2 x tp=2 x sp=2 against one device
+    cfg_d = dataclasses.replace(cfg, moe=False, moe_experts=0)
+    params = T.init_params(cfg_d, torch.Generator().manual_seed(0), dev)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (8, cfg.seq + 1))).to(dev)
+    batch = (tok[:, :-1], tok[:, 1:])
+    ref_p, ref_loss = T.sgd_train_step(params, batch, cfg_d, 1e-2)
+    mesh = Mesh((2, 2, 2), ("dp", "tp", "sp"), dev)
+    specs = E._param_specs(params)
+    comms = [InGraphComm(a, 2, mesh) for a in ("dp", "tp", "sp")]
+    sharded = mesh.shard(params, specs)
+    sb = mesh.shard(batch, (P("dp", "sp"),) * 2)
+    new_p, loss = T.sgd_train_step(sharded, sb, cfg_d, 1e-2, *comms)
+    loss = float(mesh.unshard(loss, P()))
+    check(abs(loss - float(ref_loss)) <= 1e-5 * abs(float(ref_loss)),
+          f"8-rank dense loss {loss} != single-device {float(ref_loss)}")
+    worst = 0.0
+    for a, b in zip(tree_leaves(mesh.unshard(new_p, specs)),
+                    tree_leaves(ref_p)):
+        check(bool(torch.allclose(a, b, rtol=2e-4, atol=2e-6)),
+              f"8-rank dense params differ from single-device by "
+              f"{(a - b).abs().max().item():.3g}")
+        worst = max(worst, (a - b).abs().max().item())
+    phase("train", f"dense sgd_train_step dp=2 x tp=2 x sp=2 against one "
+          f"device: loss {loss:.6f} vs {float(ref_loss):.6f}, params max "
+          f"abs diff {worst:.3g} (loss rtol 1e-5; params rtol 2e-4 atol "
+          f"2e-6)")
+    one_ms = host_ms(lambda: T.sgd_train_step(params, batch, cfg_d, 1e-2),
+                     iters=10, warmup=2)
+    eight_ms = host_ms(lambda: T.sgd_train_step(sharded, sb, cfg_d, 1e-2,
+                                                *comms), iters=10, warmup=2)
+
+    phase("train", f"full-width MoE step, torch.profiler: "
+          f"{_device_share(lambda: step(p))} | {smi}")
+    dense = _device_share(lambda: T.sgd_train_step(params, batch, cfg_d,
+                                                   1e-2))
+    phase("train", f"full-width dense step, one device, torch.profiler: "
+          f"{dense} | {smi}")
+    launched = FA.launches - before
+    check(launched == 0, f"{launched} kernel launches in training")
+    for name, ms in (("dryrun pp=2 x dp=1 x tp=2 x sp=2 step", dry_ms),
+                     ("full-width pp=2 x dp=1 x tp=2 x sp=2 MoE step",
+                      full_ms),
+                     ("full-width dense step, one device", one_ms),
+                     ("full-width dense step, dp=2 x tp=2 x sp=2", eight_ms)):
+        phase("train", f"{name}: {ms:.3f} ms per step (host clock, "
+              f"synchronised, median of 10 after 2 warm-ups) | {smi}")
+    phase("train", f"full-width MoE step peak memory: {peak} B "
+          f"({peak / 2 ** 20:.1f} MiB, torch.cuda.max_memory_allocated) | "
+          f"{smi}")
+    phase("train", f"flash_fold launches across the train steps: "
+          f"{launched} (training runs the plain fold)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -512,6 +658,7 @@ def main() -> int:
     kern, checked = phase_kernels()
     phase_collectives()
     launches = phase_flagship()
+    phase_train(smi)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

@@ -91,16 +91,24 @@ def test_cpu_tensors_take_the_plain_fold_without_a_launch():
 
 
 def test_import_needs_no_nvcc_and_no_jax():
-    """The port imports (and its CPU fold runs) with jax made
-    unimportable and no CUDA toolkit on PATH: kernels build only when
-    launched."""
+    """The port imports (and its CPU fold and a CPU train step run) with
+    jax made unimportable and no CUDA toolkit on PATH: kernels build only
+    when launched."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ompi_tpu'] = None\n"
-        "import torch, ompi_tpu_torch\n"
+        "import torch, ompi_tpu_torch, ompi_tpu_torch.parallel\n"
+        "from ompi_tpu_torch import entry\n"
+        "from ompi_tpu_torch.models import transformer as T\n"
         "from ompi_tpu_torch.ops import flash_attention as F, _build\n"
         "x = torch.zeros(1, 4, 8)\n"
         "F.flash_block_update(x, x, x, x, torch.zeros(1, 4), "
         "torch.zeros(1, 4), 0)\n"
+        "cfg = T.Config(vocab=16, d_model=8, n_heads=2, n_layers=1, d_ff=16,"
+        " seq=4, dtype=torch.float32, use_flash=True)\n"
+        "p = T.init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "tok = torch.randint(0, 16, (2, 5))\n"
+        "_, loss = T.sgd_train_step(p, (tok[:, :-1], tok[:, 1:]), cfg, 1e-2)\n"
+        "assert torch.isfinite(loss) and F.launches == 0\n"
         "try:\n"
         "    _build.nvcc(); sys.exit('nvcc is reachable')\n"
         "except RuntimeError:\n"
