@@ -38,6 +38,17 @@ Phases, one or more lines each:
                 each step; the dense ``sgd_train_step`` on dp=2 x tp=2 x
                 sp=2 against the single-device step. Step times (host
                 clock), peak memory, and no kernel launch in training.
+7. nonblocking — on the same 8-rank world: every ``i*`` entry at 32 MB
+                and at 37 elements per rank (the ``coll/nbc`` fused round
+                and its ring/binomial schedules) against its blocking
+                counterpart; persistent plans started 10 times over a
+                buffer changed in place; ``Startall`` over the flagship's
+                gradient-shaped leaves with bucket fusion on and off; and
+                the DDP train step at the flagship's full width on dp=8
+                (``BucketedGradSync``, bucket on and off) against the
+                in-graph dp pmean step. Host and device times, device
+                busy share, fused flushes per step, peak memory, and no
+                kernel launch in training.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -48,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -61,12 +73,15 @@ from torch.nn.attention import SDPBackend
 
 import ompi_tpu_torch as MPI
 from ompi_tpu_torch import entry as E
+from ompi_tpu_torch.coll import persistent
+from ompi_tpu_torch.coll.nbc import ScheduleRequest
 from ompi_tpu_torch.entry import CONFIG, entry
 from ompi_tpu_torch.models import transformer as T
 from ompi_tpu_torch.ops import _build
+from ompi_tpu_torch.mca import pvar, var
 from ompi_tpu_torch.ops import flash_attention as FA
 from ompi_tpu_torch.parallel import InGraphComm, Mesh, P
-from ompi_tpu_torch.parallel.mesh import tree_leaves
+from ompi_tpu_torch.parallel.mesh import tree_leaves, tree_map
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside
 # the tensor cores, TF32 on them (3xTF32 runs three TF32 products for each
@@ -353,12 +368,10 @@ def _close(got, want, rtol, atol, what):
           f"{np.max(np.abs(got.astype(np.float64) - want)):.3g}")
 
 
-def phase_collectives() -> None:
+def phase_collectives(w) -> None:
     """Float SUM/PROD/scan results: rtol 1e-5 (atol 1e-5 for sums near
     zero) — the device sums 8 rows in another order than numpy. MAX, MIN,
     data movement and int32 are exact."""
-    MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
-    w = MPI.get_comm_world()
     n = w.size
     g = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((n, LOCAL_ELEMS), device="cuda", generator=g)
@@ -455,7 +468,7 @@ def phase_collectives() -> None:
     check(bool((res == n).all()), "8 B allreduce value")
     phase("collectives", f"8 B allreduce (8 ranks, _subeager path): "
           f"{us:.2f} us/call")
-    MPI.Finalize()
+    w.set_errhandler(MPI.ERRORS_ARE_FATAL)
 
 
 # -- phase 5 -----------------------------------------------------------
@@ -648,6 +661,356 @@ def phase_train(smi: str) -> None:
           f"{launched} (training runs the plain fold)")
 
 
+# -- phase 7 -----------------------------------------------------------
+SMALL_ELEMS = 37               # per rank: not a multiple of the 8 ranks
+SCHEDULE_SLOTS = ("iallreduce", "ibcast", "iallgather", "ibarrier")
+
+
+def _inputs(n, elems, seed):
+    """Float, PROD-safe float, int32 (N, elems) and (N, N, elems // N or
+    elems) stacked inputs on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    chunk = elems // n if elems % n == 0 else elems
+    return (torch.randn((n, elems), device="cuda", generator=g),
+            1 + 1e-3 * torch.randn((n, elems), device="cuda", generator=g),
+            torch.randint(-1000, 1000, (n, elems), device="cuda",
+                          dtype=torch.int32, generator=g),
+            torch.randn((n, n, chunk), device="cuda", generator=g))
+
+
+def _held(name, got, want, rtol=None, atol=0.0, rows=slice(None)):
+    """``got`` against ``want`` on the card: exact, or within rtol/atol."""
+    got, want = got[rows], want[rows]
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{name}: {tuple(got.shape)} {got.dtype} against "
+          f"{tuple(want.shape)} {want.dtype}")
+    ok = (torch.equal(got, want) if rtol is None else
+          bool(torch.allclose(got, want, rtol=rtol, atol=atol)))
+    err = (got.double() - want.double()).abs().max().item()
+    check(ok, f"{name}: max abs err {err:.3g} against the blocking call")
+    return err
+
+
+def _i_entries(w, elems, seed) -> str:
+    """Every i-entry against its blocking counterpart: float SUM/PROD
+    rtol 1e-5 (atol 1e-5 for SUM, whose sums come near zero), the rest
+    exact. Returns the largest float error."""
+    n = w.size
+    x, xp, xi, y = _inputs(n, elems, seed)
+    S = MPI.SUM
+    cases = [
+        ("iallreduce SUM f32", lambda: w.iallreduce(x, S),
+         lambda: w.allreduce(x, S), 1e-5, 1e-5, slice(None)),
+        ("iallreduce MAX f32", lambda: w.iallreduce(x, MPI.MAX),
+         lambda: w.allreduce(x, MPI.MAX), None, 0, slice(None)),
+        ("iallreduce PROD f32", lambda: w.iallreduce(xp, MPI.PROD),
+         lambda: w.allreduce(xp, MPI.PROD), 1e-5, 0, slice(None)),
+        ("iallreduce SUM i32", lambda: w.iallreduce(xi, S),
+         lambda: w.allreduce(xi, S), None, 0, slice(None)),
+        ("ibcast root 3", lambda: w.ibcast(x, 3), lambda: w.bcast(x, 3),
+         None, 0, slice(None)),
+        ("ireduce MIN root 2", lambda: w.ireduce(x, MPI.MIN, 2),
+         lambda: w.reduce(x, MPI.MIN, 2), None, 0, 2),
+        ("iallgather", lambda: w.iallgather(x), lambda: w.allgather(x),
+         None, 0, slice(None)),
+        ("igather root 1", lambda: w.igather(x, 1), lambda: w.gather(x, 1),
+         None, 0, 1),
+        ("iscatter root 5", lambda: w.iscatter(y, 5),
+         lambda: w.scatter(y, 5), None, 0, slice(None)),
+        ("ialltoall", lambda: w.ialltoall(y), lambda: w.alltoall(y),
+         None, 0, slice(None)),
+        ("ireduce_scatter_block SUM", lambda: w.ireduce_scatter_block(y, S),
+         lambda: w.reduce_scatter_block(y, S), 1e-5, 1e-5, slice(None)),
+        ("iscan SUM", lambda: w.iscan(x, S), lambda: w.scan(x, S), 1e-5,
+         1e-5, slice(None)),
+        ("iexscan SUM", lambda: w.iexscan(x, S), lambda: w.exscan(x, S),
+         1e-5, 1e-5, slice(1, None)),
+    ]
+    worst, rounds = 0.0, {}
+    for name, nb, blocking, rtol, atol, rows in cases:
+        req = nb()
+        if isinstance(req, ScheduleRequest):
+            rounds[name.split()[0]] = req.rounds_left
+        err = _held(f"{name} ({elems}/rank)", req.get(), blocking(), rtol,
+                    atol, rows)
+        check(req.test()[0], f"{name}: test() after get() is False")
+        if rtol is not None:
+            worst = max(worst, err)
+        del req
+    w.ibarrier().wait()
+    return (f"{len(cases)} entries and ibarrier held; largest float SUM/"
+            f"PROD error {worst:.3g}; nbc schedule rounds {rounds}")
+
+
+def phase_nonblocking_journey(w, smi: str) -> None:
+    """(1) i-collectives, (2) persistent plans, (3) bucket fusion."""
+    n = w.size
+    winners = {s: w._coll_winners.get(s) for s in SCHEDULE_SLOTS}
+    check(set(winners.values()) == {"nbc"}, f"schedule slots: {winners}")
+    phase("nonblocking", f"schedule slot winners: {winners}")
+
+    # (1) every i-entry at 37 elements and at 32 MB per rank
+    x = torch.randn((n, SMALL_ELEMS), device="cuda")
+    probes = {"iallreduce": w.iallreduce(x), "ibcast": w.ibcast(x, 0),
+              "iallgather": w.iallgather(x), "ibarrier": w.ibarrier()}
+    rounds = {k: r.rounds_left for k, r in probes.items()}
+    want = {"iallreduce": 2 * (n - 1), "ibcast": math.ceil(math.log2(n)),
+            "iallgather": n - 1, "ibarrier": math.ceil(math.log2(n))}
+    check(rounds == want, f"schedule rounds {rounds}, want {want}")
+    MPI.Waitall(list(probes.values()))
+    phase("nonblocking", f"rounds_left before the first test() at "
+          f"{SMALL_ELEMS} elements per rank: {rounds} (ring allreduce "
+          f"2(N-1) = {2 * (n - 1)})")
+    for elems in (SMALL_ELEMS, LOCAL_ELEMS):
+        phase("nonblocking", f"i-entries at {elems} elements per rank: "
+              f"{_i_entries(w, elems, seed=20 + elems % 97)}")
+
+    big = torch.randn((n, LOCAL_ELEMS), device="cuda")
+    host_us, after = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        req = w.iallreduce(big, MPI.SUM)
+        req.test()                          # dispatches its one round
+        host_us.append((time.perf_counter() - t0) * 1e6)
+        after.append(req.test()[0])
+        req.wait()
+    reqs = []
+
+    def dispatch():
+        r = w.iallreduce(big, MPI.SUM)
+        r.test()
+        reqs.append(r)
+    dev = device_ms(dispatch, iters=10, warmup=2)
+    MPI.Waitall(reqs)
+    phase("nonblocking", f"256 MB stacked iallreduce (fused round): "
+          f"dispatch {statistics.median(host_us):.1f} us on the host "
+          f"(median of 10), {dev:.4f} ms on the device (CUDA events); "
+          f"test() right after the dispatch: {after[0]} (True in "
+          f"{sum(after)} of 10) | {smi}")
+
+    # (2) persistent plans at 32 MB per rank
+    s0 = pvar.pvar_read("coll_persistent_starts")
+    buf = big.clone()
+    req = w.allreduce_init(buf, MPI.SUM)
+    check(req.plan.algorithm == "direct" and req.plan.codec is None,
+          f"plan {req.plan.algorithm} {req.plan.codec}")
+    for i in range(10):
+        buf.mul_(0.5).add_(float(i))        # Start reads the contents
+        req.start()
+        _held(f"allreduce_init start {i + 1}", req.get(),
+              w.allreduce(buf, MPI.SUM))
+    y = torch.randn((n, n, LOCAL_ELEMS // n), device="cuda")
+    for name, init, blocking in (
+            ("bcast_init", lambda: w.bcast_init(buf, 6),
+             lambda: w.bcast(buf, 6)),
+            ("allgather_init", lambda: w.allgather_init(buf),
+             lambda: w.allgather(buf)),
+            ("reduce_scatter_block_init",
+             lambda: w.reduce_scatter_block_init(y, MPI.SUM),
+             lambda: w.reduce_scatter_block(y, MPI.SUM))):
+        r = init()
+        r.start()
+        _held(name, r.get(), blocking())
+        del r
+    r = w.barrier_init()
+    r.start()
+    r.wait()
+    starts = pvar.pvar_read("coll_persistent_starts") - s0
+    check(starts == 14, f"coll_persistent_starts moved {starts}, want 14")
+    phase("nonblocking", f"persistent plans at 32 MB per rank: "
+          f"allreduce_init started 10 times over a buffer changed in "
+          f"place, each equal to the blocking allreduce of the current "
+          f"contents; bcast/allgather/reduce_scatter_block/barrier_init "
+          f"once each; coll_persistent_starts +{starts}")
+    del buf, y, big
+
+    small = w.alloc((2,), dtype=torch.float32, fill=1.0)   # 8 B per rank
+    preq = w.allreduce_init(small, MPI.SUM)
+    calls = 2000
+
+    def per_call(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    def start_wait():
+        preq.start()
+        preq.wait()
+    p_us = per_call(start_wait)
+    b_us = per_call(lambda: w.allreduce(small, MPI.SUM))
+    check(bool((preq.get() == n).all()), "8 B persistent allreduce value")
+    phase("nonblocking", f"8 B persistent allreduce Start+Wait "
+          f"{p_us:.2f} us/call (the wait synchronizes on its event), "
+          f"8 B blocking allreduce {b_us:.2f} us/call (host clock, "
+          f"{calls} calls) | {smi}")
+
+    # (3) bucket fusion over the flagship's gradient-shaped leaves
+    cfg = dataclasses.replace(CONFIG, dtype=torch.float32)
+    shapes = [tuple(t.shape) for t in tree_leaves(
+        T.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))]
+    g = torch.Generator(device="cuda").manual_seed(9)
+    leaves = [torch.randint(-8, 8, (n,) + s, device="cuda",
+                            generator=g).float() for s in shapes]
+    plans = [w.allreduce_init(t, MPI.SUM) for t in leaves]
+    results = {}
+    for on in (True, False):
+        var.var_set("mpi_base_bucket", on)
+        f0 = persistent.counters()["coll_bucket_flushes"]
+        MPI.Startall(plans)
+        results[on] = [r.get() for r in plans]
+        results[f"flushes {on}"] = (persistent.counters()
+                                    ["coll_bucket_flushes"] - f0)
+    same = all(torch.equal(a, b)
+               for a, b in zip(results[True], results[False]))
+    check(same, "bucket on and off disagree at integer-valued inputs")
+    per_rank = sum(t.nbytes for t in leaves) // n
+    phase("nonblocking", f"Startall over {len(plans)} gradient-shaped "
+          f"leaves ({per_rank} B per rank): bucket on "
+          f"{results['flushes True']} fused flushes "
+          f"(mpi_base_bucket_bytes {persistent.bucket_bytes()}), bucket "
+          f"off {len(plans)} allreduces and {results['flushes False']} "
+          f"flushes; results byte-identical")
+
+    def startall_get():
+        MPI.Startall(plans)
+        for r in plans:
+            r.get()
+
+    def startall_device_ms():
+        """Device time of the work one Startall queues: CUDA events
+        around the Startall alone, the gets after the end event."""
+        times = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda._sleep(2_000_000)
+            start.record()
+            MPI.Startall(plans)
+            end.record()
+            for r in plans:
+                r.get()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+    turns = []
+    for on in (True, False, False, True):       # in turns
+        var.var_set("mpi_base_bucket", on)
+        turns.append((on, host_ms(startall_get, iters=20, warmup=3),
+                      startall_device_ms()))
+    var.var_set("mpi_base_bucket", False)
+    phase("nonblocking", f"Startall + get over the {len(plans)} leaves, "
+          "in turns (host clock synchronised, median of 20; the device "
+          "time of the Startall's work by CUDA events, median of 20): "
+          + "; ".join(
+              f"bucket {'on' if on else 'off'} {h:.3f} ms host, {d:.4f} "
+              f"ms device" for on, h, d in turns) + f" | {smi}")
+
+
+def _ddp_losses_close(got, want, what):
+    """Step 1 rtol 1e-5; step 2 rtol 2e-3 / atol 1e-4 (the dryrun's)."""
+    for i, (a, b, rtol, atol) in enumerate(zip(got, want, (1e-5, 2e-3),
+                                               (0.0, 1e-4))):
+        check(abs(a - b) <= atol + rtol * abs(b),
+              f"{what} step-{i + 1} loss {a} != {b}")
+
+
+def phase_ddp(w, smi: str) -> None:
+    """(4) the DDP train step at the flagship's full width on dp=8."""
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "the train checks assume fp32 products (allow_tf32 is on)")
+    dev = torch.device("cuda", 0)
+    n = w.size
+    before = FA.launches
+    cfg = dataclasses.replace(CONFIG, dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    mesh = Mesh((n,), ("dp",), dev)
+    specs = tree_map(lambda _: P(), params)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2 * n, cfg.seq + 1)))
+    batch = mesh.shard((tok[:, :-1], tok[:, 1:]), (P("dp"), P("dp")))
+    dpc = InGraphComm("dp", n, mesh)
+    start = mesh.shard(params, specs)
+
+    def make(kind):
+        """A step function for (a) bucket on, (b) bucket off, (c) the
+        in-graph pmean; (a) and (b) own their BucketedGradSync."""
+        if kind == "c":
+            return lambda p: T.sgd_train_step(p, batch, cfg, 1e-2, dpc)
+        sync = T.BucketedGradSync(w, start)
+        return lambda p: T.sgd_train_step(p, batch, cfg, 1e-2, dpc,
+                                          grad_sync=sync)
+
+    runs, steps, bucket = {}, {}, {"a": True, "b": False, "c": False}
+    for kind in ("a", "b", "c"):
+        var.var_set("mpi_base_bucket", bucket[kind])
+        step = steps[kind] = make(kind)
+        if kind == "a":
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        p, losses, flushes = start, [], []
+        for i in range(2):
+            f0 = persistent.counters()["coll_bucket_flushes"]
+            p, loss = step(p)
+            flushes.append(persistent.counters()["coll_bucket_flushes"] - f0)
+            losses.append(float(loss[0]))
+            div = mesh.divergence(p, specs)
+            check(np.isfinite(losses[-1]), f"DDP ({kind}) step {i + 1}: "
+                  f"loss {losses[-1]}")
+            check(div <= 1e-6, f"DDP ({kind}) step {i + 1}: replicated "
+                  f"leaves differ by {div:.3g}")
+            if kind == "a":
+                peak = torch.cuda.max_memory_allocated()
+            runs.setdefault(kind, {})[f"div{i + 1}"] = div
+        runs[kind].update(params=p, losses=losses, flushes=flushes,
+                          prof=_device_share(lambda: step(start)), ms=[])
+    for kind in ("a", "b", "c", "c", "b", "a"):     # times in turns
+        var.var_set("mpi_base_bucket", bucket[kind])
+        runs[kind]["ms"].append(host_ms(lambda: steps[kind](start),
+                                        iters=10, warmup=2))
+    var.var_set("mpi_base_bucket", False)
+    for kind in ("a", "b"):
+        _ddp_losses_close(runs[kind]["losses"], runs["c"]["losses"],
+                          f"DDP ({kind}) against the in-graph pmean")
+    worst = 0.0
+    for a, b in zip(tree_leaves(runs["a"]["params"]),
+                    tree_leaves(runs["c"]["params"])):
+        check(bool(torch.allclose(a, b, rtol=2e-4, atol=2e-6)),
+              f"DDP (a) params differ from (c) by "
+              f"{(a - b).abs().max().item():.3g}")
+        worst = max(worst, (a - b).abs().max().item())
+    launched = FA.launches - before
+    check(launched == 0, f"{launched} kernel launches in the DDP steps")
+    names = {"a": "BucketedGradSync, bucket on",
+             "b": "BucketedGradSync, bucket off",
+             "c": "in-graph dp pmean"}
+    for kind, r in runs.items():
+        phase("ddp", f"({kind}) {names[kind]}: losses "
+              f"{r['losses'][0]:.6f}, {r['losses'][1]:.6f}; largest "
+              f"divergence of a replicated leaf {r['div1']:.3g}, "
+              f"{r['div2']:.3g} (limit 1e-6); fused flushes per step "
+              f"{r['flushes']}")
+    phase("ddp", f"(a) against (c): params max abs diff {worst:.3g} "
+          f"after 2 steps (rtol 2e-4, atol 2e-6); losses within step 1 "
+          f"rtol 1e-5, step 2 rtol 2e-3 / atol 1e-4")
+    for kind, r in runs.items():
+        phase("ddp", f"({kind}) {names[kind]}: "
+              f"{' and '.join(f'{ms:.3f}' for ms in r['ms'])} ms per step "
+              f"(timed in turns a b c c b a; host clock, synchronised, "
+              f"median of 10 after 2 warm-ups); torch.profiler: "
+              f"{r['prof']} | {smi}")
+    phase("ddp", f"(a) peak memory: {peak} B ({peak / 2 ** 20:.1f} MiB, "
+          f"torch.cuda.max_memory_allocated), of which {base} B "
+          f"({base / 2 ** 20:.1f} MiB) was allocated before its first "
+          f"step | {smi}")
+    phase("ddp", f"flash_fold launches across the DDP steps: {launched}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -656,9 +1019,17 @@ def main() -> int:
     smi, kind = phase_device()
     phase_build()
     kern, checked = phase_kernels()
-    phase_collectives()
+    MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+    world = MPI.get_comm_world()
+    phase_collectives(world)
     launches = phase_flagship()
     phase_train(smi)
+    t7 = time.perf_counter()
+    phase_nonblocking_journey(world, smi)
+    phase_ddp(world, smi)
+    phase("nonblocking", f"phase 7 took {time.perf_counter() - t7:.1f} s "
+          f"| {smi}")
+    MPI.Finalize()
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

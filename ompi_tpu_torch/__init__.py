@@ -9,11 +9,14 @@ module's counterpart sits at the same path:
 
 - ``mca``         — framework/component selection, typed MCA vars
                     (env prefix ``OMPI_TPU_TORCH_MCA_``).
-- ``core``        — communicators, groups, datatypes, ops, errhandlers.
+- ``core``        — communicators, groups, datatypes, ops, errhandlers,
+                    requests (CUDA-event completion).
 - ``coll``        — priority-selected collective components: ``torch``
-                    (device), ``basic`` (host oracle), ``self``.
+                    (device), ``basic`` (host oracle), ``self``, ``nbc``
+                    (nonblocking schedules); ``persistent`` plans and
+                    bucket fusion.
 - ``accelerator`` — buffer locus, H2D/D2H copies, CUDA streams/events.
-- ``runtime``     — init/finalize and world binding.
+- ``runtime``     — init/finalize, world binding, the progress engine.
 - ``ops``         — hand-written CUDA kernels (``csrc/``) behind torch
                     wrappers, with their plain torch versions.
 - ``models``      — the flagship transformer.
@@ -37,12 +40,15 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     # ops
     SUM, PROD, MAX, MIN, LAND, LOR, LXOR, BAND, BOR, BXOR, MAXLOC, MINLOC, Op,
     # objects
-    Communicator, Group, Errhandler, Info,
+    Communicator, Group, Errhandler, Info, Request, Status, Grequest,
     ERRORS_ARE_FATAL, ERRORS_RETURN, ERRORS_ABORT,
     MPIError,
     # lifecycle
     Init, Init_thread, Finalize, Initialized, Finalized, Wtime, Wtick,
     get_comm_world, get_comm_self, COMM_NULL,
+    # request completion
+    Wait, Start, Startall, Test, Waitall, Waitany, Waitsome, Testall,
+    Testany, Testsome,
     # helpers
     op_create, error_string, from_numpy_dtype, from_torch_dtype,
     INFO_ENV, INFO_NULL, Comm_set_errhandler, Comm_get_errhandler,

@@ -61,9 +61,11 @@ class Event:
     def __init__(self, cuda: bool = True):
         self.event = torch.cuda.Event() if cuda else None
 
-    def record(self, stream: Optional[Stream] = None) -> None:
+    def record(self, stream=None) -> None:
+        """Mark ``stream`` (a ``Stream`` or a ``torch.cuda.Stream``;
+        None = the current stream of the current device)."""
         if self.event is not None:
-            self.event.record(stream.stream if stream is not None else None)
+            self.event.record(getattr(stream, "stream", stream))
 
     def query(self) -> bool:
         return True if self.event is None else self.event.query()

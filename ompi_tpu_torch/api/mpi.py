@@ -2,7 +2,8 @@
 
 MPI-style names over the core objects. Single-controller note: buffer
 arguments are *stacked* tensors — leading axis is the rank — and results
-are returned as new tensors. ``IN_PLACE`` keeps its MPI meaning: "use
+are returned as new tensors (nonblocking and persistent calls return a
+``Request`` whose ``get()`` gives them). ``IN_PLACE`` keeps its MPI meaning: "use
 recvbuf as the send buffer".
 """
 from __future__ import annotations
@@ -24,6 +25,10 @@ from ompi_tpu_torch.core.info import INFO_ENV, INFO_NULL, Info  # noqa: F401
 from ompi_tpu_torch.core.op import (BAND, BOR, BXOR, LAND, LOR, LXOR,  # noqa: F401
                                     MAX, MAXLOC, MIN, MINLOC, Op, PROD, SUM,
                                     op_create)
+from ompi_tpu_torch.core.request import (Grequest, Request,  # noqa: F401
+                                         Status, startall, testall,
+                                         testany, testsome, waitall,
+                                         waitany, waitsome)
 from ompi_tpu_torch.runtime import init as _rt
 
 THREAD_SINGLE = _rt.THREAD_SINGLE
@@ -77,3 +82,47 @@ def Comm_set_errhandler(comm, errhandler: Errhandler) -> None:
 
 def Comm_get_errhandler(comm) -> Errhandler:
     return comm.get_errhandler()
+
+
+# request completion (MPI_Wait/Test families) -----------------------------
+def Wait(request: Request) -> Status:
+    return request.wait()
+
+
+def Start(request: Request) -> Request:
+    return request.start()
+
+
+def Startall(requests) -> None:
+    """MPI_Startall: bucketable persistent collectives fuse — they
+    enqueue into their communicator's BucketFuser and flush once at the
+    startall boundary (coll/persistent)."""
+    startall(requests)
+
+
+def Test(request: Request):
+    return request.test()
+
+
+def Waitall(requests) -> list:
+    return waitall(requests)
+
+
+def Waitany(requests):
+    return waitany(requests)
+
+
+def Waitsome(requests):
+    return waitsome(requests)
+
+
+def Testall(requests):
+    return testall(requests)
+
+
+def Testany(requests):
+    return testany(requests)
+
+
+def Testsome(requests):
+    return testsome(requests)

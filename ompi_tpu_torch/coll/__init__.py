@@ -6,4 +6,9 @@ Components:
 - ``basic`` — host/NumPy linear algorithms (fallback + correctness
               oracle, mirrors coll/basic).
 - ``self``  — size-1 communicators (mirrors coll/self).
+- ``nbc``   — nonblocking collectives as round schedules driven by the
+              progress engine (mirrors coll/libnbc).
+
+``persistent`` holds the pre-bound persistent-collective plans and the
+DDP-style bucket fuser behind ``*_init``/``Startall``.
 """

@@ -15,6 +15,10 @@ from ompi_tpu_torch.mca.base import register_framework
 COLL_FUNCS = (
     "allreduce", "reduce", "bcast", "allgather", "gather", "scatter",
     "alltoall", "reduce_scatter_block", "scan", "exscan", "barrier",
+    # schedule-based nonblocking collectives (provided by coll/nbc, the
+    # libnbc role; blocking-slot winners serve the rest of the i-surface
+    # through async dispatch)
+    "iallreduce", "ibcast", "iallgather", "ibarrier",
 )
 
 coll_framework = register_framework("coll")
@@ -27,7 +31,7 @@ def _ensure_components() -> None:
     if _components_loaded:
         return
     # Importing registers each component with the framework.
-    from ompi_tpu_torch.coll import basic, self_, torch_  # noqa: F401
+    from ompi_tpu_torch.coll import basic, nbc, self_, torch_  # noqa: F401
     _components_loaded = True
 
 

@@ -19,6 +19,10 @@ lowering of ``coll/xla.py:1209-1660`` with the same shape contract:
   exscan row keeps the prefix's row 0, as ``coll/xla`` does).
 - barrier             drains the device's queued work.
 
+``bind_allreduce`` (the persistent plan's pre-bound allreduce) and
+``_ibarrier_arrays`` (an async barrier's token) port
+``coll/xla.py:1199-1207,1655-1658``.
+
 Results are always materialized tensors, never ``expand`` views: torch
 tensors are mutable, so one rank's row must not alias another's.
 
@@ -80,6 +84,7 @@ class TorchCollModule:
     def __init__(self, comm):
         self.comm = comm
         self._checked: Dict[str, int] = {}    # func -> var epoch checked
+        self._token = None                    # the async barrier's token
 
     def _direct(self, func: str) -> None:
         """Enforce the algorithm var: ``direct`` is the only lowering
@@ -100,10 +105,21 @@ class TorchCollModule:
             return x if x.device == dev else x.to(dev)
         return torch.tensor(np.asarray(x), device=dev)
 
-    def allreduce(self, x, op):
-        self._direct("allreduce")
+    def _allreduce(self, x, op):
         x = self._to_dev(x)
         return _reduce0(x, op).expand(x.shape).contiguous()
+
+    def allreduce(self, x, op):
+        self._direct("allreduce")
+        return self._allreduce(x, op)
+
+    def bind_allreduce(self, example, op):
+        """Pre-bound hot-path handle (``MPI_Allreduce_init``'s point):
+        the algorithm check runs and the lowering is warmed on
+        ``example`` once, here; the returned callable is the direct
+        lowering alone."""
+        self.allreduce(example, op)
+        return lambda buf: self._allreduce(buf, op)
 
     def reduce(self, x, op, root: int):
         self._direct("reduce")
@@ -148,6 +164,17 @@ class TorchCollModule:
         self._direct("barrier")
         if self.comm.device.type == "cuda":
             torch.cuda.synchronize(self.comm.device)
+
+    def _ibarrier_arrays(self):
+        """The tensors backing an async barrier: a token on the
+        communicator's device. The event a request records after it
+        marks every rank's work queued before it on the stream (the
+        coll/nbc component owns the schedule-based MPI_Ibarrier slot)."""
+        self._direct("barrier")
+        if self._token is None:
+            self._token = torch.ones(self.comm.size, dtype=torch.int32,
+                                     device=self.comm.device)
+        return [self._token]
 
 
 class TorchCollComponent(Component):

@@ -18,13 +18,15 @@ agreement collapses to a controller-side counter.
 Collectives here are the framework-level entry points: argument/locus
 validation and errhandler invocation, then dispatch through the
 per-communicator ``c_coll`` vtable populated by priority selection
-(``coll_base_comm_select.c:234-273``).
+(``coll_base_comm_select.c:234-273``). The nonblocking ``i*`` entries
+return ``core/request`` Requests (schedules of ``coll/nbc`` where it won
+the slot); the ``*_init`` entries build ``coll/persistent`` plans.
 """
 from __future__ import annotations
 
 import itertools
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ from ompi_tpu_torch.core.errhandler import (ERR_ARG, ERR_COMM, ERR_COUNT,
                                             MPIError)
 from ompi_tpu_torch.core.group import Group, UNDEFINED
 from ompi_tpu_torch.core.info import Info
+from ompi_tpu_torch.core.request import Request, event_after
 
 
 # Sentinel mirroring MPI_IN_PLACE: "sendbuf is recvbuf".
@@ -262,6 +265,132 @@ class Communicator:
 
     def barrier(self) -> None:
         self._coll("barrier").barrier()
+
+    # ==================================================================
+    # Nonblocking variants: torch dispatch is asynchronous on the card —
+    # the collective is enqueued on the stream and a Request holds its
+    # output and the event recorded right after it.
+    # ==================================================================
+    def _nb(self, fn: Callable, *args, **kw) -> Request:
+        out = fn(*args, **kw)
+        return Request(result=out, event=event_after(out))
+
+    def _isched(self, func: str):
+        """The i-collective's vtable slot when a schedule component
+        (coll/nbc) won it; None routes through async dispatch (_nb). Runs
+        the same entry checks as _coll."""
+        return self._coll(func) if func in self.c_coll else None
+
+    def iallreduce(self, sendbuf, op=op_mod.SUM, **kw) -> Request:
+        if not kw:
+            from ompi_tpu_torch.coll import persistent as _pcoll
+            if _pcoll.bucket_enabled():
+                # DDP-style bucket fusion: concurrent small iallreduces
+                # on the same (op, dtype) coalesce into one flattened
+                # fused collective
+                self._validate_stacked(sendbuf)
+                self._validate_op(op)
+                r = _pcoll.maybe_bucket_iallreduce(self, sendbuf, op)
+                if r is not None:
+                    return r
+            m = self._isched("iallreduce")
+            if m is not None:
+                self._validate_stacked(sendbuf)
+                self._validate_op(op)
+                return m.iallreduce(sendbuf, op)
+        return self._nb(self.allreduce, sendbuf, op, **kw)
+
+    def ibcast(self, buf, root: int = 0) -> Request:
+        m = self._isched("ibcast")
+        if m is not None:
+            self._validate_stacked(buf)
+            self._validate_root(root)
+            return m.ibcast(buf, root)
+        return self._nb(self.bcast, buf, root)
+
+    def ireduce(self, sendbuf, op=op_mod.SUM, root: int = 0, **kw) -> Request:
+        return self._nb(self.reduce, sendbuf, op, root, **kw)
+
+    def iallgather(self, sendbuf) -> Request:
+        m = self._isched("iallgather")
+        if m is not None:
+            self._validate_stacked(sendbuf)
+            return m.iallgather(sendbuf)
+        return self._nb(self.allgather, sendbuf)
+
+    def igather(self, sendbuf, root: int = 0) -> Request:
+        return self._nb(self.gather, sendbuf, root)
+
+    def iscatter(self, sendbuf, root: int = 0) -> Request:
+        return self._nb(self.scatter, sendbuf, root)
+
+    def ialltoall(self, sendbuf) -> Request:
+        return self._nb(self.alltoall, sendbuf)
+
+    def ireduce_scatter_block(self, sendbuf, op=op_mod.SUM) -> Request:
+        return self._nb(self.reduce_scatter_block, sendbuf, op)
+
+    def iscan(self, sendbuf, op=op_mod.SUM) -> Request:
+        return self._nb(self.scan, sendbuf, op)
+
+    def iexscan(self, sendbuf, op=op_mod.SUM) -> Request:
+        return self._nb(self.exscan, sendbuf, op)
+
+    def ibarrier(self) -> Request:
+        ms = self._isched("ibarrier")
+        if ms is not None:
+            return ms.ibarrier()
+        m = self._coll("barrier")
+        fn = getattr(m, "_ibarrier_arrays", None)
+        if fn is not None:
+            arrays = fn()
+            return Request(result=arrays, event=event_after(arrays))
+        # the winner has no async form: a completed synchronous barrier
+        # is still a correct MPI_Ibarrier
+        m.barrier()
+        return Request.completed()
+
+    # -- persistent collectives (MPI-4 MPI_Allreduce_init etc.) --------
+    # Each init builds a pre-bound plan (coll/persistent: validated,
+    # selected and warmed at init; Start is launch-only, and bucketable
+    # starts fuse).
+    def allreduce_init(self, sendbuf, op=op_mod.SUM, **kw) -> Request:
+        if not kw:
+            from ompi_tpu_torch.coll import persistent as _pcoll
+            return _pcoll.coll_init(self, "allreduce", sendbuf, op)
+        return Request(persistent_start=lambda: self.iallreduce(
+            sendbuf, op, **kw))
+
+    def allreduce_bind(self, example, op=op_mod.SUM) -> Callable:
+        """Pre-bound hot-path handle (``MPI_Allreduce_init``'s purpose is
+        to hoist per-call setup out of the loop): validation, selection
+        and the algorithm check run ONCE here; the returned callable is
+        the selected module's lowering alone. Buffers must have this
+        communicator's stacked layout."""
+        self._validate_stacked(example)
+        self._validate_op(op)
+        mod = self._coll("allreduce")
+        bind = getattr(mod, "bind_allreduce", None)
+        if bind is None:                 # host module won selection
+            return lambda buf: mod.allreduce(buf, op)
+        return bind(example, op)
+
+    def bcast_init(self, buf, root: int = 0) -> Request:
+        from ompi_tpu_torch.coll import persistent as _pcoll
+        return _pcoll.coll_init(self, "bcast", buf, root)
+
+    def allgather_init(self, sendbuf) -> Request:
+        from ompi_tpu_torch.coll import persistent as _pcoll
+        return _pcoll.coll_init(self, "allgather", sendbuf)
+
+    def reduce_scatter_block_init(self, sendbuf,
+                                  op=op_mod.SUM) -> Request:
+        from ompi_tpu_torch.coll import persistent as _pcoll
+        return _pcoll.coll_init(self, "reduce_scatter_block", sendbuf, op)
+
+    def barrier_init(self) -> Request:
+        from ompi_tpu_torch.coll import persistent as _pcoll
+        return _pcoll.coll_init(self, "barrier")
 
     # ==================================================================
     # Communicator algebra

@@ -4,7 +4,8 @@ with every parallel strategy of the JAX package in one model.
 The port of ``ompi_tpu/models/transformer.py``: embedding, ``n_layers``
 blocks of (rmsnorm, attention, residual, rmsnorm, MLP or Switch MoE,
 residual), final rmsnorm and logits against the tied embedding;
-``loss_fn``, ``sgd_train_step`` (dp x tp x sp) and the flagship
+``loss_fn``, ``sgd_train_step`` (dp x tp x sp, optionally with a
+``BucketedGradSync``) and the flagship
 ``pp_train_step`` (GPipe over pp, Megatron over tp, ring attention over
 sp, Switch MoE with experts on ep, gradient sync over dp).
 
@@ -28,6 +29,10 @@ Numerics follow the JAX package: GELU is the tanh approximation
 the rsqrt, logits are a float32 product against ``emb``, and the loss is
 ``log_softmax`` gathered at the targets.
 
+``BucketedGradSync`` is the DDP path: ``sgd_train_step(grad_sync=…)``
+averages the dp gradients through bucketed persistent allreduces on a
+``Communicator`` instead of the in-graph pmean.
+
 The parameter tree keeps the JAX layout —
 ``{"rep": {"emb", "ln_f", "layers": [{"ln1", "ln2"}]},
 "tp": {"layers": [{"wqkv", "wo", "w1", "w2"(, "gate")}]}}``, and
@@ -44,10 +49,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ompi_tpu_torch.core import op as _op
+from ompi_tpu_torch.core.request import startall
 from ompi_tpu_torch.ops.flash_attention import _fold_torch, flash_block_update
 from ompi_tpu_torch.parallel import InGraphComm
 from ompi_tpu_torch.parallel import moe as _moe
-from ompi_tpu_torch.parallel.mesh import tree_map
+from ompi_tpu_torch.parallel.mesh import tree_leaves, tree_map
 from ompi_tpu_torch.parallel.pipeline import pipeline_apply
 from ompi_tpu_torch.parallel.ring_attention import ring_attention
 
@@ -333,12 +340,18 @@ def loss_fn(params, inputs, targets, cfg: Config,
 def sgd_train_step(params, batch, cfg: Config, lr: float,
                    dp_comm: Optional[InGraphComm] = None,
                    tp_comm: Optional[InGraphComm] = None,
-                   sp_comm: Optional[InGraphComm] = None):
+                   sp_comm: Optional[InGraphComm] = None,
+                   grad_sync: Optional["BucketedGradSync"] = None):
     """One dp x tp x sp training step; returns (params, loss). Grads and
     the loss are averaged over sp (each sp rank saw 1/n of the sequence)
     and over dp; tp correctness comes from the Megatron f/g operators
     inside ``forward``. ``batch`` = (inputs, targets), pre-shifted; with
-    comms everything is stacked over their mesh."""
+    comms everything is stacked over their mesh.
+
+    ``grad_sync`` replaces the in-graph dp pmean with DDP-style bucketed
+    persistent allreduces over a ``Communicator`` (one fused collective
+    per gradient bucket instead of one per tensor); ``dp_comm`` still
+    names the data-parallel mesh axis the stacked values run on."""
     inputs, targets = batch
     one = dp_comm is None and tp_comm is None and sp_comm is None
     if one:
@@ -346,14 +359,68 @@ def sgd_train_step(params, batch, cfg: Config, lr: float,
     loss, grads = _value_and_grad(
         lambda p: _nll(_forward(p, inputs, cfg, tp_comm, sp_comm), targets),
         params)
-    for comm in (sp_comm, dp_comm):
+    for comm in (sp_comm, dp_comm if grad_sync is None else None):
         if comm is not None:
             grads = tree_map(comm.pmean, grads)
             loss = comm.pmean(loss)
+    if grad_sync is not None:
+        grads = grad_sync(grads)
+        loss = grad_sync.mean_scalar(loss)
     params = _sgd(params, grads, lr)
     if one:
         return tree_map(lambda t: t[0], params), loss[0]
     return params, loss
+
+
+class BucketedGradSync:
+    """DDP-style gradient synchronization over bucketed persistent
+    allreduces (``coll/persistent``).
+
+    Built once per (comm, gradient tree shape): each leaf gets a staging
+    tensor on the communicator's device (``comm.alloc``) and a persistent
+    allreduce plan (``comm.allreduce_init``), so every step is copy-in
+    -> one ``Startall`` (buckets fuse into ceil(total/bucket_bytes)
+    collectives when ``mpi_base_bucket`` is on; per-leaf collectives when
+    off) -> mean. Leaves are stacked ``(comm.size, ...)``: on the rank
+    mesh, a ``Mesh((dp,), ("dp",), device)``'s gradients. The JAX
+    package stages through host numpy buffers; on the card that would be
+    a D2H and an H2D copy per leaf per step, so the port stages on the
+    device and returns tensors on the comm's device."""
+
+    def __init__(self, comm, grads_example):
+        self.comm = comm
+        self.n = comm.size
+        leaves = tree_leaves(grads_example)
+        if any(g.ndim < 1 or g.shape[0] != self.n for g in leaves):
+            raise ValueError(f"BucketedGradSync: every gradient leaf must "
+                             f"be stacked over the comm's {self.n} ranks")
+        self._stages = [comm.alloc(tuple(g.shape[1:]), g.dtype)
+                        for g in leaves]
+        self._reqs = [comm.allreduce_init(s, _op.SUM) for s in self._stages]
+        self._scalar_req = None
+
+    def __call__(self, grads):
+        leaves = tree_leaves(grads)
+        with torch.no_grad():
+            for stage, g in zip(self._stages, leaves):
+                stage.copy_(g)
+        startall(self._reqs)
+        out = iter([r.get() / self.n for r in self._reqs])
+        return tree_map(lambda _: next(out), grads)
+
+    def mean_scalar(self, value):
+        """Mean one scalar per rank (the loss: a stacked ``(n,)`` tensor,
+        or one value every rank holds) over the comm — through the same
+        persistent machinery, a lazily-built float64 one-element plan."""
+        if self._scalar_req is None:
+            self._scalar_stage = self.comm.alloc((), torch.float64)
+            self._scalar_req = self.comm.allreduce_init(self._scalar_stage,
+                                                        _op.SUM)
+        with torch.no_grad():
+            self._scalar_stage.copy_(torch.as_tensor(value,
+                                                     dtype=torch.float64))
+        self._scalar_req.start()
+        return self._scalar_req.get() / self.n
 
 
 def init_pp_params(cfg: Config, generator: torch.Generator, device,

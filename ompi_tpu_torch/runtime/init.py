@@ -23,11 +23,13 @@ from typing import List, Optional
 import torch
 
 from ompi_tpu_torch import accelerator
+from ompi_tpu_torch.coll import persistent
 from ompi_tpu_torch.core.communicator import Communicator
 from ompi_tpu_torch.core.errhandler import ERR_OTHER, MPIError
 from ompi_tpu_torch.core.group import Group
 from ompi_tpu_torch.core.info import INFO_ENV
 from ompi_tpu_torch.mca import base, var
+from ompi_tpu_torch.runtime import progress
 
 THREAD_SINGLE = 0
 THREAD_FUNNELED = 1
@@ -60,6 +62,7 @@ def init(requested: int = THREAD_SINGLE,
         raise MPIError(ERR_OTHER, "Init needs at least one device")
     n = len(devices)
     accelerator.select_for_devices(devices)
+    persistent.register_vars()
 
     world = Communicator(Group(range(n)), devices, name="MPI_COMM_WORLD")
     self_comm = Communicator(Group([0]), [devices[0]], name="MPI_COMM_SELF")
@@ -115,9 +118,12 @@ def wtick() -> float:
 def _reset_for_tests() -> None:
     """Forget the world, the var store and the framework opens, so the
     next ``init`` starts as a fresh process would (re-reading the
-    environment)."""
+    environment); empty the progress engine's callback lists, zero the
+    persistent-collective counters and drop the live bucket fusers."""
     _state.update(initialized=False, finalized=False, world=None, self=None)
     var._reset_for_tests()
+    progress._reset_for_tests()
+    persistent._reset_for_tests()
     for fw in base.all_frameworks().values():
         fw.close()
     accelerator.framework._reset_for_tests()

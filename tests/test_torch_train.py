@@ -10,6 +10,12 @@ Tolerances are the JAX package's own (``tests/test_parallel.py``): loss
 rtol 1e-5, params rtol 2e-4 / atol 2e-6 after one step; the dryrun's
 step-1 / step-2 losses rtol 1e-4 / 2e-3 (``__graft_entry__.py:143-146``).
 Replicated leaves must agree across ranks within 1e-9.
+
+The DDP step (``sgd_train_step(grad_sync=BucketedGradSync(...))``) on a
+dp=8 rank mesh is held against a reference built from JAX functions:
+each rank's ``jax.value_and_grad(loss_fn)`` on its batch shard, the
+gradients averaged through JAX's ``BucketedGradSync`` on the conftest's
+8-device world, then SGD.
 """
 import jax
 import jax.numpy as jnp
@@ -20,9 +26,14 @@ from jax.sharding import Mesh as JMesh, NamedSharding
 from jax.sharding import PartitionSpec as JP
 
 import __graft_entry__ as G
+import ompi_tpu_torch as T
+from ompi_tpu.coll import persistent as jpersistent
+from ompi_tpu.mca import var as jvar
 from ompi_tpu.models import transformer as JT
 from ompi_tpu.parallel import InGraphComm as JComm
 from ompi_tpu_torch import entry as E
+from ompi_tpu_torch.coll import persistent
+from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.models import transformer as TT
 from ompi_tpu_torch.parallel import InGraphComm, Mesh, P, moe
 from ompi_tpu_torch.parallel.mesh import tree_leaves, tree_map
@@ -310,3 +321,125 @@ def test_dryrun_multichip_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     assert set(out) == {"dp1", "dp2", "ulysses_err"}
     np.testing.assert_allclose(out["dp2"], out["dp1"], rtol=1e-4)
     assert out["ulysses_err"] < 2e-5
+
+
+# -- DDP: BucketedGradSync and sgd_train_step(grad_sync=...) -----------------
+@pytest.fixture()
+def buckets():
+    """Set both packages' ``mpi_base_bucket*`` vars; the JAX ones are
+    restored afterwards (the port's go with its reset)."""
+    T._reset_for_tests()
+    T.Init(devices=["cpu"] * 8)
+
+    def set_(on, nbytes=persistent.DEFAULT_BUCKET_BYTES):
+        for v in (var, jvar):
+            v.var_set("mpi_base_bucket", on)
+            v.var_set("mpi_base_bucket_bytes", nbytes)
+    try:
+        yield set_
+    finally:
+        jpersistent.flush_all("explicit")
+        jvar.var_set("mpi_base_bucket_bytes", jpersistent.DEFAULT_BUCKET_BYTES)
+        jvar.var_set("mpi_base_bucket", False)
+        T._reset_for_tests()
+
+
+def _counted(counters):
+    return {k: v for k, v in counters().items()
+            if k.startswith("coll_")}
+
+
+@pytest.mark.parametrize("bucket", [True, False])
+def test_bucketed_grad_sync_matches_jax(world, buckets, bucket):
+    """The port's sync on a stacked tree against JAX's on the same tree
+    (keys in sorted order, so both packages walk the leaves alike): the
+    same means, the same flush counts, and the loss mean."""
+    rng = np.random.default_rng(7)
+    # per rank: b 800 B + w 640 B pass the 1 KiB threshold together
+    # (one "bytes" flush); c, float64, is a bucket of its own
+    tree = {"b": rng.integers(-4, 4, size=(8, 200)).astype(np.float32),
+            "c": rng.standard_normal((8, 3)).astype(np.float64),
+            "w": rng.integers(-4, 4, size=(8, 8, 20)).astype(np.float32)}
+    buckets(bucket, 1 << 10)
+    comm = T.get_comm_world()
+    before = _counted(persistent.counters)
+    out = TT.BucketedGradSync(comm, tree_map(comm.put, tree))(
+        tree_map(comm.put, tree))
+    ours = {k: v - before[k] for k, v in _counted(persistent.counters).items()}
+    jbefore = _counted(jpersistent.counters)
+    jtree = {k: world.stack(list(v)) for k, v in tree.items()}
+    want = JT.BucketedGradSync(world, jtree)(jtree)
+    theirs = {k: v - jbefore[k]
+              for k, v in _counted(jpersistent.counters).items()}
+    for k in tree:
+        assert out[k].device == comm.device and out[k].dtype == \
+            torch.from_numpy(tree[k]).dtype
+        np.testing.assert_allclose(out[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-6)
+    assert ours == theirs
+    assert ours["coll_bucket_flushes"] == (2 if bucket else 0)
+    sync = TT.BucketedGradSync(comm, tree_map(comm.put, tree))
+    loss = sync.mean_scalar(torch.arange(8, dtype=torch.float32))
+    assert loss.dtype == torch.float64 and torch.all(loss == 3.5)
+    assert torch.all(sync.mean_scalar(2.5) == 2.5)
+
+
+DDP = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64, seq=16)
+DDP_TOKENS = np.random.default_rng(0).integers(0, 64, (16, 17))
+
+
+@pytest.fixture(scope="module")
+def jax_ddp_grads():
+    """JAX's params and, per dp rank (2 sequences each), its loss and
+    gradients from ``jax.value_and_grad(loss_fn)``."""
+    jcfg = JT.Config(**DDP, dtype=jnp.float32)
+    params = _np(JT.init_params(jax.random.PRNGKey(4), jcfg))
+    vg = jax.jit(jax.value_and_grad(JT.loss_fn), static_argnums=(3,))
+    per = [vg(params, jnp.asarray(DDP_TOKENS[2 * r:2 * r + 2, :-1]),
+              jnp.asarray(DDP_TOKENS[2 * r:2 * r + 2, 1:]), jcfg)
+           for r in range(8)]
+    return params, [float(l) for l, _ in per], [g for _, g in per]
+
+
+@pytest.mark.parametrize("bucket", [True, False])
+def test_ddp_step_matches_jax(world, buckets, jax_ddp_grads, bucket):
+    """One DDP step at the dryrun widths on dp=8: the port's gradients
+    go through ``BucketedGradSync`` on its 8-rank world, JAX's per-rank
+    gradients through JAX's on the JAX world."""
+    params, losses, grads = jax_ddp_grads
+    buckets(bucket)
+    stacked = jax.tree_util.tree_map(
+        lambda *g: world.stack([np.asarray(x) for x in g]), *grads)
+    mean = JT.BucketedGradSync(world, stacked)(stacked)
+    want_p = jax.tree_util.tree_map(
+        lambda p, g: np.asarray(p) - 1e-2 * np.asarray(g)[0], params, mean)
+
+    tcfg = TT.Config(**DDP, dtype=torch.float32)
+    mesh = Mesh((8,), ("dp",), "cpu")
+    specs = tree_map(lambda _: P(), params)
+    sp = mesh.shard(params, specs)
+    batch = mesh.shard(_t((DDP_TOKENS[:, :-1], DDP_TOKENS[:, 1:])),
+                       (P("dp"), P("dp")))
+    comm = T.get_comm_world()
+    sync = TT.BucketedGradSync(comm, sp)
+    before = persistent.counters()["coll_bucket_flushes"]
+    new_p, loss = TT.sgd_train_step(sp, batch, tcfg, 1e-2,
+                                    InGraphComm("dp", 8, mesh),
+                                    grad_sync=sync)
+    flushes = persistent.counters()["coll_bucket_flushes"] - before
+    assert flushes == (2 if bucket else 0)     # the grads, then the loss
+    np.testing.assert_allclose(loss.numpy(), np.mean(losses), **LOSS_TOL)
+    assert mesh.divergence(new_p, specs) <= 1e-6
+    _close_trees(mesh.unshard(new_p, specs), want_p, **PARAM_TOL)
+    # the in-graph dp pmean step gives the same params
+    ref_p, ref_loss = TT.sgd_train_step(sp, batch, tcfg, 1e-2,
+                                        InGraphComm("dp", 8, mesh))
+    np.testing.assert_allclose(loss.numpy(), ref_loss.numpy(), **LOSS_TOL)
+    for a, b in zip(tree_leaves(new_p), tree_leaves(ref_p)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **PARAM_TOL)
+
+
+def test_bucketed_grad_sync_needs_stacked_leaves(buckets):
+    comm = T.get_comm_world()
+    with pytest.raises(ValueError, match="stacked"):
+        TT.BucketedGradSync(comm, {"w": torch.zeros(4, 3)})
