@@ -49,6 +49,17 @@ Phases, one or more lines each:
                 in-graph dp pmean step. Host and device times, device
                 busy share, fused flushes per step, peak memory, and no
                 kernel launch in training.
+8. algorithms — every algorithm schedule of ``coll/torch`` forced through
+                its ``coll_torch_<func>_algorithm`` var: at 37 elements
+                per rank on the 8-rank world and on split
+                sub-communicators of sizes 3, 5 and 6, each against the
+                direct lowering on the card, bit for bit against the same
+                schedule on the CPU port where it combines with ``op.fn``
+                alone, and what ran against the reference's demotion
+                rules; then at 32 MB per rank on the 8-rank world, each
+                checked against the direct lowering and timed (device ms,
+                share of HBM, host µs per dispatch). Phase 4 prints what
+                ``auto`` picked beside each of its times.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -73,8 +84,9 @@ from torch.nn.attention import SDPBackend
 
 import ompi_tpu_torch as MPI
 from ompi_tpu_torch import entry as E
-from ompi_tpu_torch.coll import persistent
+from ompi_tpu_torch.coll import decision, persistent
 from ompi_tpu_torch.coll.nbc import ScheduleRequest
+from ompi_tpu_torch.coll.torch_ import ALGORITHMS
 from ompi_tpu_torch.entry import CONFIG, entry
 from ompi_tpu_torch.models import transformer as T
 from ompi_tpu_torch.ops import _build
@@ -383,60 +395,81 @@ def phase_collectives(w) -> None:
     local_bytes = LOCAL_ELEMS * 4
     local_mib = local_bytes / 2 ** 20
 
-    def run(name, fn, read=x.numel() * 4):
+    def run(name, fn, pick, read=x.numel() * 4):
         """Time ``fn`` and return its result on the host. The rate is the
         least device traffic of the call — the input it must read
         (``read``: the stacked input, or root's row alone) read once and
         the stacked output written once — over its time; all 8 ranks
-        share one card's memory."""
+        share one card's memory. ``auto``'s pick for the call's ``pick``
+        = (func, buffer, op, root) stands beside it."""
+        func, buf, op, root = pick
+        alg = w._coll(func).selected(func, buf, op, root)
+        if (func, alg) in (("reduce", "alias"), ("gather", "allgather")):
+            to = "allreduce" if func == "reduce" else "allgather"
+            alg += f" -> {to} {w._coll(to).selected(to, buf, op)}"
         ms = host_ms(fn)
         res = fn()
         moved = read + res.numel() * res.element_size()
-        phase("collectives", f"{name}: {ms:.3f} ms for {local_mib:.0f} MiB "
-              f"per rank; {moved / 1e6:.0f} MB in+out, "
+        phase("collectives", f"{name} (auto: {alg}): {ms:.3f} ms for "
+              f"{local_mib:.0f} MiB per rank; {moved / 1e6:.0f} MB in+out, "
               f"{moved / ms / 1e6:.1f} GB/s "
               f"({moved / ms / 1e9 / (HBM_BYTES_PER_S / 1e12):.1%} of "
               f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
         return res.cpu().numpy()
 
-    r = run("allreduce SUM f32", lambda: w.allreduce(x, MPI.SUM))
+    r = run("allreduce SUM f32", lambda: w.allreduce(x, MPI.SUM),
+            ("allreduce", x, MPI.SUM, None))
     _close(r, np.broadcast_to(xh.sum(0), xh.shape), 1e-5, 1e-5,
            "allreduce SUM")
-    r = run("allreduce MAX f32", lambda: w.allreduce(x, MPI.MAX))
+    r = run("allreduce MAX f32", lambda: w.allreduce(x, MPI.MAX),
+            ("allreduce", x, MPI.MAX, None))
     check(np.array_equal(r, np.broadcast_to(xh.max(0), xh.shape)),
           "allreduce MAX")
-    r = run("allreduce PROD f32", lambda: w.allreduce(xp, MPI.PROD))
+    r = run("allreduce PROD f32", lambda: w.allreduce(xp, MPI.PROD),
+            ("allreduce", xp, MPI.PROD, None))
     _close(r, np.broadcast_to(xph.prod(0), xph.shape), 1e-5, 0,
            "allreduce PROD")
-    r = run("allreduce SUM i32", lambda: w.allreduce(xi, MPI.SUM))
+    r = run("allreduce SUM i32", lambda: w.allreduce(xi, MPI.SUM),
+            ("allreduce", xi, MPI.SUM, None))
     check(np.array_equal(r, np.broadcast_to(xih.sum(0, dtype=np.int32),
                                             xih.shape)), "allreduce i32")
-    r = run("reduce MIN root 2", lambda: w.reduce(x, MPI.MIN, root=2))
+    r = run("reduce MIN root 2", lambda: w.reduce(x, MPI.MIN, root=2),
+            ("reduce", x, MPI.MIN, 2))
     check(np.array_equal(r[2], xh.min(0)), "reduce MIN")
-    r = run("bcast root 3", lambda: w.bcast(x, root=3), read=local_bytes)
+    r = run("bcast root 3", lambda: w.bcast(x, root=3),
+            ("bcast", x, None, 3), read=local_bytes)
     check(np.array_equal(r, np.broadcast_to(xh[3], xh.shape)), "bcast")
-    r = run("allgather", lambda: w.allgather(x))
+    r = run("allgather", lambda: w.allgather(x),
+            ("allgather", x, None, None))
     check(r.shape == (n, n, LOCAL_ELEMS), "allgather shape")
     check(all(np.array_equal(r[i], xh) for i in range(n)), "allgather")
-    r = run("gather root 1", lambda: w.gather(x, root=1))
+    r = run("gather root 1", lambda: w.gather(x, root=1),
+            ("gather", x, None, 1))
     check(np.array_equal(r[1], xh), "gather")
     del r
     r = run("scatter root 5", lambda: w.scatter(y, root=5),
+            ("scatter", y, None, 5),
             read=local_bytes)
     check(np.array_equal(r, yh[5]), "scatter")
-    r = run("alltoall", lambda: w.alltoall(y))
+    r = run("alltoall", lambda: w.alltoall(y),
+            ("alltoall", y, None, None))
     check(np.array_equal(r, np.swapaxes(yh, 0, 1)), "alltoall")
     r = run("reduce_scatter_block SUM",
-            lambda: w.reduce_scatter_block(y, MPI.SUM))
+            lambda: w.reduce_scatter_block(y, MPI.SUM),
+            ("reduce_scatter_block", y, MPI.SUM, None))
     _close(r, yh.sum(0), 1e-5, 1e-5, "reduce_scatter_block")
-    r = run("scan SUM", lambda: w.scan(x, MPI.SUM))
+    r = run("scan SUM", lambda: w.scan(x, MPI.SUM),
+            ("scan", x, MPI.SUM, None))
     pre = np.cumsum(xh, axis=0)
     _close(r, pre, 1e-5, 1e-5, "scan")
-    r = run("exscan SUM", lambda: w.exscan(x, MPI.SUM))
+    r = run("exscan SUM", lambda: w.exscan(x, MPI.SUM),
+            ("exscan", x, MPI.SUM, None))
     _close(r[1:], pre[:-1], 1e-5, 1e-5, "exscan")
     check(np.array_equal(r[0], xh[0]), "exscan row 0")
     del r, pre
-    phase("collectives", f"barrier: {host_ms(w.barrier, iters=20):.4f} ms")
+    phase("collectives", f"barrier (auto: "
+          f"{w._coll('barrier').selected('barrier')}): "
+          f"{host_ms(w.barrier, iters=20):.4f} ms")
 
     evens, odds = w.split([i % 2 for i in range(n)])[0:2]
     check(evens.size == n // 2 and odds.size == n // 2, "split sizes")
@@ -1011,6 +1044,265 @@ def phase_ddp(w, smi: str) -> None:
     phase("ddp", f"flash_fold launches across the DDP steps: {launched}")
 
 
+# -- phase 8 -----------------------------------------------------------
+ALG_CHECK_ELEMS = 37           # per rank: no schedule's chunking divides it
+ALG_CHECK_SIZES = (8, 3, 5, 6)
+ALG_FUNCS = ("allreduce", "reduce", "bcast", "allgather", "gather",
+             "scatter", "alltoall", "reduce_scatter_block", "scan", "exscan")
+ALG_REDUCING = ("allreduce", "reduce", "reduce_scatter_block", "scan",
+                "exscan")
+ALG_ROOTED = ("reduce", "bcast", "gather", "scatter")
+# The lowering each schedule is held against: reduce's and gather's
+# symmetric aliases, every other collective's direct lowering.
+ALG_BASELINE = {"reduce": "alias", "gather": "allgather"}
+# Schedules whose every combine is op.fn on the same operands in the same
+# order on any device: the card's result equals the CPU port's bit for bit.
+ALG_BITWISE = {"ring", "ring_segmented", "recursive_doubling",
+               "in_order_binary", "knomial", "recursive_halving",
+               "butterfly"}
+
+
+def _alg_var(func: str) -> str:
+    return f"coll_torch_{'scan' if func == 'exscan' else func}_algorithm"
+
+
+def _alg_expected(func: str, alg: str, n: int, op) -> str:
+    """What the reference's rules run for ``alg`` forced on ``n`` ranks
+    with ``op``: coll/decision's structural demotions, then each
+    collective's own (coll/xla.py:1209-1658)."""
+    f = "scan" if func == "exscan" else func
+    if (alg in decision.REORDERING and op is not None and not op.commute
+            and (f, alg) not in decision.ORDER_PRESERVING):
+        alg = "direct"
+    elif (alg in decision.POW2_ONLY and n & (n - 1)
+          and (f, alg) not in decision.POW2_EXEMPT):
+        alg = "direct"
+    elif alg in decision.EVEN_ONLY and n % 2:
+        alg = "direct"
+    elif alg == "two_procs" and n != 2:
+        alg = "direct"
+    elif (alg in ("rabenseifner", "rabenseifner_root")
+          or (f, alg) == ("reduce_scatter_block", "hier")) \
+            and op.xla_prim != "sum":
+        alg = "direct"
+    if f == "reduce" and alg not in ("knomial", "in_order_binary",
+                                     "rabenseifner_root"):
+        alg = "alias"
+    return alg
+
+
+def _alg_run(comm, func, x, op, root):
+    """``func`` on ``comm`` from the numpy ``x``: (host result, the
+    algorithm that ran)."""
+    buf = comm.put(x)
+    args = (buf,) + ((op,) if op is not None else ()) + \
+        ((root,) if root is not None else ())
+    y = getattr(comm, func)(*args)
+    return y.cpu().numpy(), comm._coll(func).selected(func, buf, op, root)
+
+
+def _alg_checks(card, cpu, ops) -> str:
+    """Every (collective, algorithm, op) at 37 elements per rank on a
+    card communicator: against the direct lowering on the card (data
+    movement, MAX, int32 and the non-commutative op exact; float32 SUM
+    and PROD rtol 1e-5, atol 1e-5), bit for bit against the same schedule
+    on the CPU port where it combines with op.fn alone (and wherever the
+    result is exact), and what ran against the reference's rules."""
+    n = card.size
+    root = n - 1
+    cases = bitwise = 0
+    worst = 0.0
+    demoted = {}
+    for fi, func in enumerate(ALG_FUNCS):
+        name = _alg_var(func)
+        f = "scan" if func == "exscan" else func
+        lead = (n, n) if func in ("scatter", "alltoall",
+                                  "reduce_scatter_block") else (n,)
+        r = root if func in ALG_ROOTED else None
+        kinds = ([("float32", "SUM"), ("float32", "PROD"),
+                  ("float32", "MAX"), ("int32", "SUM"),
+                  ("float32", "right_take")]
+                 if func in ALG_REDUCING else [("float32", None)])
+        for ki, (dtype, opname) in enumerate(kinds):
+            op = ops[opname] if opname else None
+            rng = np.random.default_rng(1000 * n + 10 * fi + ki)
+            if dtype == "int32":
+                x = rng.integers(-1000, 1000, lead + (ALG_CHECK_ELEMS,),
+                                 dtype=np.int32)
+            else:
+                x = rng.standard_normal(lead + (ALG_CHECK_ELEMS,)) \
+                    .astype(np.float32)
+                if opname == "PROD":
+                    x = (1 + 0.05 * x).astype(np.float32)
+            var.var_set(name, ALG_BASELINE.get(f, "direct"))
+            want, _ = _alg_run(card, func, x, op, r)
+            for alg in ALGORITHMS[f][1:]:
+                var.var_set(name, alg)
+                got, ran = _alg_run(card, func, x, op, r)
+                on_cpu, ran_cpu = _alg_run(cpu, func, x, op, r)
+                what = f"{func} {alg} {opname} {dtype} n={n}"
+                expected = _alg_expected(func, alg, n, op)
+                check(ran == ran_cpu == expected,
+                      f"{what}: ran {ran} (CPU {ran_cpu}), the "
+                      f"reference's rules give {expected}")
+                if ran != alg:
+                    why = f" [{opname}]" if ran_cpu != _alg_expected(
+                        func, alg, n, ops["SUM"]) else ""
+                    demoted[f"{func} {alg}->{ran}{why}"] = None
+                rows = root if func in ("reduce", "gather") else slice(None)
+                g, w_ = got[rows], want[rows]
+                check(g.shape == w_.shape and g.dtype == w_.dtype,
+                      f"{what}: {g.shape} {g.dtype} against direct "
+                      f"{w_.shape} {w_.dtype}")
+                exact = opname in (None, "MAX", "right_take") \
+                    or dtype == "int32"
+                if exact:
+                    check(np.array_equal(g, w_), f"{what}: differs from "
+                          f"the direct lowering")
+                else:
+                    err = float(np.max(np.abs(g.astype(np.float64) - w_)))
+                    worst = max(worst, err)
+                    check(np.allclose(g, w_, rtol=1e-5, atol=1e-5),
+                          f"{what}: max abs err {err:.3g} against direct")
+                if exact or ran in ALG_BITWISE:
+                    check(got.dtype == on_cpu.dtype and np.array_equal(
+                        got.view(np.uint8), on_cpu.view(np.uint8)),
+                        f"{what}: the card's bits differ from the CPU "
+                        f"port's")
+                    bitwise += 1
+                cases += 1
+            var.var_set(name, "auto")
+    for alg in ALGORITHMS["barrier"][1:]:
+        var.var_set("coll_torch_barrier_algorithm", alg)
+        card.barrier()
+        tok = card._coll("barrier")._ibarrier_arrays()[0].cpu()
+        ref = cpu._coll("barrier")._ibarrier_arrays()[0]
+        check(torch.equal(tok, ref) and bool((tok >= n).all()),
+              f"barrier {alg} n={n}: token {tok.tolist()} against the "
+              f"CPU port's {ref.tolist()}")
+        check(card._coll("barrier").selected("barrier") == alg,
+              f"barrier {alg} n={n} did not run")
+        cases += 1
+    var.var_set("coll_torch_barrier_algorithm", "auto")
+    return (f"n={n}: {cases} (collective, algorithm, op) cases held "
+            f"against the direct lowering, {bitwise} of them bit for bit "
+            f"against the CPU port; largest float SUM/PROD error "
+            f"{worst:.3g}; demoted by the reference's rules: "
+            f"{', '.join(demoted) or 'none'}")
+
+
+def _dispatch_us(fn, iters: int = 5) -> float:
+    """Median host time of one ``fn()`` dispatch in µs, each started on
+    an idle device queue (a schedule is a Python loop of launches)."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _alg_times(w, smi: str) -> list:
+    """Every (collective, algorithm) at 32 MB per rank on the 8-rank
+    world, each checked against the direct lowering on the card (SUM
+    rtol 1e-5, atol 1e-5; the rest exact) and timed: device ms (CUDA
+    events, median of 5 after 2 warm-ups), the share of HBM for the
+    least in+out traffic (phase 4's formula), and host µs of one
+    dispatch."""
+    n = w.size
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((n, LOCAL_ELEMS), device="cuda", generator=g)
+    y = torch.randn((n, n, LOCAL_ELEMS // n), device="cuda", generator=g)
+    local = LOCAL_ELEMS * 4
+    specs = [("allreduce", x, MPI.SUM, None), ("reduce", x, MPI.SUM, 2),
+             ("bcast", x, None, 3), ("allgather", x, None, None),
+             ("gather", x, None, 1), ("scatter", y, None, 5),
+             ("alltoall", y, None, None),
+             ("reduce_scatter_block", y, MPI.SUM, None),
+             ("scan", x, MPI.SUM, None), ("exscan", x, MPI.SUM, None)]
+    table = []
+    for func, buf, op, root in specs:
+        f = "scan" if func == "exscan" else func
+        args = (buf,) + ((op,) if op is not None else ()) + \
+            ((root,) if root is not None else ())
+
+        def call():
+            return getattr(w, func)(*args)
+        var.var_set(_alg_var(func), ALG_BASELINE.get(f, "direct"))
+        want = call()
+        rows = root if func in ("reduce", "gather") else slice(None)
+        read = local if func in ("bcast", "scatter") else buf.numel() * 4
+        moved = read + want.numel() * want.element_size()
+        for alg in ALGORITHMS[f][1:]:
+            var.var_set(_alg_var(func), alg)
+            got = call()
+            ran = w._coll(func).selected(func, buf, op, root)
+            what = f"{func} {alg} at 32 MB/rank"
+            check(ran == _alg_expected(func, alg, n, op),
+                  f"{what}: ran {ran}")
+            if op is None:
+                check(torch.equal(got[rows], want[rows]),
+                      f"{what}: differs from the direct lowering")
+            else:
+                err = (got[rows].double() - want[rows].double()).abs() \
+                    .max().item()
+                check(bool(torch.allclose(got[rows], want[rows], rtol=1e-5,
+                                          atol=1e-5)),
+                      f"{what}: max abs err {err:.3g} against direct")
+            del got
+            ms = device_ms(call, iters=5, warmup=2)
+            us = _dispatch_us(call)
+            share = moved / ms / 1e9 / (HBM_BYTES_PER_S / 1e12)
+            phase("algorithms", f"{func} {alg} (ran {ran}): {ms:.4f} ms "
+                  f"device, {share:.1%} of {HBM_BYTES_PER_S / 1e12:.2f} "
+                  f"TB/s for {moved / 1e6:.0f} MB in+out, host "
+                  f"{us:.1f} us per dispatch | {smi}")
+            table.append({"func": func, "algorithm": alg, "ran": ran,
+                          "ms": ms, "hbm_share": share, "host_us": us})
+        var.var_set(_alg_var(func), "auto")
+        del want
+        torch.cuda.empty_cache()
+    mod = w._coll("barrier")
+    for alg in ALGORITHMS["barrier"][1:]:
+        var.var_set("coll_torch_barrier_algorithm", alg)
+        ms = device_ms(mod._barrier_arrays, iters=5, warmup=2)
+        us = _dispatch_us(mod._barrier_arrays)
+        phase("algorithms", f"barrier {alg} (ran {mod.selected('barrier')})"
+              f": {ms:.4f} ms device for the token schedule, host {us:.1f} "
+              f"us per dispatch | {smi}")
+    var.var_set("coll_torch_barrier_algorithm", "auto")
+    return table
+
+
+def phase_algorithms(w, smi: str) -> None:
+    """Every schedule of coll/torch forced through its var: checks at 37
+    elements per rank on the 8-rank world and on split sub-communicators
+    of sizes 3, 5 and 6, then times at 32 MB per rank on the 8-rank
+    world."""
+    t0 = time.perf_counter()
+    ops = {"SUM": MPI.SUM, "PROD": MPI.PROD, "MAX": MPI.MAX,
+           "right_take": MPI.op_create(lambda a, b: b, commute=False)}
+    n = w.size
+    cpu_world = MPI.Communicator(MPI.Group(range(n)),
+                                 [torch.device("cpu")] * n, name="cpu_world")
+    for size in ALG_CHECK_SIZES:
+        colors = [0] * size + [MPI.UNDEFINED] * (n - size)
+        card = w if size == n else w.split(colors)[0]
+        cpu = cpu_world if size == n else cpu_world.split(colors)[0]
+        phase("algorithms", _alg_checks(card, cpu, ops))
+    table = _alg_times(w, smi)
+    for func in ALG_FUNCS:
+        rows = [t for t in table if t["func"] == func]
+        base = rows[0]["ms"]
+        best = min(rows, key=lambda t: t["ms"])
+        phase("algorithms", f"{func}: fastest {best['algorithm']} "
+              f"{best['ms']:.4f} ms against {rows[0]['algorithm']} "
+              f"{base:.4f} ms")
+    phase("algorithms", f"phase 8 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1029,6 +1321,7 @@ def main() -> int:
     phase_ddp(world, smi)
     phase("nonblocking", f"phase 7 took {time.perf_counter() - t7:.1f} s "
           f"| {smi}")
+    phase_algorithms(world, smi)
     MPI.Finalize()
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{

@@ -9,6 +9,9 @@ Components:
 - ``nbc``   — nonblocking collectives as round schedules driven by the
               progress engine (mirrors coll/libnbc).
 
-``persistent`` holds the pre-bound persistent-collective plans and the
-DDP-style bucket fuser behind ``*_init``/``Startall``.
+``decision`` holds the per-collective algorithm tables the ``torch``
+component selects its schedules from, ``tuned`` the dynamic-rules file
+that overrides them, and ``persistent`` the pre-bound
+persistent-collective plans and the DDP-style bucket fuser behind
+``*_init``/``Startall``.
 """

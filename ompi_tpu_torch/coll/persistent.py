@@ -5,7 +5,8 @@ The port of ``ompi_tpu/coll/persistent.py``'s single-controller
 family (``MPI_Allreduce_init`` …):
 
 1. **Plan pre-binding.** Validation, component selection and the
-   algorithm check run ONCE at ``*_init``, with one warm-up collective;
+   algorithm selection run ONCE at ``*_init``, with one warm-up
+   collective (the allreduce plan binds the selected schedule);
    ``MPI_Start`` is launch-only. A Start reads the send buffer's
    contents at Start, not at init: a tensor changed in place between
    starts gives the new result.
@@ -35,18 +36,20 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ompi_tpu_torch.coll import decision
 from ompi_tpu_torch.core.datatype import torch_dtype
 from ompi_tpu_torch.core.errhandler import MPIError
 from ompi_tpu_torch.core.request import Request, event_after
 from ompi_tpu_torch.mca import pvar, var
 from ompi_tpu_torch.runtime import progress as prog
 
-DEFAULT_BUCKET_BYTES = 1 << 20
+# The funcs with a pre-bound plan, and the funcs the BucketFuser
+# coalesces (coll/decision's persistent and bucket rows).
+PERSISTENT_FUNCS = ("allreduce", "bcast", "allgather",
+                    "reduce_scatter_block", "barrier")
+FUSED_FUNCS = ("allreduce",)
 
-# The algorithm every plan records: the port's coll components have one
-# lowering per collective (``coll_torch_<func>_algorithm`` accepts only
-# ``direct``), and the decision tables are not ported.
-ALGORITHM = "direct"
+DEFAULT_BUCKET_BYTES = 1 << 20
 
 
 # -- config (MCA vars) ------------------------------------------------------
@@ -136,7 +139,9 @@ class CollPlan:
     when its request goes, without waiting for the cycle collector).
     ``payload``/
     ``epilogue`` are the bucket-fusion adapters (None = not fusable).
-    ``codec`` stays None until the compression plane is ported."""
+    ``algorithm`` is what ``coll/decision`` chose at init for the plan's
+    (func, per-rank bytes, platform). ``codec`` stays None until the
+    compression plane is ported."""
 
     __slots__ = ("comm", "func", "launch", "fn", "buf", "op", "nbytes",
                  "algorithm", "codec", "bucket_key", "payload",
@@ -145,7 +150,7 @@ class CollPlan:
     def __init__(self, comm, func: str,
                  launch: Optional[Callable[[], Request]] = None, *,
                  fn: Optional[Callable] = None, buf: Any = None,
-                 op=None, nbytes: int = 0,
+                 op=None, nbytes: int = 0, algorithm: str = "direct",
                  bucket_key: Optional[Tuple] = None,
                  payload: Optional[Callable[[], Any]] = None,
                  epilogue: Optional[Callable[[Any], Any]] = None):
@@ -156,7 +161,7 @@ class CollPlan:
         self.launch = launch
         self.op = op
         self.nbytes = int(nbytes)
-        self.algorithm = ALGORITHM
+        self.algorithm = algorithm
         self.codec: Optional[str] = None
         self.bucket_key = bucket_key
         self.payload = payload
@@ -242,20 +247,30 @@ def _bucket_spec(comm, data, op) -> Optional[Tuple]:
             int(data.nbytes) // max(n, 1))
 
 
+def _decide(comm, func: str, nbytes: int) -> str:
+    """The plan's recorded algorithm: ``coll/decision``'s choice for the
+    plan's (func, per-rank bytes) on the communicator's platform, as the
+    reference's plans record it (the var pins and the dynamic rules are
+    the running module's to apply)."""
+    return decision.decide(func, comm.size, nbytes, False, None,
+                           decision.platform_key(comm.device))
+
+
 def _stacked_plan(comm, func: str, *args) -> CollPlan:
     """Validate, select and warm once (one collective on the spot, which
     the MPI-4 init contract permits); the plan's Start is launch-only."""
     if func == "barrier":
         mod = comm._coll("barrier")
+        alg = _decide(comm, "barrier", 0)
         fn = getattr(mod, "_ibarrier_arrays", None)
         if fn is not None:
             fn()                                      # warm
-            return CollPlan(comm, "barrier", fn=fn)
+            return CollPlan(comm, "barrier", fn=fn, algorithm=alg)
 
         def launch():
             mod.barrier()
             return Request.completed()
-        return CollPlan(comm, "barrier", launch)
+        return CollPlan(comm, "barrier", launch, algorithm=alg)
 
     if func == "allreduce":
         sendbuf, op = args
@@ -274,8 +289,9 @@ def _stacked_plan(comm, func: str, *args) -> CollPlan:
         if spec is not None:
             key, payload, epilogue, per_rank = spec
         return CollPlan(comm, "allreduce", fn=fn, buf=sendbuf, op=op,
-                        nbytes=per_rank, bucket_key=key, payload=payload,
-                        epilogue=epilogue)
+                        nbytes=per_rank,
+                        algorithm=_decide(comm, "allreduce", per_rank),
+                        bucket_key=key, payload=payload, epilogue=epilogue)
 
     if func == "bcast":
         buf, root = args
@@ -297,9 +313,11 @@ def _stacked_plan(comm, func: str, *args) -> CollPlan:
     else:
         raise ValueError(f"no persistent plan for collective {func!r}")
     fn()                                              # warm
+    per_rank = int(buf.nbytes) // max(comm.size, 1)
     return CollPlan(comm, func, fn=fn,
                     op=args[1] if func == "reduce_scatter_block" else None,
-                    nbytes=int(buf.nbytes) // max(comm.size, 1))
+                    nbytes=per_rank,
+                    algorithm=_decide(comm, func, per_rank))
 
 
 def coll_init(comm, func: str, *args) -> PersistentCollRequest:

@@ -50,6 +50,7 @@ class _Var:
     help: str = ""
     value: Any = None
     source: str = SOURCE_DEFAULT
+    enumerator: Optional[List[Any]] = None   # the allowed values, if any
     site: str = ""                 # "file.py:line" of the owning register
 
 
@@ -91,10 +92,13 @@ def _caller_site() -> str:
 
 def var_register(framework: str, component: str, name: str, *,
                  vtype: str = "str", default: Any = None,
-                 help: str = "") -> Any:
+                 help: str = "",
+                 enumerator: Optional[List[Any]] = None) -> Any:
     """Register a typed variable; resolve its value through the precedence
     chain and return the resolved value (as ``mca_base_var_register`` does
-    via its out-param).
+    via its out-param). With an ``enumerator``, a file or environment
+    value outside it resolves to the default (``var_set`` stays
+    unchecked, as in the reference).
 
     Re-registering from the SAME call site or with the same
     (vtype, default) shape is a no-op returning the live value; a
@@ -116,8 +120,10 @@ def var_register(framework: str, component: str, name: str, *,
             return v.value
         _epoch += 1
         v = _Var(name=full, vtype=vtype, default=default, help=help,
-                 site=site)
+                 enumerator=enumerator, site=site)
         v.value, v.source = _resolve(full, coerce, default)
+        if enumerator is not None and v.value not in enumerator:
+            v.value, v.source = default, SOURCE_DEFAULT
         _registry[full] = v
         return v.value
 
@@ -151,6 +157,15 @@ def epoch() -> int:
     return _epoch
 
 
+def bump_epoch() -> None:
+    """Invalidate epoch-keyed memos for a decision-input change the var
+    store itself cannot observe (the tuned dynamic-rules file reloading
+    on an mtime change)."""
+    global _epoch
+    with _lock:
+        _epoch += 1
+
+
 def var_set(full: str, value: Any, source: str = SOURCE_SET) -> None:
     """Programmatic override (highest precedence)."""
     global _epoch
@@ -176,7 +191,7 @@ def var_dump() -> List[Dict[str, Any]]:
         return [
             {"name": v.name, "type": v.vtype, "value": v.value,
              "default": v.default, "source": v.source, "help": v.help,
-             "site": v.site}
+             "enumerator": v.enumerator, "site": v.site}
             for v in sorted(_registry.values(), key=lambda v: v.name)
         ]
 

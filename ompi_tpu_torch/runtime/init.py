@@ -23,7 +23,7 @@ from typing import List, Optional
 import torch
 
 from ompi_tpu_torch import accelerator
-from ompi_tpu_torch.coll import persistent
+from ompi_tpu_torch.coll import persistent, tuned
 from ompi_tpu_torch.core.communicator import Communicator
 from ompi_tpu_torch.core.errhandler import ERR_OTHER, MPIError
 from ompi_tpu_torch.core.group import Group
@@ -63,6 +63,7 @@ def init(requested: int = THREAD_SINGLE,
     n = len(devices)
     accelerator.select_for_devices(devices)
     persistent.register_vars()
+    tuned.register_vars()
 
     world = Communicator(Group(range(n)), devices, name="MPI_COMM_WORLD")
     self_comm = Communicator(Group([0]), [devices[0]], name="MPI_COMM_SELF")

@@ -193,9 +193,12 @@ def test_errors_are_fatal_by_default(pworld, capsys):
 
 def test_mca_env_var_is_seen(monkeypatch):
     """A var set through OMPI_TPU_TORCH_MCA_ reaches the port (and the
-    JAX package's prefix does not)."""
+    JAX package's prefix does not); a value outside the var's enumerator
+    resolves to its default, as in the reference."""
     monkeypatch.setenv("OMPI_TPU_TORCH_MCA_coll_torch_allreduce_algorithm",
                        "ring")
+    monkeypatch.setenv("OMPI_TPU_TORCH_MCA_coll_torch_bcast_algorithm",
+                       "no_such_schedule")
     monkeypatch.setenv("OMPI_TPU_MCA_coll_torch_priority", "5")
     P._reset_for_tests()
     try:
@@ -203,13 +206,16 @@ def test_mca_env_var_is_seen(monkeypatch):
         w = P.get_comm_world()
         assert pvar.var_get("coll_torch_allreduce_algorithm") == "ring"
         assert pvar.var_source("coll_torch_allreduce_algorithm") == "env"
+        assert pvar.var_get("coll_torch_bcast_algorithm") == "auto"
+        assert pvar.var_source("coll_torch_bcast_algorithm") == "default"
         assert pvar.var_get("coll_torch_priority") == 40
         assert w._coll_winners["allreduce"] == "torch"
-        w.set_errhandler(P.ERRORS_RETURN)
-        with pytest.raises(P.MPIError):       # only 'direct' is ported
-            w.allreduce(w.alloc((2,)), P.SUM)
+        x = w.alloc((2,), fill=1.0)
+        assert torch.all(w.allreduce(x) == N)      # the ring ran
+        assert w._coll("allreduce").selected("allreduce", x,
+                                             P.SUM) == "ring"
         pvar.var_set("coll_torch_allreduce_algorithm", "direct")
-        assert torch.all(w.allreduce(w.alloc((2,), fill=1.0)) == N)
+        assert torch.all(w.allreduce(x) == N)
     finally:
         P._reset_for_tests()
 

@@ -169,7 +169,7 @@ def test_plan_metadata_matches_jax(pworld, world, mpi):
     plan = pworld.allreduce_init(pworld.put(x), P.SUM).plan
     jplan = world.allreduce_init(world.put(x), mpi.SUM).plan
     assert plan.func == jplan.func == "allreduce"
-    assert plan.algorithm == "direct" and jplan.algorithm
+    assert plan.algorithm == jplan.algorithm
     assert plan.codec is None and jplan.codec is None
     assert plan.nbytes == jplan.nbytes == 64 * 4
     assert plan.bucket_key[0] == "sum" and plan.bucket_key[1] == str(
