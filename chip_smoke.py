@@ -60,6 +60,21 @@ Phases, one or more lines each:
                 checked against the direct lowering and timed (device ms,
                 share of HBM, host µs per dispatch). Phase 4 prints what
                 ``auto`` picked beside each of its times.
+9. compression — on the same world: each real codec's torch half at 32
+                MB on the card against the CPU, bit for bit, with
+                poisoned blocks, within ``error_bound``; allreduce SUM,
+                allgather and reduce_scatter_block on a communicator
+                dup'ed with ``mpi_base_compress`` on, per codec (int8,
+                fp8, null) at 4 and 32 MB per rank, against float64
+                numpy within the reference's envelopes, rows identical,
+                bit for bit against the CPU port, with the wire ratio
+                from the pvars, device ms against the uncompressed
+                schedules and host µs per dispatch; the gates (var off,
+                MAX, int32, under the floor: bit-identical, no byte
+                counted); ``allreduce_bind``, a compressed plan and a
+                fused ``Startall`` bucket; the DDP step with compressed
+                buckets against the uncompressed one; the v- and
+                root-form collectives with ragged counts against numpy.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -87,6 +102,7 @@ from ompi_tpu_torch import entry as E
 from ompi_tpu_torch.coll import decision, persistent
 from ompi_tpu_torch.coll.nbc import ScheduleRequest
 from ompi_tpu_torch.coll.torch_ import ALGORITHMS
+from ompi_tpu_torch.compress.codecs import get_codec
 from ompi_tpu_torch.entry import CONFIG, entry
 from ompi_tpu_torch.models import transformer as T
 from ompi_tpu_torch.ops import _build
@@ -1303,6 +1319,498 @@ def phase_algorithms(w, smi: str) -> None:
     phase("algorithms", f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 9 -----------------------------------------------------------
+CODECS = ("int8_block", "fp8_block", "null")
+REAL_CODECS = ("int8_block", "fp8_block")
+CODEC_BLOCK = 256
+COMPRESS_ELEMS = (1 << 20, LOCAL_ELEMS)    # per rank: 4 MB and 32 MB fp32
+# per-hop relative code step of each codec (codecs.error_bound / maxabs)
+CODEC_EPS = {"int8_block": 1 / 254, "fp8_block": 1 / 16, "null": 0.0}
+# The reference's envelopes (0.02 max|ref| for the reductions, max|x|/64
+# for allgather) are int8_block's; fp8_block's error bound is 254/16 times
+# int8's, so its envelopes are scaled by that ratio.
+ENVELOPE_SCALE = {"int8_block": 1.0, "fp8_block": 254 / 16, "null": 1.0}
+V_COUNTS = {37: [37 - 3 * r for r in range(N_RANKS)],
+            LOCAL_ELEMS: [LOCAL_ELEMS - 4099 * r for r in range(N_RANKS)]}
+
+
+def _wire() -> tuple:
+    return (pvar.pvar_read("compress_bytes_in"),
+            pvar.pvar_read("compress_bytes_out"))
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality of two float tensors, NaN-aware (every NaN
+    equals every NaN; all other values compare by their bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    a, b = a.contiguous(), b.contiguous()
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ity = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.view(ity)[~nan], b.view(ity)[~nan])
+
+
+def _codec_checks(smi: str) -> None:
+    """Each real codec's device half at 32 MB (one rank's row) on the card
+    against the same call on the CPU: codes on finite blocks, scales and
+    dequantized values NaN-aware, bit for bit. Blocks of scales spread
+    over six decades; three blocks hold inf, nan and -inf."""
+    E, blk = LOCAL_ELEMS, CODEC_BLOCK
+    g = torch.Generator(device="cuda").manual_seed(21)
+    spread = torch.logspace(-3, 3, E // blk, device="cuda")
+    x = torch.randn(E, device="cuda", generator=g) * \
+        spread.repeat_interleave(blk)
+    x[1000], x[5000], x[9000] = math.inf, math.nan, -math.inf
+    xc = x.cpu()
+    for name in REAL_CODECS:
+        c = get_codec(name)
+        qc, qs = c.torch_quant(x, blk)
+        dq = c.torch_dequant(qc, qs, E, torch.float32, blk)
+        hc, hs = c.torch_quant(xc, blk)
+        hd = c.torch_dequant(hc, hs, E, torch.float32, blk)
+        fin = torch.isfinite(hs)
+        check(int((~fin).sum()) == 3, f"{name}: {int((~fin).sum())} "
+              "poisoned blocks, 3 expected")
+        check(torch.equal(qc.cpu().view(-1, blk)[fin], hc.view(-1, blk)[fin]),
+              f"{name}: card codes differ from the CPU's on finite blocks")
+        check(_same_bits(qs.cpu(), hs), f"{name}: card scales differ")
+        check(_same_bits(dq.cpu(), hd), f"{name}: card dequant differs")
+        blocks = hd.view(-1, blk)
+        check(bool(torch.isnan(blocks[~fin]).all()),
+              f"{name}: a poisoned block kept a finite value")
+        xb = xc.double().view(-1, blk)
+        maxabs = xb.abs().amax(1).numpy()
+        bound = torch.from_numpy(c.error_bound(maxabs))
+        err = (xb - blocks.double()).abs().amax(1)
+        # relative slack 1e-4: the float32 rounding of x / scale, of the
+        # scale and of the dequantized product can move a rounding tie by
+        # a few parts in 1e6 of the block's max
+        over = err[fin] > bound[fin] * (1 + 1e-4)
+        check(not bool(over.any()), f"{name}: error above error_bound in "
+              f"{int(over.sum())} blocks")
+        share = float((err[fin] / bound[fin]).max())
+        q_ms = device_ms(lambda: c.torch_quant(x, blk), iters=10, warmup=2)
+        d_ms = device_ms(lambda: c.torch_dequant(qc, qs, E, torch.float32,
+                                                 blk), iters=10, warmup=2)
+        nb = E // blk
+        q_bound = (4 * E + E + 4 * nb) / HBM_BYTES_PER_S * 1e3
+        d_bound = (E + 4 * nb + 4 * E) / HBM_BYTES_PER_S * 1e3
+        phase("compression", f"{name} at 32 MB: card = CPU bit for bit "
+              f"(codes on {int(fin.sum())} finite blocks, scales and "
+              f"dequant NaN-aware; 3 poisoned blocks all NaN); largest "
+              f"error {share:.6f} of error_bound; torch_quant {q_ms:.4f} "
+              f"ms (bound {q_bound:.4f}, bytes), torch_dequant {d_ms:.4f} "
+              f"ms (bound {d_bound:.4f}) | {smi}")
+
+
+def _alg_ms(w, func, args, alg) -> float:
+    var.var_set(_alg_var(func), alg)
+    try:
+        return device_ms(lambda: getattr(w, func)(*args), iters=5, warmup=2)
+    finally:
+        var.var_set(_alg_var(func), "auto")
+
+
+def _compressed_colls(w, cw, ccpu, smi: str) -> list:
+    """allreduce SUM, allgather and reduce_scatter_block on the
+    compression comm at 4 MB and 32 MB per rank for every codec: against
+    float64 numpy (0.02 max|ref| for the reductions, max|x|/64 for
+    allgather, the reference's envelopes, times ENVELOPE_SCALE), rows
+    identical across ranks,
+    bit for bit against the CPU port, wire ratio from the pvars (<= 0.3
+    for the real codecs); device ms against the plain schedules and host
+    us per dispatch."""
+    n, rows = w.size, []
+    for elems in COMPRESS_ELEMS:
+        g = torch.Generator(device="cuda").manual_seed(31 + elems)
+        x = torch.randn((n, elems), device="cuda", generator=g)
+        y = torch.randn((n, n, elems // n), device="cuda", generator=g)
+        xh, yh = x.cpu(), y.cpu()
+        refs = {"allreduce": xh.double().sum(0),
+                "reduce_scatter_block": yh.double().sum(0)}
+        plain = {"allreduce": [("direct", _alg_ms(w, "allreduce",
+                                                  (x, MPI.SUM), "direct")),
+                               ("ring_segmented", _alg_ms(
+                                   w, "allreduce", (x, MPI.SUM),
+                                   "ring_segmented"))],
+                 "allgather": [("direct", _alg_ms(w, "allgather", (x,),
+                                                  "direct"))],
+                 "reduce_scatter_block": [("direct", _alg_ms(
+                     w, "reduce_scatter_block", (y, MPI.SUM), "direct"))]}
+        for name in CODECS:
+            var.var_set("mpi_base_compress_codec", name)
+            for func, buf, host, op in (
+                    ("allreduce", x, xh, MPI.SUM),
+                    ("allgather", x, xh, None),
+                    ("reduce_scatter_block", y, yh, MPI.SUM)):
+                args = (buf,) + ((op,) if op else ())
+                what = f"compressed {func} {name} at {elems * 4 >> 20} MB"
+                check(cw._coll(func).selected(func, buf, op) ==
+                      f"compressed:{name}", f"{what}: not selected")
+                w0 = _wire()
+                got = getattr(cw, func)(*args)
+                torch.cuda.synchronize()
+                w1 = _wire()
+                moved_in, moved_out = w1[0] - w0[0], w1[1] - w0[1]
+                check(moved_in > 0, f"{what}: no compressed bytes counted")
+                ratio = moved_out / moved_in
+                if name != "null":
+                    check(ratio <= 0.3, f"{what}: wire ratio {ratio:.3f}")
+                cpu = getattr(ccpu, func)(host, *args[1:])
+                got_h = got.cpu()
+                check(_same_bits(got_h, cpu), f"{what}: card differs from "
+                      f"the CPU port")
+                if func == "allgather":
+                    env = float(xh.abs().max()) / 64 * ENVELOPE_SCALE[name]
+                    err = max(float((got_h[r].double() - xh.double())
+                                    .abs().max()) for r in range(n))
+                    scale = float(xh.abs().max())
+                    same = all(torch.equal(got_h[r], got_h[0])
+                               for r in range(1, n))
+                else:
+                    ref = refs[func]
+                    scale = float(ref.abs().max())
+                    env = 0.02 * scale * ENVELOPE_SCALE[name]
+                    err = float((got_h.double() - ref).abs().max())
+                    same = (func != "allreduce" or
+                            bool((got_h == got_h[:1]).all()))
+                check(err <= env, f"{what}: max abs err {err:.4g} > "
+                      f"envelope {env:.4g}")
+                check(same, f"{what}: rows differ across ranks")
+                del got, got_h, cpu
+                ms = device_ms(lambda: getattr(cw, func)(*args), iters=5,
+                               warmup=2)
+                us = _dispatch_us(lambda: getattr(cw, func)(*args))
+                vs = ", ".join(f"{a} {m:.4f} ms (x{ms / m:.2f})"
+                               for a, m in plain[func])
+                phase("compression", f"{what}: wire ratio {ratio:.4f} "
+                      f"({moved_out} of {moved_in} B); max rel err "
+                      f"{err / scale:.3g} (envelope {env / scale:.3g}); card "
+                      f"= CPU bit for bit; {ms:.4f} ms device against "
+                      f"uncompressed {vs}; host {us:.1f} us per dispatch "
+                      f"| {smi}")
+                rows.append({"func": func, "codec": name, "ms": ms,
+                             "ratio": ratio, "rel_err": err / scale})
+                torch.cuda.empty_cache()
+        del x, y
+    var.var_set("mpi_base_compress_codec", "int8_block")
+    return rows
+
+
+def _gates(w, cw) -> str:
+    """With the var off, a MAX op, int32 data, or a payload under the
+    floor: bit-identical to the plain path, and no compressed byte."""
+    n = w.size
+    g = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.randn((n, 1 << 20), device="cuda", generator=g)
+    y = torch.randn((n, n, (1 << 20) // n), device="cuda", generator=g)
+    xi = torch.randint(-1000, 1000, (n, 1 << 20), device="cuda",
+                       dtype=torch.int32, generator=g)
+    small = x[:, :1000].contiguous()
+    cases = [("MAX", "allreduce", (x, MPI.MAX)),
+             ("int32 SUM", "allreduce", (xi, MPI.SUM)),
+             ("under the floor", "allreduce", (small, MPI.SUM)),
+             ("under the floor", "allgather", (small,))]
+    off = [("var off", "allreduce", (x, MPI.SUM)),
+           ("var off", "allgather", (x,)),
+           ("var off", "reduce_scatter_block", (y, MPI.SUM))]
+    for i, (why, func, args) in enumerate(cases + off):
+        if i == len(cases):
+            var.var_set("mpi_base_compress", False)
+        w0 = _wire()
+        got = getattr(cw, func)(*args)
+        torch.cuda.synchronize()
+        check(_wire() == w0, f"{func} ({why}): compressed bytes moved")
+        check(torch.equal(got, getattr(w, func)(*args)),
+              f"{func} ({why}): differs from the plain path")
+    var.var_set("mpi_base_compress", True)
+    held = ", ".join(f"{f} ({why})" for why, f, _ in cases + off)
+    return (f"gates held: {held} bit-identical to the plain path with no "
+            f"compressed byte")
+
+
+def _plans(w, cw) -> str:
+    """allreduce_bind and a persistent plan on the compression comm at 4 MB
+    per rank; Startall over 16 members of 32 KiB per rank with the floor
+    at 256 KiB and 1 MiB buckets: the fused bucket takes the codec."""
+    n = w.size
+    g = torch.Generator(device="cuda").manual_seed(51)
+    x = torch.randn((n, 1 << 20), device="cuda", generator=g)
+    want = cw.allreduce(x, MPI.SUM)
+    w0 = _wire()
+    got = cw.allreduce_bind(x, MPI.SUM)(x)
+    torch.cuda.synchronize()
+    check(_wire()[0] > w0[0], "allreduce_bind: the codec did not engage")
+    check(torch.equal(got, want), "allreduce_bind differs from allreduce")
+    req = cw.allreduce_init(x, MPI.SUM)
+    check(req.plan.codec == "int8_block", f"plan codec {req.plan.codec}")
+    req.start()
+    check(torch.equal(req.get(), want), "persistent plan differs")
+    small = w.allreduce_init(x[:, :8], MPI.SUM)
+    check(small.plan.codec is None, "a plain comm's plan has a codec")
+    var.var_set("mpi_base_compress_min_bytes", 256 << 10)
+    var.var_set("mpi_base_bucket", True)
+    var.var_set("mpi_base_bucket_bytes", 1 << 20)
+    try:
+        c2 = w.dup()
+        xs = [torch.randn((n, 8192), device="cuda", generator=g)
+              for _ in range(16)]
+        reqs = [c2.allreduce_init(b, MPI.SUM) for b in xs]
+        check(all(r.plan.codec is None for r in reqs),
+              "a 32 KiB member plan took the codec")
+        f0 = persistent.counters()["coll_bucket_flushes"]
+        w0 = _wire()
+        MPI.Startall(reqs)
+        outs = [r.get() for r in reqs]
+        w1 = _wire()
+        flushes = persistent.counters()["coll_bucket_flushes"] - f0
+        check(w1[0] > w0[0], "the fused bucket did not take the codec")
+        ratio = (w1[1] - w0[1]) / (w1[0] - w0[0])
+        check(ratio <= 0.3, f"fused bucket wire ratio {ratio:.3f}")
+        worst = 0.0
+        for b, o in zip(xs, outs):
+            ref = b.double().sum(0)
+            err = float((o[0].double() - ref).abs().max())
+            check(err <= 0.02 * float(ref.abs().max()),
+                  f"bucket member error {err:.3g}")
+            check(bool((o == o[:1]).all()), "bucket member rows differ")
+            worst = max(worst, err / float(ref.abs().max()))
+        for r in reqs + [req, small]:
+            r.free()
+    finally:
+        var.var_set("mpi_base_bucket", False)
+        var.var_set("mpi_base_bucket_bytes", 1 << 20)
+        var.var_set("mpi_base_compress_min_bytes", 4 << 20)
+    return (f"allreduce_bind and allreduce_init (plan.codec int8_block) at "
+            f"4 MB equal the compressed allreduce bit for bit; Startall "
+            f"over 16 x 32 KiB plans (no member codec): {flushes} fused "
+            f"flush(es) took the codec, wire ratio {ratio:.4f}, largest "
+            f"member rel err {worst:.3g} (envelope 0.02)")
+
+
+class _TappedSync(T.BucketedGradSync):
+    """BucketedGradSync that keeps each step's gradients and the synced
+    means, so the codec's error is held against its bound."""
+
+    taps: list
+
+    def __call__(self, grads):
+        out = super().__call__(grads)
+        self.taps.append((tree_leaves(grads), tree_leaves(out)))
+        return out
+
+
+def _sync_bound(grads, eps: float, n: int) -> float:
+    """Bound on |synced mean - exact mean| for one step: every element of
+    a partial sum is at most S = sum_r max|g_r| in size, a ring allreduce
+    quantizes each element n times (n-1 reduce-scatter hops, then the
+    allgather codes), each within eps of its block's max, and the block
+    max of the finished sum grows by at most n*eps*S; the mean divides by
+    n."""
+    s = sum(max(float(leaf[r].abs().max()) for leaf in grads)
+            for r in range(n))
+    return s * eps * (1 + n * eps)
+
+
+def _ddp_compressed(w, smi: str) -> None:
+    """The phase 7 DDP step on dp=8 through BucketedGradSync, bucket on:
+    (a) uncompressed, (d) on a comm with compression on and the floor at
+    64 KiB, so the fused buckets take the codec."""
+    dev = torch.device("cuda", 0)
+    n = w.size
+    cfg = dataclasses.replace(CONFIG, dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    mesh = Mesh((n,), ("dp",), dev)
+    specs = tree_map(lambda _: P(), params)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2 * n, cfg.seq + 1)))
+    batch = mesh.shard((tok[:, :-1], tok[:, 1:]), (P("dp"), P("dp")))
+    dpc = InGraphComm("dp", n, mesh)
+    start = mesh.shard(params, specs)
+    lr = 1e-2
+    var.var_set("mpi_base_bucket", True)
+    var.var_set("mpi_base_compress_min_bytes", 64 << 10)
+    cd = w.dup()
+    mod = cd._coll("allreduce")
+    engaged: list = []
+    flat_allreduce = mod.allreduce
+
+    def recording(x, op):
+        engaged.append((x.nbytes // n >> 10, mod._eligible("allreduce", x,
+                                                            op)))
+        return flat_allreduce(x, op)
+    mod.allreduce = recording
+    syncs = {"a": _TappedSync(w, start), "d": _TappedSync(cd, start)}
+    runs = {}
+    for kind, sync in syncs.items():
+        sync.taps = []
+        p, losses, ps = start, [], []
+        for _ in range(2):
+            p, loss = T.sgd_train_step(p, batch, cfg, lr, dpc,
+                                       grad_sync=sync)
+            losses.append(float(loss[0]))
+            ps.append(p)
+            check(mesh.divergence(p, specs) <= 1e-6,
+                  f"DDP ({kind}): replicated leaves diverged")
+        runs[kind] = {"losses": losses, "params": ps, "ms": []}
+    steps = engaged[:]
+    eps = CODEC_EPS["int8_block"]
+    bounds = []
+    for grads, out in syncs["d"].taps:
+        b = _sync_bound(grads, eps, n)
+        err = max(float((o[0].double() - g.double().mean(0)).abs().max())
+                  for g, o in zip(grads, out))
+        check(err <= b, f"DDP (d): synced grads off by {err:.3g}, bound "
+              f"{b:.3g}")
+        bounds.append((err, b))
+    la, ld = runs["a"]["losses"], runs["d"]["losses"]
+    pa, pd = runs["a"]["params"], runs["d"]["params"]
+
+    def pdiff(i):
+        return max(float((a - d).abs().max())
+                   for a, d in zip(tree_leaves(pa[i]), tree_leaves(pd[i])))
+    pmax = max(float(t.abs().max()) for t in tree_leaves(start))
+    d1, d2 = pdiff(0), pdiff(1)
+    tol1 = lr * bounds[0][1] + 2 * 2 ** -23 * pmax
+    tol2 = 2 * (tol1 + lr * bounds[1][1])
+    g2 = syncs["a"].taps[1][1]
+    g2_l1 = sum(float(o[0].double().abs().sum()) for o in g2)
+    ltol = 2 * g2_l1 * d1 + 1e-6 * abs(la[1])
+    check(abs(ld[0] - la[0]) <= 1e-6 * abs(la[0]),
+          f"DDP (d) step-1 loss {ld[0]} != (a) {la[0]}")
+    check(d1 <= tol1, f"DDP (d) step-1 params off by {d1:.3g} > {tol1:.3g}")
+    check(d2 <= tol2, f"DDP (d) step-2 params off by {d2:.3g} > {tol2:.3g}")
+    check(abs(ld[1] - la[1]) <= ltol, f"DDP (d) step-2 loss {ld[1]} vs "
+          f"{la[1]}, tolerance {ltol:.3g}")
+    for kind in ("a", "d", "d", "a"):               # times in turns
+        step = (lambda s=syncs[kind]: T.sgd_train_step(
+            start, batch, cfg, lr, dpc, grad_sync=s))
+        runs[kind]["ms"].append(host_ms(step, iters=10, warmup=2))
+    mod.allreduce = flat_allreduce
+    var.var_set("mpi_base_bucket", False)
+    var.var_set("mpi_base_compress_min_bytes", 4 << 20)
+    per_step = len(steps) // 2
+    phase("compression", f"DDP dp=8 bucket on, compression floor 64 KiB: "
+          f"fused buckets per step (KiB per rank, took the codec) "
+          f"{steps[:per_step]}; synced-grad error {bounds[0][0]:.3g}, "
+          f"{bounds[1][0]:.3g} against bounds {bounds[0][1]:.3g}, "
+          f"{bounds[1][1]:.3g} (S*eps*(1+n*eps), eps 1/254)")
+    phase("compression", f"DDP (d) against (a): losses {ld[0]!r} and "
+          f"{la[0]!r} (same params: rtol 1e-6), {ld[1]!r} and {la[1]!r} "
+          f"(tolerance {ltol:.3g}: "
+          f"twice the first-order change, |g2|_1 * max|dp1|); params max "
+          f"abs diff {d1:.3g} (bound lr*err1 + 2 ulp = {tol1:.3g}), "
+          f"{d2:.3g} (limit {tol2:.3g}, twice the summed bounds)")
+    phase("compression", "DDP step ms (timed in turns a d d a; host clock, "
+          "synchronised, median of 10 after 2 warm-ups): " + "; ".join(
+              f"({k}) {' and '.join(f'{m:.3f}' for m in r['ms'])}"
+              for k, r in runs.items()) + f" | {smi}")
+
+
+def _vforms(w, cw) -> str:
+    """Each v- and root-form with ragged counts against numpy, exactly
+    (reduce_scatter: float SUM rtol 1e-5 / atol 1e-5, phase 4's), at 37
+    elements and 32 MB per rank; the i-forms against the blocking calls;
+    reduce_scatter on the compression comm takes the codec."""
+    n, out = w.size, []
+    for elems, counts in V_COUNTS.items():
+        g = torch.Generator(device="cuda").manual_seed(61 + elems)
+        per = [torch.randn(c, device="cuda", generator=g) for c in counts]
+        host = [p.cpu().numpy() for p in per]
+        cat = np.concatenate(host)
+        for r, o in enumerate(w.allgatherv(per)):
+            check(o.is_cuda and np.array_equal(o.cpu().numpy(), cat),
+                  f"allgatherv row {r} at {elems}")
+        check(np.array_equal(w.gatherv(per, 3).cpu().numpy(), cat),
+              f"gatherv at {elems}")
+        for r, o in enumerate(w.scatterv(per, 5)):
+            check(np.array_equal(o.cpu().numpy(), host[r]),
+                  f"scatterv row {r} at {elems}")
+        ach = [[per[(i + j) % n][:counts[(i * j) % n] // n + j]
+                for j in range(n)] for i in range(n)]
+        recv = w.alltoallv(ach)
+        check(all(torch.equal(recv[j][i], ach[i][j]) for i in range(n)
+                  for j in range(n)), f"alltoallv at {elems}")
+        total = sum(counts)
+        x = torch.randn((n, total), device="cuda", generator=g)
+        red = x.cpu().double().sum(0).numpy()
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        for r, o in enumerate(w.reduce_scatter(x, counts)):
+            _close(o.cpu().numpy(), red[offs[r]:offs[r + 1]], 1e-5, 1e-5,
+                   f"reduce_scatter row {r} at {elems}")
+        st = w.stack(per_rank=[p[:counts[-1]] for p in per])
+        check(torch.equal(w.gather_root(st, 2), st), "gather_root")
+        check(torch.equal(w.scatter_root(st, 4), st), "scatter_root")
+        for name, nb, blocking in (
+                ("iallgatherv", lambda: w.iallgatherv(per),
+                 lambda: w.allgatherv(per)),
+                ("igatherv", lambda: w.igatherv(per, 1),
+                 lambda: w.gatherv(per, 1)),
+                ("iscatterv", lambda: w.iscatterv(per, 6),
+                 lambda: w.scatterv(per, 6)),
+                ("ialltoallv", lambda: w.ialltoallv(ach),
+                 lambda: [c for row in w.alltoallv(ach) for c in row])):
+            got = nb().get()
+            got = [c for row in got for c in row] if name == "ialltoallv" \
+                else got
+            want = blocking()
+            check(all(torch.equal(a, b) for a, b in zip(
+                got if isinstance(got, list) else [got],
+                want if isinstance(want, list) else [want])), name)
+        out.append(f"{elems} elements per rank (counts {counts[0]}.."
+                   f"{counts[-1]})")
+        if elems == LOCAL_ELEMS:
+            w0 = _wire()
+            cs = cw.reduce_scatter(x, counts)
+            torch.cuda.synchronize()
+            check(_wire()[0] > w0[0], "reduce_scatter on the compression "
+                  "comm did not take the codec")
+            err = max(float(np.abs(o.cpu().double().numpy()
+                                   - red[offs[r]:offs[r + 1]]).max())
+                      for r, o in enumerate(cs))
+            check(err <= 0.02 * float(np.abs(red).max()),
+                  f"compressed reduce_scatter err {err:.3g}")
+        del per, x
+        torch.cuda.empty_cache()
+    return (f"allgatherv, gatherv, scatterv, alltoallv, gather_root, "
+            f"scatter_root exact and reduce_scatter within rtol 1e-5 / atol "
+            f"1e-5 against numpy at {' and '.join(out)}; the i-forms equal "
+            f"the blocking calls; reduce_scatter at 32 MB on the compression "
+            f"comm took the codec (rel err {err / np.abs(red).max():.3g})")
+
+
+def phase_compression(w, smi: str) -> None:
+    """Codecs, compressed collectives, gates, plans and DDP, and the v-
+    and root-forms on the 8-rank cuda:0 world."""
+    t0 = time.perf_counter()
+    _codec_checks(smi)
+    n = w.size
+    cpu_world = MPI.Communicator(MPI.Group(range(n)),
+                                 [torch.device("cpu")] * n, name="cpu_world")
+    var.var_set("mpi_base_compress", True)
+    cw, ccpu = w.dup(), cpu_world.dup()
+    check(cw._coll_winners["allreduce"] == "compressed" and
+          w._coll_winners["allreduce"] == "torch",
+          f"winners {cw._coll_winners}")
+    table = decision.decision_table(n, platform="gpu")
+    check(all(table[f][-1][2] == "compressed:int8_block"
+              for f in ("allreduce", "allgather", "reduce_scatter_block")),
+          "decision_table lacks the compression rows")
+    rows = _compressed_colls(w, cw, ccpu, smi)
+    phase("compression", _gates(w, cw))
+    phase("compression", _plans(w, cw))
+    _ddp_compressed(w, smi)
+    phase("compression", _vforms(w, cw))
+    var.var_set("mpi_base_compress", False)
+    worst = max(r["ratio"] for r in rows if r["codec"] != "null")
+    phase("compression", f"largest real-codec wire ratio {worst:.4f} (limit "
+          f"0.3); compress_ratio pvar over the phase "
+          f"{pvar.pvar_read('compress_ratio'):.4f}; phase 9 took "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1322,6 +1830,7 @@ def main() -> int:
     phase("nonblocking", f"phase 7 took {time.perf_counter() - t7:.1f} s "
           f"| {smi}")
     phase_algorithms(world, smi)
+    phase_compression(world, smi)
     MPI.Finalize()
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{

@@ -8,6 +8,8 @@ Components:
 - ``self``  — size-1 communicators (mirrors coll/self).
 - ``nbc``   — nonblocking collectives as round schedules driven by the
               progress engine (mirrors coll/libnbc).
+- ``compressed`` — quantized allreduce/allgather/reduce_scatter_block
+              above ``torch``, selected while ``mpi_base_compress`` is on.
 
 ``decision`` holds the per-collective algorithm tables the ``torch``
 component selects its schedules from, ``tuned`` the dynamic-rules file

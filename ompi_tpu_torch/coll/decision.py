@@ -17,8 +17,9 @@ same here. There is no ``"gpu"`` row: on one card every rank is a row of
 one tensor in one HBM, and which schedule wins there is a measurement
 (``chip_smoke.py``'s ``algorithms`` phase), not a port item.
 
-The compression, segment-pipeline and shared-segment rows of the
-reference's :func:`decision_table` wait for the modules that own them.
+The compression gate (:func:`compress_eligible`) and its rows are the
+reference's too; the segment-pipeline and shared-segment rows of the
+reference's :func:`decision_table` wait for the per-rank tier.
 """
 from __future__ import annotations
 
@@ -147,6 +148,56 @@ def decide(func: str, comm_size: int, nbytes: int, multihost: bool,
                   comm_size, nbytes)
 
 
+# -- compression gating (compress/, coll/compressed) -------------------------
+# Only these collectives have a compressed schedule, and only these dtypes
+# quantize meaningfully (integer payloads would need a lossless codec; f16
+# is already half width).
+COMPRESSIBLE = frozenset({"allreduce", "allgather",
+                          "reduce_scatter_block"})
+COMPRESS_DTYPES = frozenset({"float32", "float64", "bfloat16"})
+
+
+def dtype_name(dt) -> str:
+    """The numpy-style name of a torch or numpy dtype: ``str`` of a torch
+    dtype is ``"torch.float32"``, which no gate row would match."""
+    if isinstance(dt, torch.dtype):
+        return str(dt).removeprefix("torch.")
+    return str(getattr(dt, "name", dt))
+
+
+def compress_eligible(func: str, nbytes: int, dtype, op=None) -> bool:
+    """True when the (func, per-rank payload, dtype, op) tuple takes the
+    compressed path: the MCA var is on, the payload is a large eligible
+    float, and the reduction (if any) is a sum — every other op keeps the
+    uncompressed path (dequantized partial maxima or products would change
+    the documented error model)."""
+    from ompi_tpu_torch import compress
+    if not compress.enabled():
+        return False
+    if func not in COMPRESSIBLE:
+        return False
+    if dtype_name(dtype) not in COMPRESS_DTYPES:
+        return False
+    if nbytes < compress.min_bytes():
+        return False
+    if op is not None and func != "allgather" \
+            and getattr(op, "xla_prim", None) != "sum":
+        return False
+    return True
+
+
+def compression_rules() -> Dict[str, List[Sequence]]:
+    """The compression rows (after MCA overrides) in the fixed tables'
+    ``[min_comm_size, min_bytes, algorithm]`` shape; empty while
+    ``mpi_base_compress`` is off."""
+    from ompi_tpu_torch import compress
+    if not compress.enabled():
+        return {}
+    alg = f"compressed:{compress.codec_name()}"
+    return {func: [[0, compress.min_bytes(), alg]]
+            for func in sorted(COMPRESSIBLE)}
+
+
 def persistent_rules() -> Dict[str, List[Sequence]]:
     """The pre-bound persistent-plan rows (MPI-4 ``*_init``), keyed
     ``<func>_init``: always present."""
@@ -171,8 +222,8 @@ def decision_table(comm_size: int = 0, multihost: bool = False,
                    platform: str = "") -> Dict[str, List[Sequence]]:
     """The effective selection table after every override source: the
     per-func pins (``coll_torch_<func>_algorithm``), the dynamic-rules
-    file, the multihost and platform rows, the bucket rows and the
-    persistent rows."""
+    file, the multihost and platform rows, the compression rows, the
+    bucket rows and the persistent rows."""
     from ompi_tpu_torch.mca import var as _var
     table: Dict[str, List[Sequence]] = {}
     for func in sorted(set(FIXED_RULES) | {"scan"}):
@@ -182,6 +233,8 @@ def decision_table(comm_size: int = 0, multihost: bool = False,
         else:
             table[func] = [list(r) for r in effective_rules(
                 func, multihost, dynamic, platform)]
+    for func, rows in compression_rules().items():
+        table[func] = table[func] + [list(r) for r in rows]
     for func, rows in bucket_rules().items():
         table[func] = table[func] + [list(r) for r in rows]
     for func, rows in persistent_rules().items():

@@ -31,7 +31,8 @@ def _ensure_components() -> None:
     if _components_loaded:
         return
     # Importing registers each component with the framework.
-    from ompi_tpu_torch.coll import basic, nbc, self_, torch_  # noqa: F401
+    from ompi_tpu_torch.coll import (basic, compressed, nbc,  # noqa: F401
+                                     self_, torch_)
     _components_loaded = True
 
 
@@ -54,7 +55,9 @@ def comm_select_coll(comm) -> Dict[str, Any]:
     """Build the c_coll vtable for ``comm``: highest-priority provider per
     collective function."""
     winners, selected = select_winners(comm)
-    # Cache the selection outcome for introspection.
+    # Cache the selection outcome: introspection, and the ordered list
+    # coll/compressed delegates through.
+    comm._coll_selected = selected
     comm._coll_winners = {f: comp.name
                           for f, (comp, _m) in winners.items()}
     comm._coll_priorities = [(comp.name, prio)

@@ -140,8 +140,9 @@ class CollPlan:
     ``payload``/
     ``epilogue`` are the bucket-fusion adapters (None = not fusable).
     ``algorithm`` is what ``coll/decision`` chose at init for the plan's
-    (func, per-rank bytes, platform). ``codec`` stays None until the
-    compression plane is ported."""
+    (func, per-rank bytes, platform). ``codec`` is the codec the
+    compressed path takes for the plan's buffer (``_preselect_codec``),
+    None where the compression gate declines it."""
 
     __slots__ = ("comm", "func", "launch", "fn", "buf", "op", "nbytes",
                  "algorithm", "codec", "bucket_key", "payload",
@@ -151,6 +152,7 @@ class CollPlan:
                  launch: Optional[Callable[[], Request]] = None, *,
                  fn: Optional[Callable] = None, buf: Any = None,
                  op=None, nbytes: int = 0, algorithm: str = "direct",
+                 codec: Optional[str] = None,
                  bucket_key: Optional[Tuple] = None,
                  payload: Optional[Callable[[], Any]] = None,
                  epilogue: Optional[Callable[[Any], Any]] = None):
@@ -162,7 +164,7 @@ class CollPlan:
         self.op = op
         self.nbytes = int(nbytes)
         self.algorithm = algorithm
-        self.codec: Optional[str] = None
+        self.codec = codec
         self.bucket_key = bucket_key
         self.payload = payload
         self.epilogue = epilogue
@@ -247,6 +249,17 @@ def _bucket_spec(comm, data, op) -> Optional[Tuple]:
             int(data.nbytes) // max(n, 1))
 
 
+def _preselect_codec(func: str, nbytes: int, dtype, op=None
+                     ) -> Optional[str]:
+    """The compression gate, evaluated at init: the plan records the codec
+    the compressed path would take (the codec itself rides the selected
+    module's compressed schedule)."""
+    if decision.compress_eligible(func, nbytes, dtype, op):
+        from ompi_tpu_torch import compress
+        return compress.codec_name()
+    return None
+
+
 def _decide(comm, func: str, nbytes: int) -> str:
     """The plan's recorded algorithm: ``coll/decision``'s choice for the
     plan's (func, per-rank bytes) on the communicator's platform, as the
@@ -291,6 +304,8 @@ def _stacked_plan(comm, func: str, *args) -> CollPlan:
         return CollPlan(comm, "allreduce", fn=fn, buf=sendbuf, op=op,
                         nbytes=per_rank,
                         algorithm=_decide(comm, "allreduce", per_rank),
+                        codec=_preselect_codec("allreduce", per_rank,
+                                               sendbuf.dtype, op),
                         bucket_key=key, payload=payload, epilogue=epilogue)
 
     if func == "bcast":
@@ -314,10 +329,10 @@ def _stacked_plan(comm, func: str, *args) -> CollPlan:
         raise ValueError(f"no persistent plan for collective {func!r}")
     fn()                                              # warm
     per_rank = int(buf.nbytes) // max(comm.size, 1)
-    return CollPlan(comm, func, fn=fn,
-                    op=args[1] if func == "reduce_scatter_block" else None,
-                    nbytes=per_rank,
-                    algorithm=_decide(comm, func, per_rank))
+    op = args[1] if func == "reduce_scatter_block" else None
+    return CollPlan(comm, func, fn=fn, op=op, nbytes=per_rank,
+                    algorithm=_decide(comm, func, per_rank),
+                    codec=_preselect_codec(func, per_rank, buf.dtype, op))
 
 
 def coll_init(comm, func: str, *args) -> PersistentCollRequest:

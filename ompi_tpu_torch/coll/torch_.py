@@ -295,12 +295,21 @@ class TorchCollModule:
         return self._entry(func, self._to_dev(x), op, root)[2]
 
     # -- allreduce schedules ----------------------------------------------
-    def _ring_allreduce_inner(self, op, n, shape):
+    def _ring_allreduce_inner(self, op, n, shape, codec=None):
         """Explicit ring (coll/xla.py:234-318): n-1 reduce-scatter steps
         then n-1 allgather steps over the flattened rows padded to n
         chunks; any op (the chunk combine is ``op.fn``). A rank's partial
         of step t is what it sends in step t+1, so the reduce-scatter
-        carries it instead of a whole buffer."""
+        carries it instead of a whole buffer.
+
+        ``codec`` (a ``(Codec, block)`` pair, from ``coll/compressed``)
+        quantizes every hop: in the reduce-scatter each rank's outgoing
+        partial is quantized per rank row, the codes and scales move, and
+        the receiver dequantizes before ``op.fn(cur, recvd)``; the
+        finished chunk is quantized once, its owner's row is its own
+        dequantized image, and the codes are forwarded losslessly through
+        the allgather steps, so every rank ends bitwise identical. Blocks
+        are padded per chunk row, as ``jnp_quant`` pads each chunk."""
         total = int(np.prod(shape))
         chunk = -(-total // n)
         r = np.arange(n)
@@ -309,26 +318,46 @@ class TorchCollModule:
         tgt = self._idx((r - t - 1) % n)         # step t combines here
         own = self._idx((r + 1) % n)             # fully reduced chunk
         ag = self._idx((r - t) % n)              # allgather slot, step t
+        if codec is not None:
+            cobj, cblock = codec
 
         def inner(b):
             buf = _chunks(b, n, chunk)
             acc = buf[rows, rows]                # chunk r goes first
             for s in range(n - 1):
-                acc = op.fn(buf[rows, tgt[s]], acc.roll(1, 0))
+                if codec is None:
+                    recvd = acc.roll(1, 0)
+                else:
+                    qc, qs = cobj.torch_quant_rows(acc, cblock)
+                    recvd = cobj.torch_dequant_rows(
+                        qc.roll(1, 0), qs.roll(1, 0), chunk, acc.dtype,
+                        cblock)
+                acc = op.fn(buf[rows, tgt[s]], recvd)
             out = buf.new_empty(buf.shape)
-            out[rows, own] = acc
-            for s in range(n - 1):
-                acc = acc.roll(1, 0)
-                out[rows, ag[s]] = acc
+            if codec is None:
+                out[rows, own] = acc
+                for s in range(n - 1):
+                    acc = acc.roll(1, 0)
+                    out[rows, ag[s]] = acc
+            else:
+                qc, qs = cobj.torch_quant_rows(acc, cblock)
+                out[rows, own] = cobj.torch_dequant_rows(qc, qs, chunk,
+                                                         acc.dtype, cblock)
+                for s in range(n - 1):
+                    qc, qs = qc.roll(1, 0), qs.roll(1, 0)
+                    out[rows, ag[s]] = cobj.torch_dequant_rows(
+                        qc, qs, chunk, acc.dtype, cblock)
             return out.reshape(b.shape[0], -1)[:, :total].reshape(b.shape)
         return inner
 
-    def _ring_segmented_allreduce_inner(self, op, n, shape, nseg):
+    def _ring_segmented_allreduce_inner(self, op, n, shape, nseg,
+                                        codec=None):
         """Segmented ring (coll/xla.py:504-535): ``nseg`` independent
-        ring chains, one per segment of the flattened rows."""
+        ring chains, one per segment of the flattened rows; ``codec``
+        quantizes every hop of every chain."""
         total = int(np.prod(shape))
         seglen = -(-total // nseg)
-        ring = self._ring_allreduce_inner(op, n, (seglen,))
+        ring = self._ring_allreduce_inner(op, n, (seglen,), codec)
 
         def inner(b):
             x = b.reshape(b.shape[0], -1)
@@ -369,12 +398,39 @@ class TorchCollModule:
             return _to_all(part.reshape(-1), b.shape)
         return inner
 
-    def _hier_allreduce_inner(self, op, low, high):
+    def _hier_allreduce_inner(self, op, low, high, codec=None):
         """Two-level (coll/xla.py:319-398): reduce-scatter within each low
         group, a reduce-scatter + allgather of the scattered chunk over
         the high groups, an allgather within the low group. Sums go
-        through the psum tiers; other ops gather and fold each tier."""
+        through the psum tiers; other ops gather and fold each tier.
+
+        ``codec`` (sums only; ``coll/compressed`` gates) is the
+        reference's ``inner_q``: the low tiers stay full width, and only
+        the scattered chunk that crosses the high tier is quantized; each
+        position class gathers the codes of its high group and folds the
+        dequantized contributions in fixed group order, so its members
+        end bitwise identical."""
         glen, H = len(low[0]), len(low)
+        if codec is not None:
+            cobj, cblock = codec
+
+            def inner_q(b):
+                total = b[0].numel()
+                chunk = -(-total // glen)
+                dt = b.dtype
+                flat = _chunks(b, glen, chunk)          # (N, glen, chunk)
+                # rank (g, k) holds group g's sum of chunk k
+                part = flat.reshape(H, glen, glen, chunk).sum(1, dtype=dt)
+                qc, qs = cobj.torch_quant_rows(part, cblock)
+                # position class k folds groups 0..H-1 in order
+                acc = cobj.torch_dequant_rows(qc[0], qs[0], chunk, dt,
+                                              cblock)
+                for h in range(1, H):
+                    acc = op.fn(acc, cobj.torch_dequant_rows(
+                        qc[h], qs[h], chunk, dt, cblock))
+                # allgather within the low group: chunk k from position k
+                return _to_all(acc.reshape(-1), b.shape)
+            return inner_q
 
         def inner(b):
             total = b[0].numel()

@@ -266,6 +266,164 @@ class Communicator:
     def barrier(self) -> None:
         self._coll("barrier").barrier()
 
+    def reduce_scatter(self, sendbuf, recvcounts: Sequence[int],
+                       op=op_mod.SUM) -> List[torch.Tensor]:
+        """MPI_Reduce_scatter with per-rank counts: in (N, ..., total),
+        total = sum(recvcounts); returns one tensor per rank (a ragged
+        result is not one stacked tensor). A static (n, max) index map pads
+        the segments on the device, and the padded stack rides
+        ``reduce_scatter_block`` — so the compressed path takes it where
+        eligible, and nothing round-trips through the host."""
+        self._validate_stacked(sendbuf)
+        self._validate_op(op)
+        if len(recvcounts) != self.size:
+            self._err(ERR_COUNT, "recvcounts must have comm-size entries")
+        counts = [int(c) for c in recvcounts]
+        total = sum(counts)
+        if sendbuf.shape[-1] != total:
+            self._err(ERR_COUNT, f"sendbuf last axis must be {total}")
+        n = self.size
+        m = max(counts) if counts else 0
+        x = (sendbuf.to(self.device) if isinstance(sendbuf, torch.Tensor)
+             else self.put(sendbuf))
+        if m == 0:
+            return [x[r, ..., 0:0] for r in range(n)]
+        # segment j's element k sits at offset_j + k; entries past
+        # counts[j] are masked to zero
+        offs = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        idx = np.minimum(offs[:, None] + np.arange(m)[None, :], total - 1)
+        mask = np.arange(m)[None, :] < np.asarray(counts)[:, None]
+        xs = x.index_select(-1, torch.as_tensor(idx.ravel(),
+                                                device=self.device))
+        xs = xs.reshape(x.shape[:-1] + (n, m))
+        xs = torch.where(torch.as_tensor(mask, device=self.device), xs,
+                         torch.zeros((), dtype=xs.dtype, device=self.device))
+        # wire layout (N, N, ..., m): the chunk axis before payload axes
+        red = self.reduce_scatter_block(torch.movedim(xs, -2, 1), op)
+        return [red[r, ..., :counts[r]] for r in range(n)]
+
+    # -- root-targeted forms -------------------------------------------
+    def gather_root(self, sendbuf, root: int = 0) -> torch.Tensor:
+        """Root-targeted gather (the stacked API's root-only recvbuf):
+        rank root's recvbuf, an (N, *local) tensor on root's device only,
+        where ``gather`` gives every row an (N, *local) block."""
+        self._validate_stacked(sendbuf)
+        self._validate_root(root)
+        self._coll("gather")                       # state checks
+        if isinstance(sendbuf, torch.Tensor):
+            return sendbuf.to(self.devices[root], copy=True)
+        return torch.tensor(np.asarray(sendbuf), device=self.devices[root])
+
+    def scatter_root(self, chunks, root: int = 0) -> torch.Tensor:
+        """Root-targeted scatter, the companion of :meth:`gather_root`:
+        ``chunks`` is root's (N, *local) send buffer; returns the stacked
+        (N, *local) buffer, row r for rank r, on the comm's device."""
+        self._validate_root(root)
+        if check_addr(chunks) is None:
+            self._err(ERR_ARG, "chunks must be a torch tensor or numpy array")
+        if chunks.ndim < 1 or chunks.shape[0] != self.size:
+            self._err(ERR_COUNT, f"chunks must have leading axis {self.size}")
+        self._coll("scatter")                      # state checks
+        return self.put(chunks)
+
+    # -- v-forms (variable counts): pad to the max, run fixed, slice ---
+    # Ragged per-peer chunks are padded to the max count on the device,
+    # ride the fixed-count collective, and the valid prefixes are cut out
+    # on the way back: the stacked analogue of the reference's per-peer
+    # count headers. Results are tensors on the comm's device.
+    def _ragged(self, per_rank: Sequence[Any], what: str):
+        if len(per_rank) != self.size:
+            self._err(ERR_COUNT, f"{what} needs one entry per rank")
+        return self._ragged_flat(per_rank)
+
+    @staticmethod
+    def _ragged_flat(chunks: Sequence[Any]):
+        """Each chunk flattened, and its length: tensors stay tensors
+        when all are; otherwise all go to numpy."""
+        if all(isinstance(a, torch.Tensor) for a in chunks):
+            arrs = [a.reshape(-1) for a in chunks]
+        else:
+            arrs = [(to_numpy(a) if isinstance(a, torch.Tensor)
+                     else np.asarray(a)).reshape(-1) for a in chunks]
+        return arrs, [int(a.shape[0]) for a in arrs]
+
+    def _pad_stack(self, arrs, counts: Sequence[int],
+                   m: int) -> torch.Tensor:
+        """(N, m) zero-padded stack on the comm's device; tensor inputs
+        are padded there, host inputs on the host and copied once."""
+        if isinstance(arrs[0], torch.Tensor):
+            out = torch.zeros((len(arrs), m), dtype=arrs[0].dtype,
+                              device=self.device)
+            for i, a in enumerate(arrs):
+                out[i, :counts[i]] = a
+            return out
+        padded = np.zeros((len(arrs), m), dtype=arrs[0].dtype)
+        for i, a in enumerate(arrs):
+            padded[i, :counts[i]] = a
+        return self.put(padded)
+
+    def _valid(self, counts: Sequence[int], m: int) -> torch.Tensor:
+        """Flat positions of the valid prefixes in an (n, m) padded row
+        block, in rank order: one gather cuts them all out."""
+        idx = np.concatenate([j * m + np.arange(c)
+                              for j, c in enumerate(counts)])
+        return torch.as_tensor(idx, device=self.device)
+
+    def allgatherv(self, per_rank: Sequence[Any]) -> List[torch.Tensor]:
+        """Ragged per-rank arrays in; per rank, the concatenation every
+        rank receives."""
+        arrs, counts = self._ragged(per_rank, "allgatherv")
+        m = max(counts) if counts else 0
+        if m == 0:
+            return list(arrs)
+        n = self.size
+        g = self.allgather(self._pad_stack(arrs, counts, m))  # (N, N, m)
+        return list(g.reshape(n, n * m)[:, self._valid(counts, m)])
+
+    def gatherv(self, per_rank: Sequence[Any], root: int = 0) -> torch.Tensor:
+        """MPI_Gatherv: ragged per-rank contributions; returns the
+        concatenation (root's recvbuf)."""
+        self._validate_root(root)
+        arrs, counts = self._ragged(per_rank, "gatherv")
+        m = max(counts) if counts else 0
+        if m == 0:
+            return arrs[0]
+        g = self.gather(self._pad_stack(arrs, counts, m), root)
+        return g[root].reshape(-1)[self._valid(counts, m)]
+
+    def scatterv(self, chunks: Sequence[Any],
+                 root: int = 0) -> List[torch.Tensor]:
+        """MPI_Scatterv: ``chunks`` is root's ragged per-destination list;
+        returns one tensor per rank."""
+        self._validate_root(root)
+        arrs, counts = self._ragged(chunks, "scatterv")
+        m = max(counts) if counts else 0
+        if m == 0:
+            return list(arrs)
+        s = self.scatter_root(self._pad_stack(arrs, counts, m), root)
+        return [s[r, :counts[r]] for r in range(self.size)]
+
+    def alltoallv(self, send_chunks: Sequence[Sequence[Any]]
+                  ) -> List[List[torch.Tensor]]:
+        """MPI_Alltoallv: ``send_chunks[i][j]`` is rank i's ragged chunk
+        for rank j; returns ``recv`` with ``recv[j][i]`` = the chunk i
+        sent to j."""
+        n = self.size
+        if len(send_chunks) != n:
+            self._err(ERR_COUNT, "alltoallv needs one row per rank")
+        for row in send_chunks:
+            if len(row) != n:
+                self._err(ERR_COUNT, "alltoallv needs one chunk per peer")
+        flat = [c for row in send_chunks for c in row]
+        arrs, sizes = self._ragged_flat(flat)
+        counts = [sizes[i * n:(i + 1) * n] for i in range(n)]
+        m = max(sizes, default=0)
+        if m == 0:
+            return [[arrs[i * n + j] for i in range(n)] for j in range(n)]
+        t = self.alltoall(self._pad_stack(arrs, sizes, m).view(n, n, m))
+        return [[t[j, i, :counts[i][j]] for i in range(n)]
+                for j in range(n)]
+
     # ==================================================================
     # Nonblocking variants: torch dispatch is asynchronous on the card —
     # the collective is enqueued on the stream and a Request holds its
@@ -335,6 +493,18 @@ class Communicator:
 
     def iexscan(self, sendbuf, op=op_mod.SUM) -> Request:
         return self._nb(self.exscan, sendbuf, op)
+
+    def iallgatherv(self, per_rank: Sequence[Any]) -> Request:
+        return self._nb(self.allgatherv, per_rank)
+
+    def igatherv(self, per_rank: Sequence[Any], root: int = 0) -> Request:
+        return self._nb(self.gatherv, per_rank, root)
+
+    def iscatterv(self, chunks: Sequence[Any], root: int = 0) -> Request:
+        return self._nb(self.scatterv, chunks, root)
+
+    def ialltoallv(self, send_chunks: Sequence[Sequence[Any]]) -> Request:
+        return self._nb(self.alltoallv, send_chunks)
 
     def ibarrier(self) -> Request:
         ms = self._isched("ibarrier")

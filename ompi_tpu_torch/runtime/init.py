@@ -22,7 +22,7 @@ from typing import List, Optional
 
 import torch
 
-from ompi_tpu_torch import accelerator
+from ompi_tpu_torch import accelerator, compress
 from ompi_tpu_torch.coll import persistent, tuned
 from ompi_tpu_torch.core.communicator import Communicator
 from ompi_tpu_torch.core.errhandler import ERR_OTHER, MPIError
@@ -64,6 +64,7 @@ def init(requested: int = THREAD_SINGLE,
     accelerator.select_for_devices(devices)
     persistent.register_vars()
     tuned.register_vars()
+    compress._register_vars()
 
     world = Communicator(Group(range(n)), devices, name="MPI_COMM_WORLD")
     self_comm = Communicator(Group([0]), [devices[0]], name="MPI_COMM_SELF")
@@ -120,11 +121,13 @@ def _reset_for_tests() -> None:
     """Forget the world, the var store and the framework opens, so the
     next ``init`` starts as a fresh process would (re-reading the
     environment); empty the progress engine's callback lists, zero the
-    persistent-collective counters and drop the live bucket fusers."""
+    persistent-collective counters, drop the live bucket fusers, and zero
+    the compression counters and error-feedback residuals."""
     _state.update(initialized=False, finalized=False, world=None, self=None)
     var._reset_for_tests()
     progress._reset_for_tests()
     persistent._reset_for_tests()
+    compress._reset_for_tests()
     for fw in base.all_frameworks().values():
         fw.close()
     accelerator.framework._reset_for_tests()

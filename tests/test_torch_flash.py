@@ -91,12 +91,19 @@ def test_cpu_tensors_take_the_plain_fold_without_a_launch():
 
 
 def test_import_needs_no_nvcc_and_no_jax():
-    """The port imports (and its CPU fold and a CPU train step run) with
-    jax made unimportable and no CUDA toolkit on PATH: kernels build only
-    when launched."""
+    """The port imports (and its CPU fold, a CPU train step and the fp8
+    codec run) with jax, ompi_tpu and ml_dtypes made unimportable and no
+    CUDA toolkit on PATH: kernels build only when launched."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ompi_tpu'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import torch, ompi_tpu_torch, ompi_tpu_torch.parallel\n"
+        "import ompi_tpu_torch.compress, ompi_tpu_torch.coll.compressed\n"
+        "from ompi_tpu_torch.compress import codecs\n"
+        "c = codecs.get_codec('fp8_block')\n"
+        "assert c.name == 'fp8_block'\n"
+        "q, s = c.encode(torch.ones(300).numpy(), 64)\n"
+        "assert (c.decode(q, s, (300,), 'float32', 64) == 1).all()\n"
         "from ompi_tpu_torch import entry\n"
         "from ompi_tpu_torch.models import transformer as T\n"
         "from ompi_tpu_torch.ops import flash_attention as F, _build\n"
@@ -113,8 +120,8 @@ def test_import_needs_no_nvcc_and_no_jax():
         "    _build.nvcc(); sys.exit('nvcc is reachable')\n"
         "except RuntimeError:\n"
         "    pass\n"
-        "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
-        "if sys.modules[m] is not None]\n"
+        "assert not {'jax', 'ml_dtypes', 'ompi_tpu'} & {m.split('.')[0] "
+        "for m in sys.modules if sys.modules[m] is not None}\n"
         "print('ok')\n")
     env = dict(os.environ, PATH=os.path.dirname(sys.executable),
                CUDA_HOME=os.path.join(REPO, "no-cuda-here"))
