@@ -75,6 +75,26 @@ Phases, one or more lines each:
                 fused ``Startall`` bucket; the DDP step with compressed
                 buckets against the uncompressed one; the v- and
                 root-form collectives with ragged counts against numpy.
+10. ptp_topo_datatype — on the same world: a sendrecv ring of eight 32 MB
+                messages (receives posted first, then sends first), each
+                unchanged after its sender wrote over the buffer, bit for
+                bit against numpy and the CPU port; ``ssend`` against a
+                posted ``irecv``; partitioned pt2pt with 16 x 2 MB
+                partitions; host µs of an 8 B send+recv pair and of an
+                ANY_SOURCE/ANY_TAG match with 256 messages queued. A vector
+                and a subarray type on a (4096, 2048) fp32 matrix per rank:
+                pack/unpack, the fused in-place ``allreduce_dtype`` SUM
+                against the unfused ``_wire`` chain and a contiguous
+                allreduce of the same bytes (holes bit for bit, the sum
+                against float64 numpy, MAX bit for bit against the CPU
+                port), ``bcast`` with the vector type, ``reduce_local``,
+                ``alltoallw``, an overlapping type's keep-last unpack, and
+                the convertor on every predefined type. A 2x4 cart, a
+                dist-graph with duplicate edges and a reordered graph:
+                ``neighbor_allgather``/``alltoall`` and their ragged v-forms
+                against the host path and the CPU port, bit for bit, with
+                device ms and share of HBM. ``split_type``, ``create`` and
+                attributes through ``dup``/``free``.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -103,6 +123,7 @@ from ompi_tpu_torch.coll import decision, persistent
 from ompi_tpu_torch.coll.nbc import ScheduleRequest
 from ompi_tpu_torch.coll.torch_ import ALGORITHMS
 from ompi_tpu_torch.compress.codecs import get_codec
+from ompi_tpu_torch.core import convertor
 from ompi_tpu_torch.entry import CONFIG, entry
 from ompi_tpu_torch.models import transformer as T
 from ompi_tpu_torch.ops import _build
@@ -1811,6 +1832,414 @@ def phase_compression(w, smi: str) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 10 ----------------------------------------------------------
+MAT = (4096, 2048)             # 32 MB of fp32 per rank, a matrix
+NBR_ELEMS = 2 << 20            # 8 MB of fp32 per rank for the topologies
+DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16,
+          torch.int32, torch.int64, torch.int16, torch.int8, torch.uint8,
+          torch.uint16, torch.uint32, torch.uint64, torch.bool,
+          torch.complex64, torch.complex128)
+
+
+def _host(t) -> np.ndarray:
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _bits(a, b) -> bool:
+    """Bit-for-bit equality of two arrays or tensors (shape, dtype and
+    every byte, NaN and -0.0 included)."""
+    a, b = np.ascontiguousarray(_host(a)), np.ascontiguousarray(_host(b))
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and np.array_equal(a.view(np.uint8), b.view(np.uint8)))
+
+
+def _hbm(nbytes: int, ms: float) -> str:
+    return (f"{nbytes / 1e6:.0f} MB, {nbytes / ms / 1e6:.1f} GB/s "
+            f"({nbytes / ms / 1e9 / (HBM_BYTES_PER_S / 1e12):.1%} of "
+            f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+
+def _ring(w, buf, tag: int, sends_first: bool, clobber: bool = False):
+    """Each rank r sends its row to r + 1 and receives from r - 1:
+    receives posted first (matched at send) or sends first (queued as
+    unexpected, matched at receive). ``clobber`` writes over the whole
+    send buffer before the receives complete."""
+    n = w.size
+    post = lambda: [w.irecv((r - 1) % n, tag, dst=r) for r in range(n)]
+    reqs = [] if sends_first else post()
+    for r in range(n):
+        w.send(buf[r], src=r, dest=(r + 1) % n, tag=tag)
+    if clobber:
+        buf.fill_(-1.0)
+    if sends_first:
+        reqs = post()
+    return [q.get() for q in reqs], [q.status for q in reqs]
+
+
+def _ptp(w, cpu, smi: str) -> None:
+    n = w.size
+    g = torch.Generator(device="cuda").manual_seed(101)
+    x = torch.randn((n, LOCAL_ELEMS), device="cuda", generator=g)
+    xh = x.cpu().numpy()
+    want = [xh[(r - 1) % n] for r in range(n)]
+    cpu_got, _ = _ring(cpu, torch.from_numpy(xh.copy()), 1, True)
+    for sends_first in (False, True):
+        got, sts = _ring(w, x, 1, sends_first)
+        check(all(o.device == x.device for o in got), "ring off the card")
+        check(all(_bits(o, want[r]) and _bits(o, cpu_got[r])
+                  for r, o in enumerate(got)),
+              f"ring (sends first: {sends_first}) against numpy / CPU port")
+        check([(s.source, s.tag, s.count) for s in sts]
+              == [((r - 1) % n, 1, LOCAL_ELEMS) for r in range(n)],
+              "ring statuses")
+    got, _ = _ring(w, x.clone(), 2, True, clobber=True)
+    check(all(_bits(o, want[r]) for r, o in enumerate(got)),
+          "a message changed when its sender wrote over the buffer")
+    del got, cpu_got
+    moved = 2 * LOCAL_ELEMS * 4 * n
+    ms = {sf: device_ms(lambda sf=sf: _ring(w, x, 3, sf), iters=10,
+                        warmup=2) for sf in (False, True)}
+    phase("ptp", f"sendrecv ring, 8 x 32 MB fp32 (eager limit "
+          f"{var.var_get('pml_stacked_eager_limit')} B): = numpy = CPU port "
+          f"bit for bit, receives posted first and sends first; each "
+          f"message unchanged after its sender wrote -1 over the buffer; "
+          f"device {ms[False]:.4f} ms posted first, {ms[True]:.4f} ms "
+          f"sends first; {_hbm(moved, ms[False])} | {smi}")
+
+    req = w.irecv(0, 5, dst=1)
+    w.ssend(x[0], src=0, dest=1, tag=5)
+    check(req.test()[0] and _bits(req.get(), xh[0]), "ssend to posted irecv")
+    try:
+        w.ssend(x[0], src=0, dest=1, tag=6)
+        check(False, "unmatched ssend did not raise")
+    except MPI.MPIError as e:
+        check(e.error_class == MPI.ERR_PENDING, f"ssend raised {e}")
+    parts = list(x[2].view(16, -1))
+    sreq = w.psend_init(parts, dest=3, tag=9, src=2)
+    rreq = w.precv_init(2, 9, 16, dst=3)
+
+    def partitioned():
+        sreq.start()
+        rreq.start()
+        for i in range(16):
+            sreq.pready(i)
+        rreq.wait()
+        return rreq.get()
+    got = partitioned()
+    check(sreq.test()[0] and all(rreq.parrived(i) for i in range(16)),
+          "partitions")
+    check(_bits(torch.cat(got), xh[2]), "partitioned 16 x 2 MB")
+    p_ms = device_ms(partitioned, iters=10, warmup=2)
+
+    small = torch.ones(2, device="cuda")                 # 8 B
+    pair = []
+    for _ in range(1000):
+        t0 = time.perf_counter()
+        w.send(small, src=0, dest=1, tag=4)
+        w.recv(0, 4, dst=1)
+        pair.append((time.perf_counter() - t0) * 1e6)
+    for i in range(256):
+        w.send(small, src=i % n, dest=0, tag=i)
+    match = []
+    for i in range(1000):
+        t0 = time.perf_counter()
+        _, st = w.recv(MPI.ANY_SOURCE, MPI.ANY_TAG, dst=0)
+        match.append((time.perf_counter() - t0) * 1e6)
+        w.send(small, src=st.source, dest=0, tag=st.tag)
+    for _ in range(256):
+        w.recv(MPI.ANY_SOURCE, MPI.ANY_TAG, dst=0)
+    check(w.iprobe(MPI.ANY_SOURCE, MPI.ANY_TAG, dst=0) == (False, None),
+          "wildcard queue drained")
+    torch.cuda.synchronize()
+    phase("ptp", f"ssend to a posted irecv matched, unmatched ssend raised "
+          f"ERR_PENDING; partitioned 16 x 2 MB = numpy, device "
+          f"{p_ms:.4f} ms ({_hbm(2 * LOCAL_ELEMS * 4, p_ms)}); 8 B send + "
+          f"recv pair {statistics.median(pair):.2f} us (host clock, median "
+          f"of 1000); ANY_SOURCE/ANY_TAG recv with 256 queued "
+          f"{statistics.median(match):.2f} us (median of 1000) | {smi}")
+
+
+def _probe_dtypes() -> str:
+    """The convertor's gather, scatter and keep-last scatter on the card
+    for every predefined base type, against a host loop."""
+    ok, bad = [], []
+    for dt in DTYPES:
+        vec = MPI.Datatype(dt).create_vector(3, 1, 2).commit()  # 0, 2, 4
+        ovl = vec.create_resized(0, 2).commit()       # instances overlap
+        src = torch.arange(20, device="cuda").view(2, 10).to(dt)
+        try:
+            p = convertor.pack(src, vec, 2)
+            u = convertor.unpack(torch.zeros_like(src), p, vec, 2)
+            o = convertor.unpack(torch.zeros((2, 7), dtype=dt,
+                                             device="cuda"), p, ovl, 2)
+            torch.cuda.synchronize()
+        except (RuntimeError, NotImplementedError) as e:
+            bad.append(f"{dt} ({type(e).__name__}: {str(e)[:80]})")
+            continue
+        sh, ph = src.cpu(), p.cpu()
+        want_u, want_o = torch.zeros_like(sh), torch.zeros((2, 7), dtype=dt)
+        for c, pos in enumerate(vec.flat_indices(2).tolist()):
+            check(bool((ph[:, c] == sh[:, pos]).all()), f"pack {dt}")
+            want_u[:, pos] = sh[:, pos]
+        for c, pos in enumerate(ovl.flat_indices(2).tolist()):
+            want_o[:, pos] = ph[:, c]                # the last writer wins
+        check(torch.equal(u.cpu(), want_u) and torch.equal(o.cpu(), want_o),
+              f"convertor on the card for {dt}")
+        ok.append(str(dt).replace("torch.", ""))
+    return (f"convertor pack/unpack/keep-last unpack on the card = host "
+            f"loop for {', '.join(ok)}; cannot run: {', '.join(bad) or 'none'}")
+
+
+def _datatypes(w, cpu, smi: str) -> None:
+    n, L = w.size, MAT[0] * MAT[1]
+    g = torch.Generator(device="cuda").manual_seed(103)
+    x = torch.randn((n, L), device="cuda", generator=g)
+    xh = x.cpu().numpy()
+    types = {
+        "vector(4096, 1024, 2048) resized to the matrix":
+            MPI.FLOAT.create_vector(MAT[0], 1024, MAT[1])
+            .create_resized(0, L).commit(),
+        "subarray (2048, 1024) at (1024, 512)":
+            MPI.FLOAT.create_subarray(MAT, (2048, 1024), (1024, 512))
+            .commit(),
+    }
+    mod = w._coll("allreduce")
+    for name, t in types.items():
+        idx = t.flat_indices(1)
+        k = idx.size
+        holes = np.ones(L, bool)
+        holes[idx] = False
+        p = convertor.pack(x, t, 1)
+        check(_bits(p, xh[:, idx]), f"{name}: pack")
+        u = convertor.unpack(torch.zeros_like(x), p, t, 1)
+        uh = u.cpu().numpy()
+        check(_bits(uh[:, idx], xh[:, idx]) and not uh[:, holes].any(),
+              f"{name}: unpack")
+        del u, uh
+        moved = 2 * n * k * 4 + k * 8
+        pk = device_ms(lambda: convertor.pack(x, t, 1), iters=10, warmup=2)
+        out = torch.zeros_like(x)
+        up = device_ms(lambda: convertor.unpack(out, p, t, 1), iters=10,
+                       warmup=2)
+        del out
+        xf = x.clone()
+        y = w.allreduce(MPI.IN_PLACE, MPI.SUM, datatype=t, recvbuf=xf)
+        check(y is xf and any(key[0] == "allreduce_dt" and key[4] == t.uid
+                              for key in mod._fast), f"{name}: not fused")
+        yh = y.cpu().numpy()
+        check(_bits(yh[:, holes], xh[:, holes]), f"{name}: holes changed")
+        _close(yh[:, idx], np.broadcast_to(
+            xh[:, idx].astype(np.float64).sum(0), (n, k)), 1e-5, 1e-5,
+            f"{name}: fused SUM")
+        xu = x.clone()
+        packed, unpack_fn = w._wire(xu, t, 1)
+        unpack_fn(w.allreduce(packed, MPI.SUM), xu)
+        check(torch.equal(xu, y), f"{name}: fused != unfused chain")
+        del yh, xu, packed
+        ym = w.allreduce(MPI.IN_PLACE, MPI.MAX, datatype=t,
+                         recvbuf=x.clone())
+        ycm = cpu.allreduce(MPI.IN_PLACE, MPI.MAX, datatype=t,
+                            recvbuf=torch.from_numpy(xh.copy()))
+        check(_bits(ym, ycm), f"{name}: MAX card != CPU port")
+        del ym, ycm
+        xs = x.clone()
+        fused = device_ms(lambda: w.allreduce(
+            MPI.IN_PLACE, MPI.SUM, datatype=t, recvbuf=xs), iters=8,
+            warmup=2)
+        xs.copy_(x)
+
+        def unfused():
+            pk_, un = w._wire(xs, t, 1)
+            un(w.allreduce(pk_, MPI.SUM), xs)
+        chain = device_ms(unfused, iters=8, warmup=2)
+        contig = device_ms(lambda: w.allreduce(p, MPI.SUM), iters=8,
+                           warmup=2)
+        del xs
+        phase("datatype", f"{name}: {k} of {L} elements per rank; pack "
+              f"{pk:.4f} ms ({_hbm(moved, pk)}), unpack {up:.4f} ms "
+              f"({_hbm(moved, up)}); in-place allreduce SUM fused "
+              f"{fused:.4f} ms, unfused _wire chain {chain:.4f} ms, "
+              f"contiguous allreduce of the {n * k * 4 / 1e6:.0f} MB packed "
+              f"{contig:.4f} ms; holes unchanged bit for bit, SUM within "
+              f"rtol 1e-5 / atol 1e-5 of float64 numpy, fused = unfused, "
+              f"MAX = CPU port bit for bit | {smi}")
+    vec = next(iter(types.values()))
+    idx = vec.flat_indices(1)
+    b = w.bcast(x, root=2, datatype=vec)
+    bh = b.cpu().numpy()
+    check(_bits(bh[:, idx], np.broadcast_to(xh[2, idx], (n, idx.size)))
+          and not bh[:, np.setdiff1d(np.arange(L), idx)].any(),
+          "bcast with the vector type")
+    del b, bh
+    a, c = x[0], x[1]
+    rl = MPI.reduce_local(a, c, MPI.SUM)
+    check(_bits(rl, xh[0] + xh[1]), "reduce_local SUM at 32 MB")
+    rl_ms = device_ms(lambda: MPI.reduce_local(a, c, MPI.SUM), iters=10,
+                      warmup=2)
+    kinds = [MPI.FLOAT.create_vector(3, 2, 5).commit(),
+             MPI.FLOAT.create_indexed([1, 3], [0, 4]).commit(), None,
+             MPI.FLOAT.create_subarray((4, 6), (2, 3), (1, 2)).commit()]
+    tys = [[kinds[(i + j) % 4] for j in range(n)] for i in range(n)]
+    chunks = [[torch.randn(((t.extent if t else 3) * (1 + (i * j) % 3),),
+                           device="cuda", generator=g)
+               for j, t in enumerate(row)] for i, row in enumerate(tys)]
+    recv = w.alltoallw(chunks, tys)
+    for i in range(n):
+        for j in range(n):
+            t, ch = tys[i][j], chunks[i][j].cpu().numpy()
+            cnt = (1 + (ch.size - sum(t.get_true_extent())) // t.extent
+                   if t else None)
+            want = ch[t.flat_indices(cnt)] if t else ch
+            check(recv[j][i].is_cuda and _bits(recv[j][i], want),
+                  f"alltoallw {i} -> {j}")
+    ov = MPI.FLOAT.create_vector(2, 2, 3).create_resized(0, 3).commit()
+    cnt = 1 << 18
+    oidx = ov.flat_indices(cnt)
+    packed = torch.randn((n, oidx.size), device="cuda", generator=g)
+    got = convertor.unpack(torch.zeros((n, 3 * cnt + 2), device="cuda"),
+                           packed, ov, cnt)
+    want = np.zeros((n, 3 * cnt + 2), np.float32)
+    want[:, oidx] = packed.cpu().numpy()
+    check(_bits(got, want), "overlapping resized type: unpack != numpy's "
+          "last writer")
+    phase("datatype", f"bcast with the vector type = numpy; reduce_local "
+          f"SUM at 32 MB = numpy bit for bit, {rl_ms:.4f} ms "
+          f"({_hbm(3 * LOCAL_ELEMS * 4, rl_ms)}); alltoallw over vector, "
+          f"indexed, contiguous and subarray chunks of 3-72 elements = "
+          f"numpy; an overlapping resized type ({oidx.size} indices onto "
+          f"{len(set(oidx.tolist()))} positions) unpacks to numpy's "
+          f"last-writer result | {smi}")
+    phase("datatype", _probe_dtypes())
+
+
+def _nbr_check(what, comm, cpu_comm, fn, x):
+    """The device path's result against the host path (numpy) and the
+    CPU port, bit for bit; every output on cuda:0. Returns the least
+    traffic of the call: every input row that some rank receives read
+    once (at most the input's bytes), every output written once."""
+    dev = fn(comm, x)
+    host = fn(comm, _nested(x, _host))
+    cpu = fn(cpu_comm, _nested(x, lambda t: torch.from_numpy(_host(t))))
+    d, h, c = _flat(dev), _flat(host), _flat(cpu)
+    check(all(a.device == torch.device("cuda", 0) for a in d),
+          f"{what}: an output is off cuda:0")
+    check(len(d) == len(h) == len(c) and all(
+        (a.numel() == 0 and np.asarray(b).size == 0) or _bits(a, b)
+        for a, b in zip(d, h)) and all(_bits(a, b) for a, b in zip(d, c)),
+        f"{what}: device != host path / CPU port")
+    out = sum(a.numel() * a.element_size() for a in d)
+    ins = sum(a.numel() * a.element_size() for a in _flat(x))
+    return min(ins, out) + out
+
+
+def _flat(v) -> list:
+    if isinstance(v, (list, tuple)):
+        return [a for b in v for a in _flat(b)]
+    return [v]
+
+
+def _nested(x, f):
+    if isinstance(x, list):
+        return [_nested(a, f) for a in x]
+    return f(x)
+
+
+def _topologies(w, cpu, smi: str) -> None:
+    n = w.size
+    g = torch.Generator(device="cuda").manual_seed(107)
+    lines = []
+
+    def timed(what, comm, cpu_comm, fn, x):
+        nbytes = _nbr_check(what, comm, cpu_comm, fn, x)
+        ms = device_ms(lambda: fn(comm, x), iters=10, warmup=2)
+        lines.append(f"{what} {ms:.4f} ms ({_hbm(nbytes, ms)})")
+
+    cart = w.create_cart([2, 4], [True, False])
+    ccart = cpu.create_cart([2, 4], [True, False])
+    check(cart.cart_shift(0, 0, 1) == (4, 4) and
+          cart.cart_shift(0, 1, 1) == (-2, 1), "cart_shift")
+    x = torch.randn((n, NBR_ELEMS), device="cuda", generator=g)
+    timed("cart 2x4 neighbor_allgather (8 MB per rank)", cart, ccart,
+          lambda c, b: c.neighbor_allgather(b), x)
+    y = torch.randn((n, 4, NBR_ELEMS // 4), device="cuda", generator=g)
+    timed("neighbor_alltoall (4 x 2 MB chunks)", cart, ccart,
+          lambda c, b: c.neighbor_alltoall(b), y)
+    src = [[1], [0, 0, 2], [1, 2], [-2, 4], [3, 5], [4], [7], [6, 3]]
+    dst = [[1, 1], [0, 2], [2, 1], [4], [3, 5], [4], [7], [6]]
+    dg, cdg = (c.create_dist_graph_adjacent(src, dst) for c in (w, cpu))
+    z = torch.randn((n, 2, NBR_ELEMS // 2), device="cuda", generator=g)
+    timed("dist-graph with duplicate edges neighbor_alltoall", dg, cdg,
+          lambda c, b: c.neighbor_alltoall(b), z)
+    timed("dist-graph neighbor_allgather", dg, cdg,
+          lambda c, b: c.neighbor_allgather(b), x)
+    index, edges = [], []
+    for r in range(n):
+        edges += [(r - 1) % n, (r + 1) % n, (r + 3) % n]
+        index.append(len(edges))
+    gr, cgr = (c.create_graph(index, edges, reorder=True) for c in (w, cpu))
+    check(gr.graph_neighbors(0) == [n - 1, 1, 3], "graph neighbors")
+    _close(gr.allreduce(x[:, :1024]).cpu().numpy(),
+           np.broadcast_to(x[:, :1024].cpu().double().sum(0).numpy(),
+                           (n, 1024)), 1e-5, 1e-5, "reordered graph allreduce")
+    timed("graph (reorder=True) neighbor_allgather", gr, cgr,
+          lambda c, b: c.neighbor_allgather(b), x)
+    per = [x[r, :(r + 1) * (NBR_ELEMS // n)] for r in range(n)]
+    timed("cart neighbor_allgatherv (1-8 MB per rank)", cart, ccart,
+          lambda c, b: c.neighbor_allgatherv(b), per)
+    rows = [[x[r, :((r + j) % 4 + 1) * (NBR_ELEMS // 16)]
+             for j in range(4)] for r in range(n)]
+    timed("cart neighbor_alltoallv (up to 5 MB per rank)", cart, ccart,
+          lambda c, b: c.neighbor_alltoallv(b), rows)
+    phase("topology", "device = host path = CPU port bit for bit, every "
+          "output on cuda:0; device ms (CUDA events, median of 10), bytes "
+          "= the rows received read once (at most the input) and the "
+          "output written once: "
+          + "; ".join(lines) + f" | {smi}")
+
+
+def _algebra(w) -> None:
+    n = w.size
+    shared = w.split_type(MPI.COMM_TYPE_SHARED)
+    check(all(s is shared[0] for s in shared) and shared[0].size == n,
+          "split_type SHARED")
+    hw = w.split_type(MPI.COMM_TYPE_HWTHREAD)
+    check(all(s.size == 1 for s in hw), "split_type HWTHREAD")
+    check(w.split_type(MPI.UNDEFINED) == [None] * n, "split_type UNDEFINED")
+    sub = w.create(w.group.incl([1, 4, 6]))
+    res = sub.allreduce(sub.alloc((3,), fill=2.0), MPI.SUM)
+    check(res.is_cuda and bool((res == 6).all()), "create + allreduce")
+    trace = []
+    kv = MPI.create_keyval(copy_fn=lambda c, k, v: (True, v + 1),
+                           delete_fn=lambda c, k, v: trace.append(v))
+    w.set_attr(kv, 10)
+    d = w.dup()
+    check(d.get_attr(kv) == (True, 11), "attribute through dup")
+    d.free()
+    w.delete_attr(kv)
+    MPI.free_keyval(kv)
+    check(trace == [11, 10], f"delete callbacks {trace}")
+    phase("algebra", "split_type SHARED (one comm of 8), HWTHREAD (8 of "
+          "1), UNDEFINED (COMM_NULL); create over ranks 1, 4, 6 with an "
+          "allreduce on the card; an attribute copied through dup and "
+          "deleted at free and delete_attr")
+
+
+def phase_ptp_topo_datatype(w, smi: str) -> None:
+    """Point-to-point, derived datatypes, topologies and communicator
+    algebra on the 8-rank cuda:0 world, against numpy and the CPU port."""
+    t0 = time.perf_counter()
+    n = w.size
+    cpu = MPI.Communicator(MPI.Group(range(n)), [torch.device("cpu")] * n,
+                           name="cpu_world")
+    _ptp(w, cpu, smi)
+    torch.cuda.empty_cache()
+    _datatypes(w, cpu, smi)
+    torch.cuda.empty_cache()
+    _topologies(w, cpu, smi)
+    _algebra(w)
+    phase("ptp", f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1831,6 +2260,7 @@ def main() -> int:
           f"| {smi}")
     phase_algorithms(world, smi)
     phase_compression(world, smi)
+    phase_ptp_topo_datatype(world, smi)
     MPI.Finalize()
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{

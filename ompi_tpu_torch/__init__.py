@@ -9,7 +9,8 @@ module's counterpart sits at the same path:
 
 - ``mca``         — framework/component selection, typed MCA vars
                     (env prefix ``OMPI_TPU_TORCH_MCA_``).
-- ``core``        — communicators, groups, datatypes, ops, errhandlers,
+- ``core``        — communicators, groups, datatypes (predefined and
+                    derived) and the convertor, ops, errhandlers,
                     requests (CUDA-event completion).
 - ``coll``        — priority-selected collective components: ``torch``
                     (device), ``basic`` (host oracle), ``self``, ``nbc``
@@ -17,6 +18,10 @@ module's counterpart sits at the same path:
                     bucket fusion.
 - ``accelerator`` — buffer locus, H2D/D2H copies, CUDA streams/events.
 - ``runtime``     — init/finalize, world binding, the progress engine.
+- ``pml``         — the stacked point-to-point matching engine and
+                    partitioned pt2pt.
+- ``topo``        — cartesian/graph/dist-graph topologies, device
+                    neighbor collectives, treematch placement.
 - ``ops``         — hand-written CUDA kernels (``csrc/``) behind torch
                     wrappers, with their plain torch versions.
 - ``models``      — the flagship transformer.
@@ -27,10 +32,12 @@ It imports torch, numpy and the standard library — never JAX, and never
 
 from ompi_tpu_torch.api.mpi import (  # noqa: F401
     # constants
-    IN_PLACE, UNDEFINED, SUCCESS, ERR_COMM, ERR_TYPE, ERR_OP, ERR_ARG,
-    ERR_COUNT, ERR_BUFFER, ERR_RANK, ERR_ROOT, ERR_TRUNCATE, ERR_OTHER,
+    IN_PLACE, UNDEFINED, ANY_SOURCE, ANY_TAG, PROC_NULL, KEYVAL_INVALID,
+    SUCCESS, ERR_COMM, ERR_TYPE, ERR_OP, ERR_ARG, ERR_COUNT, ERR_BUFFER,
+    ERR_RANK, ERR_ROOT, ERR_TRUNCATE, ERR_OTHER, ERR_PENDING, ERR_TOPOLOGY,
     CONGRUENT, IDENT, SIMILAR, UNEQUAL,
     THREAD_SINGLE, THREAD_FUNNELED, THREAD_SERIALIZED, THREAD_MULTIPLE,
+    COMM_TYPE_SHARED, COMM_TYPE_HWTHREAD, COMM_TYPE_NUMA,
     # datatypes
     FLOAT, DOUBLE, INT, LONG, CHAR, BYTE, SHORT, UNSIGNED, UNSIGNED_LONG,
     INT8_T, INT16_T, INT32_T, INT64_T, UINT8_T, UINT16_T, UINT32_T, UINT64_T,
@@ -50,8 +57,11 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     Wait, Start, Startall, Test, Waitall, Waitany, Waitsome, Testall,
     Testany, Testsome,
     # helpers
-    op_create, error_string, from_numpy_dtype, from_torch_dtype,
-    INFO_ENV, INFO_NULL, Comm_set_errhandler, Comm_get_errhandler,
+    op_create, create_keyval, free_keyval, error_string, from_numpy_dtype,
+    from_torch_dtype, INFO_ENV, INFO_NULL, Comm_set_errhandler,
+    Comm_get_errhandler,
+    # local reduction + pack/external32
+    reduce_local, Pack, Unpack, Pack_external, Unpack_external, Pack_size,
 )
 from ompi_tpu_torch.runtime.init import _reset_for_tests  # noqa: F401
 

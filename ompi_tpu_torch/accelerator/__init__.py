@@ -1,4 +1,5 @@
 from ompi_tpu_torch.accelerator.framework import (  # noqa: F401
     LOCUS_DEVICE, LOCUS_HOST, Event, Stream, accel_framework, check_addr,
-    current_module, select_for_devices, to_device, to_host, to_numpy,
+    current_module, device_locality, select_for_devices, to_device, to_host,
+    to_numpy,
 )

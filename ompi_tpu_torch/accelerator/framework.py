@@ -18,7 +18,7 @@ a type/placement test. Components:
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,15 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.cpu().numpy()
+
+
+def device_locality(device) -> Tuple[int, Tuple[int, ...]]:
+    """(process_index, physical coords) of a device — what topology
+    placement reads. A ``torch.device`` carries neither, so it reads as
+    (0, ()): every rank in one process, no coordinates."""
+    proc = int(getattr(device, "process_index", 0) or 0)
+    coords = tuple(getattr(device, "coords", ()) or ())
+    return proc, coords
 
 
 class Stream:

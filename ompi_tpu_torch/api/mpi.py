@@ -8,7 +8,12 @@ recvbuf as the send buffer".
 """
 from __future__ import annotations
 
-from ompi_tpu_torch.core.communicator import IN_PLACE, Communicator  # noqa: F401
+from ompi_tpu_torch.core.communicator import (IN_PLACE,  # noqa: F401
+                                              Communicator, create_keyval,
+                                              free_keyval)
+from ompi_tpu_torch.core.convertor import (  # noqa: F401
+    mpi_pack as Pack, mpi_unpack as Unpack, pack_external as Pack_external,
+    pack_size as Pack_size, unpack_external as Unpack_external)
 from ompi_tpu_torch.core.datatype import (  # noqa: F401
     BFLOAT16, BYTE, C_BOOL, C_DOUBLE_COMPLEX, C_FLOAT_COMPLEX, CHAR, DOUBLE,
     DOUBLE_INT, Datatype, FLOAT, FLOAT16, FLOAT_INT, INT, INT8_T, INT16_T,
@@ -16,20 +21,30 @@ from ompi_tpu_torch.core.datatype import (  # noqa: F401
     UINT16_T, UINT32_T, UINT64_T, UNSIGNED, UNSIGNED_LONG,
     from_numpy_dtype, from_torch_dtype)
 from ompi_tpu_torch.core.errhandler import (  # noqa: F401
-    ERR_ARG, ERR_BUFFER, ERR_COMM, ERR_COUNT, ERR_OP, ERR_OTHER, ERR_RANK,
-    ERR_ROOT, ERR_TRUNCATE, ERR_TYPE, ERRORS_ABORT, ERRORS_ARE_FATAL,
+    ERR_ARG, ERR_BUFFER, ERR_COMM, ERR_COUNT, ERR_OP, ERR_OTHER, ERR_PENDING,
+    ERR_RANK, ERR_ROOT, ERR_TOPOLOGY, ERR_TRUNCATE, ERR_TYPE, ERRORS_ABORT,
+    ERRORS_ARE_FATAL,
     ERRORS_RETURN, Errhandler, MPIError, SUCCESS, error_string)
 from ompi_tpu_torch.core.group import (CONGRUENT, Group, IDENT,  # noqa: F401
                                        SIMILAR, UNDEFINED, UNEQUAL)
 from ompi_tpu_torch.core.info import INFO_ENV, INFO_NULL, Info  # noqa: F401
 from ompi_tpu_torch.core.op import (BAND, BOR, BXOR, LAND, LOR, LXOR,  # noqa: F401
                                     MAX, MAXLOC, MIN, MINLOC, Op, PROD, SUM,
-                                    op_create)
+                                    op_create, reduce_local)
 from ompi_tpu_torch.core.request import (Grequest, Request,  # noqa: F401
                                          Status, startall, testall,
                                          testany, testsome, waitall,
                                          waitany, waitsome)
 from ompi_tpu_torch.runtime import init as _rt
+
+ANY_SOURCE = -1
+ANY_TAG = -1
+PROC_NULL = -2
+KEYVAL_INVALID = -1
+
+COMM_TYPE_SHARED = 1
+COMM_TYPE_HWTHREAD = 2
+COMM_TYPE_NUMA = 3
 
 THREAD_SINGLE = _rt.THREAD_SINGLE
 THREAD_FUNNELED = _rt.THREAD_FUNNELED

@@ -232,6 +232,11 @@ class CompressedCollModule:
             return self._delegate_device("reduce_scatter_block", x, op)
         return self.device.reduce_scatter_block_compressed(x, op)
 
+    # the derived-datatype allreduce stays uncompressed, as in the
+    # reference: its packed image is index-sparse
+    def allreduce_dtype(self, *args):
+        return self._flat_mod("allreduce").allreduce_dtype(*args)
+
     def bind_allreduce(self, example, op):
         return self.device.bind_allreduce(example, op)
 

@@ -67,6 +67,7 @@ import torch.nn.functional as F
 
 from ompi_tpu_torch.coll import decision, tuned
 from ompi_tpu_torch.coll.framework import coll_framework
+from ompi_tpu_torch.core import convertor
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.mca.base import Component
 
@@ -1229,6 +1230,34 @@ class TorchCollModule:
     def allreduce(self, x, op):
         x = self._to_dev(x)
         return self._entry("allreduce", x, op)[1](x)
+
+    def allreduce_dtype(self, x, op, dt, count: int, preserve_gaps: bool):
+        """Derived-datatype allreduce (``coll/xla.py:1266-1310``): gather
+        the significant elements (``index_select``), reduce them through
+        the selected allreduce schedule, and scatter the result
+        (``index_copy_``) into ``x`` itself (``preserve_gaps``: the
+        IN_PLACE recvbuf, whose holes stay as they were) or into zeros.
+        The index tensors are the datatype's, copied to the device once;
+        the schedule is resolved once per key, memoized against the var
+        epoch like every other entry of ``_fast``."""
+        x = self._to_dev(x)
+        fk = ("allreduce_dt", x.shape, x.dtype, op.uid, dt.uid, count,
+              preserve_gaps)
+        ep = var.epoch()
+        hit = self._fast.get(fk)
+        if hit is None or hit[0] != ep:
+            # the schedule the packed (N, ..., k) tensor selects; a meta
+            # tensor carries its shape and dtype without memory
+            red = self._entry("allreduce", torch.empty(
+                x.shape[:-1] + (count * dt.count,), dtype=x.dtype,
+                device="meta"), op)[1]
+
+            def fn(b):
+                r = red(convertor.pack(b, dt, count))
+                base = b if preserve_gaps else torch.zeros_like(b)
+                return convertor.unpack(base, r, dt, count)
+            hit = self._fast[fk] = (ep, fn)
+        return hit[1](x)
 
     def bind_allreduce(self, example, op):
         """Pre-bound hot-path handle (``MPI_Allreduce_init``'s point):

@@ -15,6 +15,14 @@ several cards waits for the per-rank (``torch.distributed``) tier.
 parent ranks, and its stacked buffers have one row per member. CID
 agreement collapses to a controller-side counter.
 
+Point-to-point runs through the stacked matching engine
+(``pml/stacked``), with the sending and receiving ranks explicit;
+process topologies (``topo/``) attach to a communicator and their
+neighbor collectives gather over the stacked tensor on the device.
+Derived datatypes ride the blocking collectives through the convertor
+(``_wire``), or, for a device allreduce, through the fused
+``allreduce_dtype`` of the selected module.
+
 Collectives here are the framework-level entry points: argument/locus
 validation and errhandler invocation, then dispatch through the
 per-communicator ``c_coll`` vtable populated by priority selection
@@ -31,16 +39,18 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ompi_tpu_torch.accelerator import LOCUS_DEVICE, check_addr, to_numpy
+from ompi_tpu_torch.accelerator import (LOCUS_DEVICE, check_addr,
+                                        device_locality, to_numpy)
+from ompi_tpu_torch.core import convertor
 from ompi_tpu_torch.core import op as op_mod
-from ompi_tpu_torch.core.datatype import torch_dtype
+from ompi_tpu_torch.core.datatype import Datatype, torch_dtype
 from ompi_tpu_torch.core.errhandler import (ERR_ARG, ERR_COMM, ERR_COUNT,
-                                            ERR_OP, ERR_ROOT,
-                                            ERRORS_ARE_FATAL, Errhandler,
-                                            MPIError)
+                                            ERR_OP, ERR_RANK, ERR_ROOT,
+                                            ERR_TOPOLOGY, ERRORS_ARE_FATAL,
+                                            Errhandler, MPIError)
 from ompi_tpu_torch.core.group import Group, UNDEFINED
 from ompi_tpu_torch.core.info import Info
-from ompi_tpu_torch.core.request import Request, event_after
+from ompi_tpu_torch.core.request import Request, Status, event_after
 
 
 # Sentinel mirroring MPI_IN_PLACE: "sendbuf is recvbuf".
@@ -79,6 +89,8 @@ class Communicator:
         self.info = info.dup() if info else Info()
         self.errhandler = errhandler or (
             parent.errhandler if parent is not None else ERRORS_ARE_FATAL)
+        self.attributes: Dict[int, Any] = {}
+        self.topo = None               # set by the topology entries
         self._freed = False
         # sub-eager dispatch cache: per-(shape, dtype, op) resolution of
         # the hottest allreduce call shape straight to the selected
@@ -166,6 +178,26 @@ class Communicator:
                       f"got {tuple(getattr(buf, 'shape', ()))}")
         return buf
 
+    def _wire(self, buf, datatype: Optional[Datatype], count: Optional[int]):
+        """Pack a stacked buffer to wire (contiguous) form; return
+        (packed, unpack_fn). ``unpack_fn(y, out)`` scatters a result into
+        ``out`` in place — its holes, the elements outside the map, are
+        left untouched — or into zeros when there is no ``out``."""
+        if datatype is None or datatype.is_contiguous:
+            return buf, None
+        if count is None:
+            count = buf.shape[-1] // max(datatype.extent, 1)
+        packed = convertor.pack(buf, datatype, count)
+
+        def unpack_fn(y, out=None):
+            if out is None:
+                shape = tuple(y.shape[:-1]) + (count * datatype.extent,)
+                out = (torch.zeros(shape, dtype=y.dtype, device=y.device)
+                       if isinstance(y, torch.Tensor)
+                       else np.zeros(shape, dtype=y.dtype))
+            return convertor.unpack(out, y, datatype, count)
+        return packed, unpack_fn
+
     @staticmethod
     def _deliver(y, recvbuf):
         """A distinct tensor ``recvbuf`` receives the result in place (and
@@ -181,14 +213,18 @@ class Communicator:
     # tensor, where a call takes one, receives it in place). IN_PLACE
     # passes recvbuf as the input.
     # ==================================================================
-    def allreduce(self, sendbuf, op=op_mod.SUM, *, recvbuf=None):
-        if sendbuf is IN_PLACE:
+    def allreduce(self, sendbuf, op=op_mod.SUM, *,
+                  datatype: Optional[Datatype] = None,
+                  count: Optional[int] = None, recvbuf=None):
+        in_place = sendbuf is IN_PLACE
+        if in_place:
             sendbuf = recvbuf       # MPI_IN_PLACE (allreduce.c.in:54,78-79)
-        # sub-eager fast path: device buffer, no recvbuf — shape/dtype/op
-        # were validated when the key was filled (validity is a pure
-        # function of the key), so a repeat call is one dict probe. The
-        # freed-op and freed-comm checks stay per call.
-        if (recvbuf is None and getattr(op, "fn", None) is not None
+        # sub-eager fast path: contiguous device buffer, no recvbuf —
+        # shape/dtype/op were validated when the key was filled (validity
+        # is a pure function of the key), so a repeat call is one dict
+        # probe. The freed-op and freed-comm checks stay per call.
+        if (datatype is None and recvbuf is None
+                and getattr(op, "fn", None) is not None
                 and check_addr(sendbuf) == LOCUS_DEVICE):
             key = (sendbuf.shape, sendbuf.dtype, op.uid)
             fn = self._subeager.get(key)
@@ -201,57 +237,97 @@ class Communicator:
             return fn(sendbuf, op)
         self._validate_stacked(sendbuf)
         self._validate_op(op)
-        y = self._coll("allreduce").allreduce(sendbuf, op)
-        return self._deliver(y, recvbuf)
+        # Fused derived-datatype path (the reference's conditions,
+        # core/communicator.py:314-329): a device buffer, a real non-pair
+        # op, no distinct recvbuf (whose holes cannot come from sendbuf),
+        # and an exact-fit last dim — the fused chain returns sendbuf's
+        # own shape, where the convertor path gives the truncated image.
+        if (datatype is not None and not datatype.is_contiguous
+                and not datatype.pair and not op.is_loc
+                and (recvbuf is None or in_place)
+                and check_addr(sendbuf) == LOCUS_DEVICE):
+            fd = getattr(self._coll("allreduce"), "allreduce_dtype", None)
+            cnt = (count if count is not None else
+                   sendbuf.shape[-1] // max(datatype.extent, 1))
+            if fd is not None and sendbuf.shape[-1] == cnt * datatype.extent:
+                return fd(sendbuf, op, datatype, cnt, in_place)
+        x, unpack_fn = self._wire(sendbuf, datatype, count)
+        y = self._coll("allreduce").allreduce(x, op)
+        if unpack_fn is None:
+            return self._deliver(y, recvbuf)
+        # Unpack into recvbuf (even for IN_PLACE, where recvbuf is the send
+        # buffer): MPI leaves the elements outside the map untouched.
+        return unpack_fn(y, recvbuf)
 
-    def reduce(self, sendbuf, op=op_mod.SUM, root: int = 0, *, recvbuf=None):
+    def reduce(self, sendbuf, op=op_mod.SUM, root: int = 0, *,
+               datatype: Optional[Datatype] = None,
+               count: Optional[int] = None, recvbuf=None):
         """in (N, *s) -> out (N, *s), root's row significant."""
         if sendbuf is IN_PLACE:
             sendbuf = recvbuf
         self._validate_stacked(sendbuf)
         self._validate_op(op)
         self._validate_root(root)
-        y = self._coll("reduce").reduce(sendbuf, op, root)
-        return self._deliver(y, recvbuf)
+        x, unpack_fn = self._wire(sendbuf, datatype, count)
+        y = self._coll("reduce").reduce(x, op, root)
+        if unpack_fn is None:
+            return self._deliver(y, recvbuf)
+        return unpack_fn(y, recvbuf)
 
-    def bcast(self, buf, root: int = 0):
+    def bcast(self, buf, root: int = 0, *,
+              datatype: Optional[Datatype] = None,
+              count: Optional[int] = None):
         self._validate_stacked(buf)
         self._validate_root(root)
-        return self._coll("bcast").bcast(buf, root)
+        x, unpack_fn = self._wire(buf, datatype, count)
+        y = self._coll("bcast").bcast(x, root)
+        return y if unpack_fn is None else unpack_fn(y)
 
-    def allgather(self, sendbuf):
+    def allgather(self, sendbuf, *, datatype: Optional[Datatype] = None,
+                  count: Optional[int] = None):
         """in (N, *s) -> out (N, N, *s): out[r, j] = rank j's sendbuf."""
         self._validate_stacked(sendbuf)
-        return self._coll("allgather").allgather(sendbuf)
+        x, _ = self._wire(sendbuf, datatype, count)
+        return self._coll("allgather").allgather(x)
 
-    def gather(self, sendbuf, root: int = 0):
+    def gather(self, sendbuf, root: int = 0, *,
+               datatype: Optional[Datatype] = None,
+               count: Optional[int] = None):
         """in (N, *s) -> out (N, N, *s), rows valid at root only."""
         self._validate_stacked(sendbuf)
         self._validate_root(root)
-        return self._coll("gather").gather(sendbuf, root)
+        x, _ = self._wire(sendbuf, datatype, count)
+        return self._coll("gather").gather(x, root)
 
-    def scatter(self, sendbuf, root: int = 0):
+    def scatter(self, sendbuf, root: int = 0, *,
+                datatype: Optional[Datatype] = None,
+                count: Optional[int] = None):
         """in (N, N, *s) (root's row of chunks) -> out (N, *s)."""
         self._validate_stacked(sendbuf, lead=2)
         self._validate_root(root)
-        return self._coll("scatter").scatter(sendbuf, root)
+        x, _ = self._wire(sendbuf, datatype, count)
+        return self._coll("scatter").scatter(x, root)
 
-    def alltoall(self, sendbuf):
+    def alltoall(self, sendbuf, *, datatype: Optional[Datatype] = None,
+                 count: Optional[int] = None):
         """in (N, N, *s) -> out (N, N, *s): out[j, i] = in[i, j]."""
         self._validate_stacked(sendbuf, lead=2)
         if sendbuf.shape[1] != self.size:
             self._err(ERR_COUNT, "alltoall needs one chunk per peer")
-        return self._coll("alltoall").alltoall(sendbuf)
+        x, _ = self._wire(sendbuf, datatype, count)
+        return self._coll("alltoall").alltoall(x)
 
-    def reduce_scatter_block(self, sendbuf, op=op_mod.SUM):
+    def reduce_scatter_block(self, sendbuf, op=op_mod.SUM, *,
+                             datatype: Optional[Datatype] = None,
+                             count: Optional[int] = None):
         """in (N, N, *s) -> out (N, *s): out[r] = reduce_i in[i, r]."""
         self._validate_stacked(sendbuf, lead=2)
         if sendbuf.shape[1] != self.size:
             self._err(ERR_COUNT, "reduce_scatter_block needs one chunk "
                                  "per peer")
         self._validate_op(op)
-        return self._coll("reduce_scatter_block").reduce_scatter_block(
-            sendbuf, op)
+        x, _ = self._wire(sendbuf, datatype, count)
+        return self._coll("reduce_scatter_block").reduce_scatter_block(x, op)
 
     def scan(self, sendbuf, op=op_mod.SUM):
         self._validate_stacked(sendbuf)
@@ -424,6 +500,44 @@ class Communicator:
         return [[t[j, i, :counts[i][j]] for i in range(n)]
                 for j in range(n)]
 
+    def alltoallw(self, send_chunks: Sequence[Sequence[Any]],
+                  send_types: Sequence[Sequence[Optional[Datatype]]],
+                  send_counts: Optional[Sequence[Sequence[int]]] = None
+                  ) -> List[List[torch.Tensor]]:
+        """MPI_Alltoallw: per-(src, dst) datatypes. Each chunk is packed on
+        the host with its own datatype (the per-pair layouts preclude one
+        device index map), then the packed chunks ride ``alltoallv``.
+        ``send_counts[i][j]`` is the instance count; when omitted, the
+        most instances that fit the chunk — the last one needs only the
+        type's true extent (MPI's buffer-length rule)."""
+        packed = []
+        for i, (row, trow) in enumerate(zip(send_chunks, send_types)):
+            prow = []
+            for j, (c, t) in enumerate(zip(row, trow)):
+                a = (to_numpy(c) if isinstance(c, torch.Tensor)
+                     else np.asarray(c))
+                if t is not None and not t.is_contiguous:
+                    extent = max(t.extent, 1)
+                    lo, rng = t.get_true_extent()
+                    if send_counts is not None:
+                        cnt = send_counts[i][j]
+                    elif a.shape[-1] < lo + rng:
+                        cnt = 0
+                    else:
+                        cnt = 1 + (a.shape[-1] - lo - rng) // extent
+                    if a.shape[-1] < ((cnt - 1) * extent + lo + rng
+                                      if cnt else 0):
+                        self._err(ERR_COUNT,
+                                  f"alltoallw chunk length {a.shape[-1]} "
+                                  f"cannot hold {cnt} instances "
+                                  f"(extent {extent}, true extent "
+                                  f"{lo + rng})")
+                    a = (convertor.pack(a, t, cnt) if cnt
+                         else np.empty((0,), a.dtype))
+                prow.append(a.ravel())
+            packed.append(prow)
+        return self.alltoallv(packed)
+
     # ==================================================================
     # Nonblocking variants: torch dispatch is asynchronous on the card —
     # the collective is enqueued on the stream and a Request holds its
@@ -563,14 +677,125 @@ class Communicator:
         return _pcoll.coll_init(self, "barrier")
 
     # ==================================================================
+    # Point-to-point (pml framework; matching spec pml_ob1_recvfrag.c).
+    # Single-controller: the sending rank (``src``) and the receiving
+    # rank (``dst``) are explicit arguments; ``data`` is that rank's
+    # local buffer.
+    # ==================================================================
+    @property
+    def _pml(self):
+        eng = getattr(self, "_pml_engine", None)
+        if eng is None:
+            from ompi_tpu_torch.pml.stacked import MatchingEngine
+            eng = self._pml_engine = MatchingEngine(self)
+        return eng
+
+    def send(self, data, src: int, dest: int, tag: int = 0) -> None:
+        """MPI_Send from rank ``src`` to ``dest``."""
+        self._check()
+        self._pml.send(data, src, dest, tag)
+
+    def isend(self, data, src: int, dest: int, tag: int = 0) -> Request:
+        self._check()
+        return self._pml.send(data, src, dest, tag)
+
+    def ssend(self, data, src: int, dest: int, tag: int = 0) -> None:
+        """MPI_Ssend: completes only if the receive has started; raises
+        the deadlock otherwise (single-controller semantics)."""
+        self._check()
+        self._pml.send(data, src, dest, tag, synchronous=True)
+
+    def bsend(self, data, src: int, dest: int, tag: int = 0) -> None:
+        """MPI_Bsend: the payload is buffered (copied) at send time."""
+        self._check()
+        self._pml.send(data, src, dest, tag)
+
+    def recv(self, source: int, tag: int = -1, *, dst: int = 0):
+        """MPI_Recv executed by rank ``dst``: returns (data, Status).
+        Raises instead of deadlocking if no matching send was posted."""
+        self._check()
+        return self._pml.recv(dst, source, tag)
+
+    def irecv(self, source: int, tag: int = -1, *, dst: int = 0) -> Request:
+        self._check()
+        return self._pml.irecv(dst, source, tag)
+
+    def sendrecv(self, senddata, src: int, dest: int, recvsource: int,
+                 sendtag: int = 0, recvtag: int = -1):
+        """MPI_Sendrecv executed by rank ``src``: post the send, then
+        receive (deadlock-free by construction)."""
+        self._check()
+        self._pml.send(senddata, src, dest, sendtag)
+        return self._pml.recv(src, recvsource, recvtag)
+
+    def probe(self, source: int, tag: int = -1, *, dst: int = 0) -> Status:
+        self._check()
+        return self._pml.probe(dst, source, tag)
+
+    def iprobe(self, source: int, tag: int = -1, *, dst: int = 0):
+        self._check()
+        return self._pml.iprobe(dst, source, tag)
+
+    def mprobe(self, source: int, tag: int = -1, *, dst: int = 0):
+        self._check()
+        return self._pml.mprobe(dst, source, tag)
+
+    def improbe(self, source: int, tag: int = -1, *, dst: int = 0):
+        """MPI_Improbe: nonblocking matched probe — (flag, message,
+        Status); on no match returns (False, None, None)."""
+        self._check()
+        flag, status = self._pml.iprobe(dst, source, tag)
+        if not flag:
+            return False, None, None
+        return True, self._pml.mprobe(dst, source, tag), status
+
+    def mrecv(self, message):
+        self._check()
+        return self._pml.mrecv(message)
+
+    def send_init(self, data, src: int, dest: int, tag: int = 0) -> Request:
+        """MPI_Send_init (persistent): each start sends ``data`` as it is
+        then."""
+        self._check()
+        return Request(persistent_start=lambda: self._pml.send(
+            data, src, dest, tag))
+
+    def recv_init(self, source: int, tag: int = -1, *,
+                  dst: int = 0) -> Request:
+        self._check()
+        return Request(persistent_start=lambda: self._pml.irecv(
+            dst, source, tag))
+
+    # -- partitioned pt2pt (MPI-4, mirrors ompi/mca/part/persist) ------
+    def psend_init(self, parts: Sequence[Any], dest: int, tag: int = 0,
+                   src: int = 0):
+        """MPI_Psend_init: ``parts`` is the partition list; ``pready(i)``
+        marks partition i; the message is sent when all are ready."""
+        self._check()
+        from ompi_tpu_torch.pml.partitioned import PartitionedSend
+        return PartitionedSend(self, parts, src, dest, tag)
+
+    def precv_init(self, source: int, tag: int = 0, partitions: int = 1,
+                   *, dst: int = 0):
+        self._check()
+        from ompi_tpu_torch.pml.partitioned import PartitionedRecv
+        return PartitionedRecv(self, source, tag, partitions, dst=dst)
+
+    # ==================================================================
     # Communicator algebra
     # ==================================================================
     def dup(self, info: Optional[Info] = None) -> "Communicator":
         self._check()
-        return self.__class__(Group(self.group.world_ranks), self.devices,
-                              name=f"{self.name}.dup", parent=self,
-                              info=info or self.info,
-                              errhandler=self.errhandler)
+        c = self.__class__(Group(self.group.world_ranks), self.devices,
+                           name=f"{self.name}.dup", parent=self,
+                           info=info or self.info,
+                           errhandler=self.errhandler)
+        try:
+            propagate_attrs(self, c)
+        except BaseException:
+            c.free()                     # no half-built comm leaks
+            raise
+        return c
 
     def split(self, colors: Sequence[int], keys: Optional[Sequence[int]] = None
               ) -> List[Optional["Communicator"]]:
@@ -601,6 +826,42 @@ class Communicator:
                 out[r] = newc
         return out
 
+    def split_type(self, split_type: int,
+                   keys: Optional[Sequence[int]] = None):
+        """MPI_Comm_split_type: group ranks by hardware locality.
+        COMM_TYPE_SHARED groups ranks whose devices share a host process
+        (``device_locality``; a torch device reads as process 0, so every
+        rank of this controller); COMM_TYPE_NUMA uses a device's NUMA
+        node where it exposes one, else its process; COMM_TYPE_HWTHREAD
+        gives every rank its own communicator; UNDEFINED yields
+        MPI_COMM_NULL everywhere."""
+        if split_type == UNDEFINED:
+            return [None] * self.size
+        if split_type == 2:           # COMM_TYPE_HWTHREAD
+            colors = list(range(self.size))
+        elif split_type == 3:         # COMM_TYPE_NUMA
+            colors = [int(getattr(d, "numa_node", None)
+                          or device_locality(d)[0]) for d in self.devices]
+        elif split_type == 1:         # COMM_TYPE_SHARED
+            colors = [device_locality(d)[0] for d in self.devices]
+        else:
+            self._err(ERR_ARG, f"unknown split_type {split_type}")
+            return [None] * self.size
+        return self.split(colors, keys)
+
+    def create(self, group: Group) -> Optional["Communicator"]:
+        """MPI_Comm_create: new communicator over a subgroup."""
+        self._check()
+        ranks = []
+        for wr in group.world_ranks:
+            lr = self.group.rank_of(wr)
+            if lr == UNDEFINED:
+                self._err(ERR_RANK, "group not a subset of communicator")
+            ranks.append(lr)
+        devs = [self.devices[r] for r in ranks]
+        return self.__class__(group, devs, name=f"{self.name}.create",
+                              parent=self, errhandler=self.errhandler)
+
     def compare(self, other: "Communicator") -> int:
         from ompi_tpu_torch.core.group import (CONGRUENT, IDENT, SIMILAR,
                                                UNEQUAL)
@@ -612,7 +873,226 @@ class Communicator:
         return SIMILAR if g == SIMILAR else UNEQUAL
 
     def free(self) -> None:
+        fire_delete_attrs(self)
         self._freed = True
+
+    # -- process topologies (topo framework) ---------------------------
+    def create_cart(self, dims: Sequence[int],
+                    periods: Optional[Sequence[bool]] = None,
+                    reorder: bool = False) -> "Communicator":
+        """MPI_Cart_create. ``reorder=True`` orders ranks by their
+        devices' physical coords where a device exposes them (a torch
+        device does not: the order stays)."""
+        import math
+        from ompi_tpu_torch.topo import CartTopology
+        dims = list(dims)
+        if periods is None:
+            periods = [False] * len(dims)
+        n = math.prod(dims)
+        if n > self.size:
+            self._err(ERR_ARG, f"cart size {n} exceeds comm size")
+        ranks = list(range(n))
+        if reorder:
+            ranks = sorted(ranks, key=lambda i: (
+                device_locality(self.devices[i])[1] or (i,)))
+        g = Group([self.group.world_ranks[r] for r in ranks])
+        c = self.__class__(g, [self.devices[r] for r in ranks],
+                           name=f"{self.name}.cart", parent=self,
+                           errhandler=self.errhandler)
+        c.topo = CartTopology(dims, periods)
+        return c
+
+    def _cart(self):
+        from ompi_tpu_torch.topo import CartTopology
+        if not isinstance(self.topo, CartTopology):
+            self._err(ERR_TOPOLOGY, "communicator has no cartesian topology")
+        return self.topo
+
+    def _topo(self):
+        if self.topo is None:
+            self._err(ERR_TOPOLOGY, "no topology attached")
+        return self.topo
+
+    def cart_rank(self, coords: Sequence[int]) -> int:
+        return self._cart().rank(coords)
+
+    def cart_coords(self, rank: int) -> Tuple[int, ...]:
+        return self._cart().coords(rank)
+
+    def cart_shift(self, rank: int, direction: int,
+                   disp: int = 1) -> Tuple[int, int]:
+        return self._cart().shift(rank, direction, disp)
+
+    def cart_sub(self, remain: Sequence[bool]) -> List["Communicator"]:
+        """MPI_Cart_sub: split into sub-cart communicators along kept
+        dims; returns one entry per rank."""
+        from ompi_tpu_torch.topo import CartTopology
+        colors, new_topo = self._cart().sub_keep(remain)
+        subs = self.split(colors)
+        for s in subs:
+            if s is not None and s.topo is None:
+                s.topo = CartTopology(new_topo.dims, new_topo.periods)
+        return subs
+
+    def create_graph(self, index: Sequence[int], edges: Sequence[int],
+                     reorder: bool = False) -> "Communicator":
+        """MPI_Graph_create. ``reorder=True`` runs the treematch
+        placement: rank r is bound to the device slot that minimizes the
+        graph's weighted hop count (``topo/treematch``)."""
+        from ompi_tpu_torch.topo import GraphTopology
+        topo = GraphTopology(index, edges)
+        if topo.size > self.size:
+            self._err(ERR_ARG, "graph larger than communicator")
+        devices = list(self.devices[:topo.size])
+        if reorder and topo.size > 1:
+            from ompi_tpu_torch.topo import treematch as tm
+            perm = tm.treematch_permutation(
+                tm.comm_matrix_from_graph(index, edges),
+                tm.hardware_distance(devices))
+            devices = [devices[perm[r]] for r in range(topo.size)]
+        c = self.__class__(Group(self.group.world_ranks[:topo.size]),
+                           devices, name=f"{self.name}.graph", parent=self,
+                           errhandler=self.errhandler)
+        c.topo = topo
+        return c
+
+    def create_dist_graph_adjacent(self, sources, destinations
+                                   ) -> "Communicator":
+        from ompi_tpu_torch.topo import DistGraphTopology
+        c = self.dup()
+        c.topo = DistGraphTopology(sources, destinations)
+        c.name = f"{self.name}.dist_graph"
+        return c
+
+    def graph_neighbors(self, rank: int) -> List[int]:
+        return self._topo().neighbors(rank)
+
+    def neighbor_allgather(self, sendbuf) -> List[Any]:
+        """MPI_Neighbor_allgather: each rank receives its neighbors'
+        buffers (in neighbor order). A tensor is exchanged on the
+        communicator's device by one gather (``topo/neighbor``); a numpy
+        array takes the host path."""
+        self._validate_stacked(sendbuf)
+        topo = self._topo()
+        if isinstance(sendbuf, torch.Tensor):
+            from ompi_tpu_torch.topo import neighbor as nbr
+            return nbr.device_neighbor_allgather(self, sendbuf)
+        host = np.asarray(sendbuf)
+        out = []
+        for r in range(self.size):
+            nb = [n for n in topo.neighbors(r) if n >= 0]
+            out.append(np.stack([host[n] for n in nb])
+                       if nb else np.empty((0,) + host.shape[1:],
+                                           host.dtype))
+        return out
+
+    def neighbor_alltoall(self, sendbuf) -> List[Any]:
+        """MPI_Neighbor_alltoall: sendbuf (N, max_out_deg, *s); rank r's
+        j-th chunk goes to its j-th out-neighbor; each rank receives one
+        chunk per in-neighbor (in neighbor order). A tensor is exchanged
+        on the device by one gather, a numpy array on the host."""
+        self._validate_stacked(sendbuf, lead=2)
+        topo = self._topo()
+        if isinstance(sendbuf, torch.Tensor):
+            from ompi_tpu_torch.topo import neighbor as nbr
+            return nbr.device_neighbor_alltoall(self, sendbuf)
+        from collections import deque
+        host = np.asarray(sendbuf)
+        out_nb = getattr(topo, "out_neighbors", topo.neighbors)
+        # the chunk s sends to its j-th out-neighbor d lands at d at the
+        # position of the matching occurrence of s in d's in-neighbor
+        # list; FIFO per (sender, receiver) pair handles duplicate edges
+        # (periodic dims of size <= 2, multigraph dist-graphs)
+        recv: Dict[Tuple[int, int], Any] = {}
+        for s in range(self.size):
+            for j, d in enumerate(out_nb(s)):
+                if 0 <= d < self.size:
+                    recv.setdefault((d, s), deque()).append(host[s, j])
+        out = []
+        for r in range(self.size):
+            chunks = []
+            for n in topo.neighbors(r):
+                if n < 0:
+                    continue
+                q = recv.get((r, n))
+                chunks.append(q.popleft() if q
+                              else np.zeros(host.shape[2:], host.dtype))
+            out.append(np.stack(chunks) if chunks
+                       else np.empty((0,) + host.shape[2:], host.dtype))
+        return out
+
+    def neighbor_allgatherv(self, per_rank: Sequence[Any]) -> List[Any]:
+        """MPI_Neighbor_allgatherv: ragged contributions; rank r receives
+        the concatenation of its neighbors' (variable-size) buffers in
+        neighbor order."""
+        topo = self._topo()
+        arrs, _counts = self._ragged(per_rank, "neighbor_allgatherv")
+        if isinstance(arrs[0], torch.Tensor):
+            from ompi_tpu_torch.topo import neighbor as nbr
+            return nbr.device_neighbor_allgatherv(self, arrs)
+        out = []
+        for r in range(self.size):
+            nb = [n for n in topo.neighbors(r) if n >= 0]
+            out.append(np.concatenate([arrs[n] for n in nb])
+                       if nb else np.empty((0,), arrs[0].dtype))
+        return out
+
+    def neighbor_alltoallv(self, send_chunks: Sequence[Sequence[Any]]
+                           ) -> List[List[Any]]:
+        """MPI_Neighbor_alltoallv: ``send_chunks[r][j]`` is rank r's
+        ragged chunk for its j-th out-neighbor; rank r receives one chunk
+        per in-neighbor, as a list aligned with its in-neighbor order
+        (empty where the sender provided no chunk — alignment is never
+        silently shifted)."""
+        topo = self._topo()
+        if len(send_chunks) != self.size:
+            self._err(ERR_COUNT, "need one chunk row per rank")
+        flat = [c for row in send_chunks for c in row]
+        if flat and all(isinstance(c, torch.Tensor) for c in flat):
+            return self._neighbor_alltoallv_device(send_chunks)
+        from collections import deque
+        out_nb = getattr(topo, "out_neighbors", topo.neighbors)
+        recv: Dict[Tuple[int, int], Any] = {}
+        for s in range(self.size):
+            for j, d in enumerate(out_nb(s)):
+                if 0 <= d < self.size and j < len(send_chunks[s]):
+                    c = send_chunks[s][j]
+                    recv.setdefault((d, s), deque()).append(
+                        (to_numpy(c) if isinstance(c, torch.Tensor)
+                         else np.asarray(c)).ravel())
+        empty = np.empty((0,), np.float32)
+        out: List[List[Any]] = []
+        for r in range(self.size):
+            chunks = []
+            for n in topo.neighbors(r):
+                q = recv.get((r, n)) if n >= 0 else None
+                chunks.append(q.popleft() if q else empty)
+            out.append(chunks)
+        return out
+
+    def _neighbor_alltoallv_device(self, send_chunks) -> List[List[Any]]:
+        """Device lowering of neighbor_alltoallv: every chunk flat, one
+        concatenation and one gather (``topo/neighbor``), each received
+        chunk a view cut to its sender's length (the plan's FIFO edge
+        pairing says which sender's)."""
+        from ompi_tpu_torch.topo import neighbor as nbr
+        rows = [[c.reshape(-1) for c in row] for row in send_chunks]
+        return nbr.device_neighbor_alltoallv(self, rows)
+
+    # -- attributes (keyvals) ------------------------------------------
+    def set_attr(self, keyval: int, value: Any) -> None:
+        self.attributes[keyval] = value
+
+    def get_attr(self, keyval: int) -> Tuple[bool, Any]:
+        if keyval in self.attributes:
+            return True, self.attributes[keyval]
+        return False, None
+
+    def delete_attr(self, keyval: int) -> None:
+        val = self.attributes.pop(keyval, None)
+        cb = _keyvals.get(keyval)
+        if cb and cb[1] and val is not None:
+            cb[1](self, keyval, val)
 
     def set_errhandler(self, errh: Errhandler) -> None:
         self.errhandler = errh
@@ -629,3 +1109,47 @@ class Communicator:
     def __repr__(self):
         return (f"Communicator({self.name}, size={self.size}, "
                 f"cid={self.cid}, device={self.device})")
+
+
+# -- keyval registry (MPI_Comm_create_keyval) ------------------------------
+_keyvals: Dict[int, Tuple[Optional[Callable], Optional[Callable]]] = {}
+_keyval_counter = itertools.count(100)
+
+
+def create_keyval(copy_fn: Optional[Callable] = None,
+                  delete_fn: Optional[Callable] = None) -> int:
+    """MPI_Comm_create_keyval. ``copy_fn(comm, keyval, value) ->
+    (keep: bool, new_value)`` runs at Comm_dup (no copy_fn => the
+    attribute is not propagated, per MPI); ``delete_fn(comm, keyval,
+    value)`` runs at attribute deletion / communicator free."""
+    kv = next(_keyval_counter)
+    _keyvals[kv] = (copy_fn, delete_fn)
+    return kv
+
+
+def free_keyval(keyval: int) -> None:
+    _keyvals.pop(keyval, None)
+
+
+def propagate_attrs(src, dst) -> None:
+    """MPI attribute-copy semantics at Comm_dup (attribute.c:349-384):
+    an attribute propagates only through its keyval's copy callback,
+    which may veto or transform the value."""
+    for kv, val in src.attributes.items():
+        cb = _keyvals.get(kv)
+        copy_fn = cb[0] if cb else None
+        if copy_fn is None:
+            continue
+        keep, newval = copy_fn(src, kv, val)
+        if keep:
+            dst.attributes[kv] = newval
+
+
+def fire_delete_attrs(comm) -> None:
+    """Delete callbacks at communicator free (attribute.c free path).
+    A raising callback propagates (MPI_Comm_free must report it)."""
+    for kv, val in list(comm.attributes.items()):
+        cb = _keyvals.get(kv)
+        if cb and cb[1]:
+            cb[1](comm, kv, val)
+    comm.attributes.clear()

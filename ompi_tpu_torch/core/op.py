@@ -193,3 +193,15 @@ def np_combiner(op: Op) -> Callable:
         return op.fn(torch.from_numpy(np.asarray(a)),
                      torch.from_numpy(np.asarray(b))).numpy()
     return fn
+
+
+def reduce_local(inbuf, inoutbuf, op: Op):
+    """MPI_Reduce_local: combine ``inbuf`` into ``inoutbuf`` with ``op``
+    (no communication; the same combiner the collectives use). Returns
+    ``inbuf op inoutbuf`` as a new tensor, or a new numpy array when both
+    buffers are host arrays."""
+    if not isinstance(op, Op) or op.fn is None:
+        raise TypeError("invalid reduction op")
+    if isinstance(inbuf, torch.Tensor) or isinstance(inoutbuf, torch.Tensor):
+        return op.fn(torch.as_tensor(inbuf), torch.as_tensor(inoutbuf))
+    return np_combiner(op)(np.asarray(inbuf), np.asarray(inoutbuf))

@@ -29,6 +29,7 @@ from ompi_tpu_torch.core.errhandler import ERR_OTHER, MPIError
 from ompi_tpu_torch.core.group import Group
 from ompi_tpu_torch.core.info import INFO_ENV
 from ompi_tpu_torch.mca import base, var
+from ompi_tpu_torch.pml import stacked
 from ompi_tpu_torch.runtime import progress
 
 THREAD_SINGLE = 0
@@ -65,6 +66,7 @@ def init(requested: int = THREAD_SINGLE,
     persistent.register_vars()
     tuned.register_vars()
     compress._register_vars()
+    stacked._register_vars()
 
     world = Communicator(Group(range(n)), devices, name="MPI_COMM_WORLD")
     self_comm = Communicator(Group([0]), [devices[0]], name="MPI_COMM_SELF")

@@ -99,6 +99,9 @@ def test_import_needs_no_nvcc_and_no_jax():
         "sys.modules['ml_dtypes'] = None\n"
         "import torch, ompi_tpu_torch, ompi_tpu_torch.parallel\n"
         "import ompi_tpu_torch.compress, ompi_tpu_torch.coll.compressed\n"
+        "import ompi_tpu_torch.pml.stacked, ompi_tpu_torch.pml.partitioned\n"
+        "import ompi_tpu_torch.core.convertor, ompi_tpu_torch.topo.cart\n"
+        "import ompi_tpu_torch.topo.neighbor, ompi_tpu_torch.topo.treematch\n"
         "from ompi_tpu_torch.compress import codecs\n"
         "c = codecs.get_codec('fp8_block')\n"
         "assert c.name == 'fp8_block'\n"
