@@ -95,6 +95,26 @@ Phases, one or more lines each:
                 against the host path and the CPU port, bit for bit, with
                 device ms and share of HBM. ``split_type``, ``create`` and
                 attributes through ``dup``/``free``.
+11. perrank   — ``ompi_tpu_torch/tools/mpirun.py --per-rank -n 8`` runs this
+                script as its rank program (``--perrank-rank``): eight rank
+                processes, each bound to ``cuda:0``. On the shared-buffer
+                device tier (CUDA IPC slots) with 32 MB fp32 per rank:
+                allreduce SUM/MAX/PROD and int32 SUM, MAXLOC on 9 and 2**20
+                (value, index) records, bcast, allgather, alltoall, and
+                reduce_scatter_block through the host fold;
+                numpy staged onto the device tier above a set
+                ``coll_tuned_stage_min_bytes``; host-tier numpy collectives
+                at 37 elements; a devxfer ring of eight 32 MB CUDA messages,
+                each unchanged after its sender overwrote its buffer; 8 B
+                send+recv and a wildcard match; ``split`` into two comms of
+                4 with an allreduce on each. Every rank checks every result
+                against numpy and that every device result is a CUDA tensor
+                on ``cuda:0``; rank 0 prints call ms (a CUDA-event span
+                that includes the host fences), bytes over that span as a
+                share of HBM, and host µs per 8 B round trip and per
+                dispatch. Any rank failing, or the job passing its timeout,
+                fails the phase. ``python3 chip_smoke.py --perrank`` runs
+                phases 1 and 11 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -106,6 +126,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2240,10 +2261,279 @@ def phase_ptp_topo_datatype(w, smi: str) -> None:
     phase("ptp", f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 11 ----------------------------------------------------------
+PR_RANKS = 8
+PR_SEED = 1100
+PR_TIMEOUT = 300               # seconds the per-rank job may take
+
+
+def _pr_inputs(n: int) -> list:
+    """Every rank's 32 MB fp32 input, made from the seed by every rank,
+    so each can hold its results against numpy."""
+    return [np.random.default_rng(PR_SEED + j).random(LOCAL_ELEMS,
+                                                      dtype=np.float32)
+            for j in range(n)]
+
+
+def _pr_timed(fn, iters: int = 5):
+    """(result, median device ms from CUDA events, median host µs) of one
+    collective call. The device tier fences through the host, so the
+    events span the whole call: the device ms include the fences."""
+    res = fn()
+    dev, host = [], []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e6)
+        dev.append(start.elapsed_time(end))
+    return res, statistics.median(dev), statistics.median(host)
+
+
+def _perrank_rank(report: str) -> int:
+    """The rank program of phase 11 (run by mpirun --per-rank); rank 0
+    writes its lines to ``report``."""
+    from ompi_tpu_torch.core import rankcomm
+    MPI.Init()
+    w = MPI.get_comm_world()
+    r, n = w.rank(), w.size
+    dev = torch.device("cuda", 0)
+    check(w.device == dev, f"rank {r} bound to {w.device}")
+    lines = []
+    total_mb = n * LOCAL_ELEMS * 4 / 1e6
+
+    def on_card(t, what):
+        check(isinstance(t, torch.Tensor) and t.device == dev,
+              f"rank {r}: {what} is not a CUDA tensor on cuda:0")
+        return t.cpu().numpy()
+
+    def share(mb, ms):
+        return f"{mb / ms / 1e3 / (HBM_BYTES_PER_S / 1e12):.1%}"
+
+    xs = _pr_inputs(n)
+    per = LOCAL_ELEMS // n
+    x = torch.from_numpy(xs[r]).to(dev)
+    xp = torch.from_numpy(0.5 + xs[r]).to(dev)
+    xi = torch.from_numpy((xs[r] * 1000).astype(np.int32)).to(dev)
+    stack = np.stack(xs).astype(np.float64)
+    cases = [
+        ("allreduce SUM f32", lambda: w.allreduce(x, MPI.SUM),
+         stack.sum(0), 1e-5),
+        ("allreduce MAX f32", lambda: w.allreduce(x, MPI.MAX),
+         stack.max(0), 0),
+        ("allreduce PROD f32", lambda: w.allreduce(xp, MPI.PROD),
+         (0.5 + stack).prod(0), 1e-5),
+        ("allreduce SUM i32", lambda: w.allreduce(xi, MPI.SUM),
+         np.stack([(a * 1000).astype(np.int32) for a in xs]).sum(0), 0),
+    ]
+    for name, fn, want, rtol in cases:
+        y, ms, us = _pr_timed(fn)
+        got = on_card(y, name)
+        if rtol:
+            ok = np.allclose(got, want, rtol=rtol, atol=1e-6)
+        else:
+            ok = np.array_equal(got, want)
+        check(ok, f"rank {r}: {name} differs from numpy (max abs err "
+              f"{np.max(np.abs(got - want)):.3g})")
+        lines.append(f"{name}: {ms:.3f} ms call, {us:.0f} us host per "
+                     f"dispatch ({share(2 * total_mb, ms)} of HBM for "
+                     f"{2 * total_mb:.0f} MB in+out over 8 ranks)")
+    # a pair op: chunks of the reduce-scatter read hold whole records
+    for recs in (9, 1 << 20):
+        pr = [np.stack([np.round(a[:recs] * 4), j * recs + np.arange(recs)],
+                       -1).astype(np.float32) for j, a in enumerate(xs)]
+        want = pr[0]
+        for q in pr[1:]:
+            take = (q[:, 0] > want[:, 0]) | ((q[:, 0] == want[:, 0])
+                                             & (q[:, 1] < want[:, 1]))
+            want = np.where(take[:, None], q, want)
+        xl = torch.from_numpy(pr[r]).to(dev)
+        y, ms, us = _pr_timed(lambda: w.allreduce(xl, MPI.MAXLOC))
+        check(np.array_equal(on_card(y, "allreduce MAXLOC"), want),
+              f"rank {r}: allreduce MAXLOC on {recs} records differs")
+    lines.append(f"allreduce MAXLOC f32, {recs} (value, index) records: "
+                 f"{ms:.3f} ms call, {us:.0f} us host per dispatch")
+    y, ms, us = _pr_timed(lambda: w.bcast(x if r == 3 else
+                                          torch.empty_like(x), 3))
+    check(np.array_equal(on_card(y, "bcast"), xs[3]), f"rank {r}: bcast")
+    lines.append(f"bcast root 3: {ms:.3f} ms call, {us:.0f} us host")
+    rows, ms, us = _pr_timed(lambda: w.allgather(x), iters=3)
+    for j in range(n):
+        check(np.array_equal(on_card(rows[j], "allgather"), xs[j]),
+              f"rank {r}: allgather row {j}")
+    del rows
+    lines.append(f"allgather: {ms:.3f} ms call, {us:.0f} us host "
+                 f"({share(total_mb * (1 + n), ms)} of HBM)")
+    chunks = list(x.view(n, per).unbind(0))
+    got, ms, us = _pr_timed(lambda: w.alltoall(chunks))
+    for j in range(n):
+        check(np.array_equal(on_card(got[j], "alltoall"),
+                             xs[j][r * per:(r + 1) * per]),
+              f"rank {r}: alltoall chunk {j}")
+    lines.append(f"alltoall: {ms:.3f} ms call, {us:.0f} us host "
+                 f"({share(2 * total_mb, ms)} of HBM)")
+    y, ms, us = _pr_timed(lambda: w.reduce_scatter_block(chunks, MPI.SUM))
+    check(np.allclose(on_card(y, "reduce_scatter_block"),
+                      stack[:, r * per:(r + 1) * per].sum(0), rtol=1e-5,
+                      atol=1e-6), f"rank {r}: reduce_scatter_block")
+    lines.append(f"reduce_scatter_block (alltoall + host fold): {ms:.3f} ms"
+                 f" call, {us:.0f} us host")
+
+    # numpy staged onto the device tier
+    from ompi_tpu_torch.mca import var
+    var.var_set("coll_tuned_stage_min_bytes", 1 << 20)
+    staged0 = rankcomm.counters["coll_staged_device"]
+    h = xs[r][:1 << 20]
+    y, ms, us = _pr_timed(lambda: w.allreduce(h, MPI.SUM), iters=3)
+    check(isinstance(y, np.ndarray) and np.allclose(
+        y, stack[:, :1 << 20].sum(0), rtol=1e-5, atol=1e-6),
+        f"rank {r}: staged allreduce")
+    check(rankcomm.counters["coll_staged_device"] == staged0 + 4,
+          f"rank {r}: numpy allreduce not staged")
+    lines.append(f"staged numpy allreduce (4 MB, stage min 1 MiB): "
+                 f"{us:.0f} us host")
+
+    # host tier at 37 elements
+    small = [a[:37].astype(np.float64) for a in xs]
+    check(np.allclose(w.allreduce(small[r], MPI.SUM),
+                      np.sum(small, 0), rtol=1e-12), "host allreduce")
+    check(np.array_equal(w.bcast(small[r] if r == 0 else None, 0),
+                         small[0]), "host bcast")
+    check(all(np.array_equal(a, b) for a, b in
+              zip(w.allgather(small[r]), small)), "host allgather")
+    got = w.alltoall([small[r] + j for j in range(n)])
+    check(all(np.array_equal(got[j], small[j] + r) for j in range(n)),
+          "host alltoall")
+    red = w.reduce(small[r], MPI.MAX, root=1)
+    check(red is None if r != 1 else np.array_equal(red, np.max(small, 0)),
+          "host reduce")
+    check(np.allclose(w.scan(small[r], MPI.SUM),
+                      np.sum(small[:r + 1], 0), rtol=1e-12), "host scan")
+
+    # devxfer ring of eight 32 MB CUDA messages
+    right, left = (r + 1) % n, (r - 1) % n
+    # a 2 MB message first: the 32 MB ring then replaces its send slot,
+    # and the receiver drops the stale mapping
+    got = w.sendrecv(x[:1 << 19], right, left)[0]
+    check(np.array_equal(on_card(got, "devxfer 2 MB"), xs[left][:1 << 19]),
+          f"rank {r}: devxfer 2 MB")
+    recv0 = w.router.xfer.stats["received"]
+
+    def ring():
+        buf = x.clone()
+        req = w.irecv(left, tag=11)
+        w.send(buf, right, tag=11)
+        buf.fill_(-1.0)                 # the sender overwrites its buffer
+        return req.get()
+    w.barrier()
+    z, ms, us = _pr_timed(ring, iters=3)
+    check(np.array_equal(on_card(z, "devxfer ring"), xs[left]),
+          f"rank {r}: devxfer message changed after its sender's overwrite")
+    check(w.router.xfer.stats["received"] == recv0 + 4,
+          f"rank {r}: ring did not ride devxfer")
+    lines.append(f"devxfer ring, 8 x 32 MB: {ms:.3f} ms call, {us:.0f} "
+                 f"us host per round ({share(2 * total_mb, ms)} of HBM "
+                 f"for each message read and written once)")
+
+    # the host barrier each device-tier fence waits on
+    _, _, bar_us = _pr_timed(w.barrier, iters=20)
+    lines.append(f"barrier (3-round dissemination over tcp): {bar_us:.0f} "
+                 f"us host; a device collective waits on two of them")
+
+    # 8 B send+recv and a wildcard match
+    w.barrier()
+    b8 = np.zeros(1, np.float64)
+    reps = 200
+    if r in (0, 1):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            if r == 0:
+                w.send(b8, 1, tag=5)
+                w.recv(1, tag=5)
+            else:
+                w.recv(0, tag=5)
+                w.send(b8, 0, tag=5)
+        rt_us = (time.perf_counter() - t0) / reps * 1e6
+        if r == 1:
+            for i in range(256):
+                w.send(np.array([i]), 0, tag=100 + i % 7)
+            w.send(b8, 0, tag=999)
+        else:
+            w.recv(1, tag=999)            # the 256 are queued before it
+            t0 = time.perf_counter()
+            seen = sorted(int(w.recv(MPI.ANY_SOURCE, MPI.ANY_TAG)[0][0])
+                          for _ in range(256))
+            wild_us = (time.perf_counter() - t0) / 256 * 1e6
+            check(seen == list(range(256)), "wildcard matches")
+            lines.append(f"8 B send+recv round trip (ranks 0 and 1): "
+                         f"{rt_us:.1f} us host ({rt_us / 2:.1f} us per "
+                         f"8 B pair); ANY_SOURCE/ANY_TAG match with 256 "
+                         f"queued: {wild_us:.1f} us per match")
+    w.barrier()
+
+    # split into two comms of 4
+    sub = w.split(r % 2, key=r)
+    check(sub.size == 4 and sub.rank() == r // 2, "split")
+    members = [j for j in range(n) if j % 2 == r % 2]
+    for elems in (1 << 18, 1 << 21):    # the second grows the slots
+        s_got = on_card(sub.allreduce(x[:elems], MPI.SUM),
+                        "split allreduce")
+        check(np.allclose(s_got, stack[members, :elems].sum(0), rtol=1e-5,
+                          atol=1e-6), f"rank {r}: split allreduce")
+    sub.free()
+    MPI.Finalize()
+    if r == 0:
+        with open(report, "w") as f:
+            json.dump(lines, f)
+    print(f"OK perrank rank={r}/{n}", flush=True)
+    return 0
+
+
+def phase_perrank(smi: str) -> None:
+    """Launch the per-rank job and relay rank 0's lines."""
+    import tempfile
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "rank0.json")
+        cmd = [sys.executable,
+               os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py"),
+               "--per-rank", "-n", str(PR_RANKS), "--timeout",
+               str(PR_TIMEOUT), os.path.abspath(__file__), "--perrank-rank",
+               report]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=PR_TIMEOUT + 60, cwd=root)
+        oks = res.stdout.count("OK perrank")
+        if res.returncode != 0 or oks != PR_RANKS:
+            sys.stderr.write(res.stderr[-6000:])
+            check(False, f"per-rank job rc={res.returncode}, {oks} of "
+                  f"{PR_RANKS} ranks OK:\n{res.stdout[-3000:]}")
+        with open(report) as f:
+            lines = json.load(f)
+    for line in lines:
+        phase("perrank", f"{line} | {smi}")
+    phase("perrank", "'ms call' is a CUDA-event span on rank 0's stream "
+          "that includes the host fences; 'of HBM' divides bytes by it")
+    phase("perrank", f"8 rank processes on cuda:0, every result = numpy "
+          f"on every rank (float SUM/PROD rtol 1e-5, the rest exact), "
+          f"every device result on cuda:0; phase 11 took "
+          f"{time.perf_counter() - t0:.1f} s | {smi}")
+
+
 def main() -> int:
+    if "--perrank-rank" in sys.argv:
+        return _perrank_rank(sys.argv[-1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if "--perrank" in sys.argv:
+        smi, _ = phase_device()
+        phase_perrank(smi)
+        return 0
     t0 = time.perf_counter()
     smi, kind = phase_device()
     phase_build()
@@ -2262,6 +2552,8 @@ def main() -> int:
     phase_compression(world, smi)
     phase_ptp_topo_datatype(world, smi)
     MPI.Finalize()
+    torch.cuda.empty_cache()
+    phase_perrank(smi)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

@@ -17,9 +17,15 @@ module's counterpart sits at the same path:
                     (nonblocking schedules); ``persistent`` plans and
                     bucket fusion.
 - ``accelerator`` — buffer locus, H2D/D2H copies, CUDA streams/events.
-- ``runtime``     — init/finalize, world binding, the progress engine.
-- ``pml``         — the stacked point-to-point matching engine and
-                    partitioned pt2pt.
+- ``runtime``     — init/finalize, world binding (single-controller and
+                    per-rank), the progress engine.
+- ``pml``         — the stacked point-to-point matching engine,
+                    partitioned pt2pt, and the per-rank matching engine.
+- ``btl``         — the per-rank byte planes: tcp, shared-memory rings,
+                    their multiplexer, and the device payload plane over
+                    IPC handles.
+- ``tools``       — ``mpirun`` (``--per-rank -n N`` launches N rank
+                    processes).
 - ``topo``        — cartesian/graph/dist-graph topologies, device
                     neighbor collectives, treematch placement.
 - ``ops``         — hand-written CUDA kernels (``csrc/``) behind torch
@@ -35,6 +41,7 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     IN_PLACE, UNDEFINED, ANY_SOURCE, ANY_TAG, PROC_NULL, KEYVAL_INVALID,
     SUCCESS, ERR_COMM, ERR_TYPE, ERR_OP, ERR_ARG, ERR_COUNT, ERR_BUFFER,
     ERR_RANK, ERR_ROOT, ERR_TRUNCATE, ERR_OTHER, ERR_PENDING, ERR_TOPOLOGY,
+    ERR_PROC_FAILED,
     CONGRUENT, IDENT, SIMILAR, UNEQUAL,
     THREAD_SINGLE, THREAD_FUNNELED, THREAD_SERIALIZED, THREAD_MULTIPLE,
     COMM_TYPE_SHARED, COMM_TYPE_HWTHREAD, COMM_TYPE_NUMA,
@@ -52,7 +59,9 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     MPIError,
     # lifecycle
     Init, Init_thread, Finalize, Initialized, Finalized, Wtime, Wtick,
-    get_comm_world, get_comm_self, COMM_NULL,
+    get_comm_world, get_comm_self, COMM_NULL, Get_processor_name,
+    # point-to-point (per-rank)
+    Send, Ssend, Isend, Recv, Irecv, Sendrecv, Probe,
     # request completion
     Wait, Start, Startall, Test, Waitall, Waitany, Waitsome, Testall,
     Testany, Testsome,

@@ -4,7 +4,9 @@ MPI-style names over the core objects. Single-controller note: buffer
 arguments are *stacked* tensors — leading axis is the rank — and results
 are returned as new tensors (nonblocking and persistent calls return a
 ``Request`` whose ``get()`` gives them). ``IN_PLACE`` keeps its MPI meaning: "use
-recvbuf as the send buffer".
+recvbuf as the send buffer". In a per-rank job (``mpirun --per-rank``)
+``get_comm_world()`` is a ``RankCommunicator``: the caller is one rank and
+passes its own buffer, as in textbook MPI.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from ompi_tpu_torch.core.datatype import (  # noqa: F401
     from_numpy_dtype, from_torch_dtype)
 from ompi_tpu_torch.core.errhandler import (  # noqa: F401
     ERR_ARG, ERR_BUFFER, ERR_COMM, ERR_COUNT, ERR_OP, ERR_OTHER, ERR_PENDING,
-    ERR_RANK, ERR_ROOT, ERR_TOPOLOGY, ERR_TRUNCATE, ERR_TYPE, ERRORS_ABORT,
+    ERR_PROC_FAILED, ERR_RANK, ERR_ROOT, ERR_TOPOLOGY, ERR_TRUNCATE, ERR_TYPE, ERRORS_ABORT,
     ERRORS_ARE_FATAL,
     ERRORS_RETURN, Errhandler, MPIError, SUCCESS, error_string)
 from ompi_tpu_torch.core.group import (CONGRUENT, Group, IDENT,  # noqa: F401
@@ -91,12 +93,58 @@ def get_comm_self() -> Communicator:
     return _rt.comm_self()
 
 
+def Get_processor_name() -> str:
+    return _rt.processor_name()
+
+
 def Comm_set_errhandler(comm, errhandler: Errhandler) -> None:
     comm.set_errhandler(errhandler)
 
 
 def Comm_get_errhandler(comm) -> Errhandler:
     return comm.get_errhandler()
+
+
+def _guard(comm, fn, *args, **kw):
+    """The OMPI_ERRHANDLER_INVOKE role (errhandler.h:389-401): an
+    MPIError goes to the communicator's errhandler, so ERRORS_RETURN
+    surfaces it and ERRORS_ARE_FATAL aborts."""
+    try:
+        return fn(*args, **kw)
+    except MPIError as e:
+        return comm.errhandler.invoke(comm, e.error_class, str(e))
+
+
+# point-to-point, textbook signatures (the per-rank world: the caller is
+# the sending or receiving rank) -----------------------------------------
+def Send(comm, data, dest: int, tag: int = 0) -> None:
+    _guard(comm, comm.send, data, dest, tag)
+
+
+def Ssend(comm, data, dest: int, tag: int = 0) -> None:
+    _guard(comm, comm.ssend, data, dest, tag)
+
+
+def Isend(comm, data, dest: int, tag: int = 0) -> Request:
+    return _guard(comm, comm.isend, data, dest, tag)
+
+
+def Recv(comm, source: int = ANY_SOURCE, tag: int = ANY_TAG):
+    return _guard(comm, comm.recv, source, tag)
+
+
+def Irecv(comm, source: int = ANY_SOURCE, tag: int = ANY_TAG) -> Request:
+    return _guard(comm, comm.irecv, source, tag)
+
+
+def Sendrecv(comm, senddata, dest: int, source: int = ANY_SOURCE,
+             sendtag: int = 0, recvtag: int = ANY_TAG):
+    return _guard(comm, comm.sendrecv, senddata, dest, source,
+                  sendtag, recvtag)
+
+
+def Probe(comm, source: int = ANY_SOURCE, tag: int = ANY_TAG):
+    return _guard(comm, comm.probe, source, tag)
 
 
 # request completion (MPI_Wait/Test families) -----------------------------

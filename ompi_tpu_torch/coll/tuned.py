@@ -4,8 +4,12 @@ The port of ``ompi_tpu/coll/tuned.py``'s rule loading: the JSON file named
 by ``coll_tuned_dynamic_rules`` overrides :mod:`coll.decision`'s rows per
 collective (``{func: {"algorithm_rules": [[min_comm_size, min_bytes,
 algorithm], ...]}}``), as tuned's dynamic file does
-(``coll_tuned_component.c:187-191``). The staging probe and the tuned
-component itself belong to the per-rank tier.
+(``coll_tuned_component.c:187-191``). The per-rank tier reads two more
+of its vars here: the staging switch point of host buffers onto the device
+tier (``coll_tuned_stage_min_bytes``, overridable per collective by the
+rules file) and the combined small-message allreduce's limits. The staging
+probe that earns the switch point on the reference, and the tuned
+component itself, wait for a later slice: here the var's value stands.
 """
 from __future__ import annotations
 
@@ -25,6 +29,22 @@ def register_vars() -> None:
         "coll", "tuned", "dynamic_rules", vtype="str", default="",
         help="Path to a JSON per-collective decision-rule override file "
              "(re-design of coll/tuned dynamic rules)")
+    var.var_register(
+        "coll", "tuned", "stage_min_bytes", vtype="int", default=1 << 20,
+        help="Per-rank tier: host buffers at least this large are staged "
+             "onto the device and run on the shared-buffer tier; smaller "
+             "ones run the host algorithms")
+    var.var_register(
+        "coll", "tuned", "small_allreduce_max_bytes", vtype="int",
+        default=4096,
+        help="Per-rank tier: host payloads at or below this take the "
+             "combined small-message allreduce (one eager send per peer, "
+             "reader-thread combining, one wakeup)")
+    var.var_register(
+        "coll", "tuned", "small_allreduce_max_ranks", vtype="int",
+        default=32,
+        help="The combined small-message allreduce sends rank-count "
+             "squared messages; larger worlds use the tree algorithms")
 
 
 register_vars()
@@ -53,3 +73,19 @@ def _load_rules(path: str) -> Dict[str, Dict]:
     _rules_cache[path] = (mtime, rules)
     var.bump_epoch()
     return rules
+
+
+def stage_min_for(func: str) -> int:
+    """The staging switch point of one collective: the rules file's
+    per-collective ``stage_min_bytes`` where it has one, else the var."""
+    rules = _load_rules(var.var_get("coll_tuned_dynamic_rules", ""))
+    override = rules.get(func, {}).get("stage_min_bytes")
+    if override is not None:
+        return int(override)
+    return int(var.var_get("coll_tuned_stage_min_bytes", 1 << 20))
+
+
+def small_allreduce_limits() -> Tuple[int, int]:
+    """(max_bytes, max_ranks) of the combined small-message allreduce."""
+    return (int(var.var_get("coll_tuned_small_allreduce_max_bytes", 4096)),
+            int(var.var_get("coll_tuned_small_allreduce_max_ranks", 32)))

@@ -30,6 +30,7 @@ ERR_OTHER = 16
 ERR_INTERN = 17
 ERR_PENDING = 18
 ERR_IN_STATUS = 19
+ERR_PROC_FAILED = 75  # ULFM: a peer process died
 
 _CLASS_NAMES = {
     SUCCESS: "MPI_SUCCESS", ERR_BUFFER: "MPI_ERR_BUFFER",
@@ -42,6 +43,7 @@ _CLASS_NAMES = {
     ERR_UNKNOWN: "MPI_ERR_UNKNOWN", ERR_TRUNCATE: "MPI_ERR_TRUNCATE",
     ERR_OTHER: "MPI_ERR_OTHER", ERR_INTERN: "MPI_ERR_INTERN",
     ERR_PENDING: "MPI_ERR_PENDING", ERR_IN_STATUS: "MPI_ERR_IN_STATUS",
+    ERR_PROC_FAILED: "MPIX_ERR_PROC_FAILED",
 }
 
 

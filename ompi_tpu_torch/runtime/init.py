@@ -10,11 +10,19 @@ to each listed device, repeats allowed, so ``[torch.device("cuda:0")] *
 8`` puts 8 ranks on one card and ``["cpu"] * 8`` puts them on the CPU
 (the counterpart of the JAX package's 8 virtual CPU devices). Without a
 CUDA device and without an explicit list, ``init`` raises: it never moves
-to the CPU on its own. The per-rank tier (one process per rank over
-``torch.distributed``) waits for a later slice.
+to the CPU on its own.
+
+Per-rank (``mpi_base_per_rank``, set by ``mpirun --per-rank``): one OS
+process is one rank, ``rank()`` is the process index, and the job's
+``torch.distributed.TCPStore``, hosted by the launcher, is the
+coordination KV (the PMIx modex and fence of
+``ompi/instance/instance.c:508-569``). Each rank binds
+``cuda:(local_rank % device_count)``; with no CUDA device it raises unless
+the job asked for the CPU (``mpi_base_device=cpu``).
 """
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 import time
@@ -43,7 +51,36 @@ _state = {
     "world": None,
     "self": None,
     "thread_level": THREAD_SINGLE,
+    "router": None,
+    "kv": None,
 }
+
+
+def _register_base_vars() -> None:
+    var.var_register("mpi", "base", "num_ranks", vtype="int", default=0,
+                     help="Number of ranks of a single-controller world "
+                          "(0 = one per visible CUDA device)")
+    var.var_register("mpi", "base", "per_rank", vtype="bool", default=False,
+                     help="Per-rank model: one OS process is one MPI rank "
+                          "(set by mpirun --per-rank)")
+    var.var_register("mpi", "base", "coordinator", vtype="str", default="",
+                     help="host:port of the job's TCPStore (the "
+                          "coordination KV, hosted by mpirun)")
+    var.var_register("mpi", "base", "process_id", vtype="int", default=-1,
+                     help="This process's rank in a per-rank job")
+    var.var_register("mpi", "base", "num_processes", vtype="int",
+                     default=0, help="Ranks in a per-rank job")
+    var.var_register("mpi", "base", "device", vtype="str", default="",
+                     help="Per-rank device: empty = "
+                          "cuda:(local_rank % device_count), 'cpu' = "
+                          "bind the rank to the CPU")
+
+
+def _register_component_vars() -> None:
+    persistent.register_vars()
+    tuned.register_vars()
+    compress._register_vars()
+    stacked._register_vars()
 
 
 def init(requested: int = THREAD_SINGLE,
@@ -51,6 +88,9 @@ def init(requested: int = THREAD_SINGLE,
     """MPI_Init / MPI_Init_thread. Returns the provided thread level."""
     if _state["initialized"]:
         raise MPIError(ERR_OTHER, "MPI already initialized")
+    _register_base_vars()
+    if var.var_get("mpi_base_per_rank", False):
+        return _init_per_rank(requested)
     if devices is None:
         if not torch.cuda.is_available():
             raise MPIError(ERR_OTHER,
@@ -58,15 +98,15 @@ def init(requested: int = THREAD_SINGLE,
                            "(e.g. ['cpu'] * 8) to run ranks elsewhere")
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
+        nr = var.var_get("mpi_base_num_ranks", 0)
+        if nr and nr <= len(devices):
+            devices = devices[:nr]
     devices = [torch.device(d) for d in devices]
     if not devices:
         raise MPIError(ERR_OTHER, "Init needs at least one device")
     n = len(devices)
     accelerator.select_for_devices(devices)
-    persistent.register_vars()
-    tuned.register_vars()
-    compress._register_vars()
-    stacked._register_vars()
+    _register_component_vars()
 
     world = Communicator(Group(range(n)), devices, name="MPI_COMM_WORLD")
     self_comm = Communicator(Group([0]), [devices[0]], name="MPI_COMM_SELF")
@@ -83,12 +123,117 @@ def init(requested: int = THREAD_SINGLE,
     return _state["thread_level"]
 
 
+# how long a KV get or fence waits for the job's other ranks (the
+# reference's bound, runtime/init.py:188); a rank that dies ends the job
+# through the launcher long before
+KV_TIMEOUT = 120.0
+
+
+class _Kv:
+    """The coordination KV over the job's TCPStore: ``set``, a blocking
+    ``get`` bounded by ``KV_TIMEOUT``, and a fence built on
+    ``add``/``wait``."""
+
+    def __init__(self, addr: str):
+        from torch.distributed import TCPStore
+        host, port = addr.rsplit(":", 1)
+        self.store = TCPStore(host, int(port), is_master=False,
+                              timeout=datetime.timedelta(seconds=KV_TIMEOUT))
+
+    def set(self, key: str, value: str) -> None:
+        self.store.set(key, value)
+
+    def get(self, key: str) -> str:
+        try:
+            return self.store.get(key).decode()
+        except RuntimeError as e:        # the store's DistStoreError
+            raise MPIError(ERR_OTHER, f"KV get {key!r}: {e}") from e
+
+    def fence(self, name: str, n: int) -> None:
+        """Nobody leaves until all ``n`` ranks have arrived."""
+        done = f"ompi_tpu_torch/fence/{name}/done"
+        if self.store.add(f"ompi_tpu_torch/fence/{name}", 1) == n:
+            self.store.set(done, "1")
+        try:
+            self.store.wait([done])
+        except RuntimeError as e:        # the store's DistStoreError
+            raise MPIError(ERR_OTHER, f"fence {name!r}: {e}") from e
+
+
+def _bind_device(local_rank: int) -> torch.device:
+    """The rank's device: cuda:(local_rank % device_count), or the CPU
+    when the job asked for it. Never the CPU on its own."""
+    want = str(var.var_get("mpi_base_device", "") or "").strip()
+    if want == "cpu":
+        return torch.device("cpu")
+    if want and want != "cuda":
+        raise MPIError(ERR_OTHER, f"mpi_base_device={want!r}: expected "
+                                  f"'cpu' or empty")
+    if not torch.cuda.is_available():
+        raise MPIError(ERR_OTHER,
+                       "per-rank Init found no CUDA device; set "
+                       "mpi_base_device=cpu (mpirun --mca mpi_base_device "
+                       "cpu) to bind the ranks to the CPU")
+    dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    return dev
+
+
+def _init_per_rank(requested: int) -> int:
+    """Per-rank bring-up: bind the device, open the KV, publish the
+    endpoints, build COMM_WORLD and COMM_SELF, fence, then wire every
+    pair (the add_procs + modex + fence of instance.c:508-569)."""
+    from ompi_tpu_torch.core.rankcomm import RankCommunicator
+    from ompi_tpu_torch.pml.perrank import Router
+    rank = int(var.var_get("mpi_base_process_id", -1))
+    nprocs = int(var.var_get("mpi_base_num_processes", 0))
+    addr = var.var_get("mpi_base_coordinator", "")
+    if rank < 0 or nprocs <= 0 or not addr:
+        raise MPIError(ERR_OTHER, "per-rank Init needs the job's store "
+                                  "address, rank and size (launch through "
+                                  "mpirun --per-rank)")
+    device = _bind_device(rank)          # one host: local rank == rank
+    accelerator.select_for_devices([device])
+    _register_component_vars()
+    kv = _Kv(addr)
+    router = Router(rank, nprocs, kv.set, kv.get, device)
+    world = RankCommunicator(Group(range(nprocs)), rank, router, device,
+                             cid="w", name="MPI_COMM_WORLD")
+    self_comm = RankCommunicator(Group([rank]), rank, router, device,
+                                 cid=("self", rank), name="MPI_COMM_SELF")
+    # init fence (ompi_mpi_init.c:434-447): nobody proceeds until every
+    # rank's endpoints are published; then wire every pair eagerly
+    kv.fence("init", nprocs)
+    router.wire_up()
+    INFO_ENV.set("command", os.environ.get("_", ""))
+    INFO_ENV.set("maxprocs", str(nprocs))
+    INFO_ENV.set("host", socket.gethostname())
+    INFO_ENV.set("arch", device.type)
+    _state.update(initialized=True, finalized=False, world=world,
+                  self=self_comm, router=router, kv=kv,
+                  thread_level=min(requested, THREAD_MULTIPLE))
+    return _state["thread_level"]
+
+
 def finalize() -> None:
     if not _state["initialized"] or _state["finalized"]:
         raise MPIError(ERR_OTHER, "MPI not initialized or already finalized")
     # "all communication is complete at finalize": drain the device
     _state["world"].barrier()
-    _state.update(finalized=True, world=None, self=None)
+    router = _state["router"]
+    if router is not None:
+        # later EOFs are departures, not deaths; after the fini fence no
+        # peer reads this rank's slots any more, so they are freed last
+        router.begin_shutdown()
+        if not router.failed:        # a dead rank never reaches the fence
+            _state["kv"].fence("fini", router.nprocs)
+        from ompi_tpu_torch.core import rankcomm
+        rankcomm.close_device_tiers()
+        router.close()
+        if router.device.type == "cuda":
+            torch.cuda.ipc_collect()
+    _state.update(finalized=True, world=None, self=None, router=None,
+                  kv=None)
 
 
 def initialized() -> bool:
@@ -111,6 +256,12 @@ def comm_self() -> Communicator:
     return _state["self"]
 
 
+def processor_name() -> str:
+    """MPI_Get_processor_name: host and the rank's device."""
+    a = accelerator.device_attrs(comm_world().device)
+    return f"{socket.gethostname()}/{a['platform']}:{a['id']}"
+
+
 def wtime() -> float:
     return time.perf_counter()
 
@@ -124,8 +275,19 @@ def _reset_for_tests() -> None:
     next ``init`` starts as a fresh process would (re-reading the
     environment); empty the progress engine's callback lists, zero the
     persistent-collective counters, drop the live bucket fusers, and zero
-    the compression counters and error-feedback residuals."""
-    _state.update(initialized=False, finalized=False, world=None, self=None)
+    the compression counters and error-feedback residuals. A per-rank
+    world left open is torn down too: its device-tier slots and mappings,
+    the router with its endpoints and devxfer slots, and the store
+    client."""
+    from ompi_tpu_torch.core import rankcomm
+    router = _state["router"]
+    if router is not None:           # a test that never finalized
+        rankcomm.close_device_tiers()
+        router.close()
+    for k in rankcomm.counters:
+        rankcomm.counters[k] = 0
+    _state.update(initialized=False, finalized=False, world=None, self=None,
+                  router=None, kv=None)
     var._reset_for_tests()
     progress._reset_for_tests()
     persistent._reset_for_tests()
