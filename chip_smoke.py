@@ -113,8 +113,35 @@ Phases, one or more lines each:
                 that includes the host fences), bytes over that span as a
                 share of HBM, and host µs per 8 B round trip and per
                 dispatch. Any rank failing, or the job passing its timeout,
-                fails the phase. ``python3 chip_smoke.py --perrank`` runs
-                phases 1 and 11 alone.
+                fails the phase.
+12. dataplane — the tuned component on the single-controller 8-rank
+                world: a numpy (8, 1 MiB fp32) stack returns numpy equal to
+                coll/torch on the same tensor, staged and on the host (ms
+                of each). Then the per-rank large-message data plane, 8
+                rank processes on ``cuda:0`` (``--dataplane-rank``; rails 2,
+                two shared slots per pool): the staging probe rank 0 ran on
+                the card at Init, adopted alike by every rank; with the
+                host tier forced, the pipelined ring allreduce (SUM f32,
+                MAX f32 and i32) and the chain bcast on 32 MB per rank
+                against numpy, the same bits on every rank, both rails
+                carrying bytes at rails 2 and only rail 0 at rails 1;
+                the in-segment fold (``mpi_base_shm_zerocopy``) against
+                the ring (MAX bit for bit, SUM rtol 1e-5) and
+                pt2pt adoption counted by the shmseg pvars; a 32 MB CUDA
+                tensor sent past devxfer's limit, staged segment by
+                segment through ``SegmentStager`` and unchanged after its
+                sender overwrote it, against the devxfer ring in the same
+                job; compressed host hops (int8_block, fp8_block) on the
+                direct allreduce (comms of 4), the reduce and the bcast
+                within the reference's envelopes, the same bits on every
+                rank; persistent plans (device tier, staged numpy on
+                pinned pages, 8 B small combine) bit for bit against their
+                one-shot calls and a 14-plan bucketed ``Startall``. The
+                ring and chain are timed on 1 and 2 rails in turns
+                (``mpi_base_btl_rails`` is read per segment). The job has
+                its own 300 s launcher limit.
+                ``python3 chip_smoke.py --perrank`` runs phases 1, 11 and
+                12 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -139,6 +166,7 @@ import torch.nn.functional as F
 from torch.nn.attention import SDPBackend
 
 import ompi_tpu_torch as MPI
+from ompi_tpu_torch import accelerator
 from ompi_tpu_torch import entry as E
 from ompi_tpu_torch.coll import decision, persistent
 from ompi_tpu_torch.coll.nbc import ScheduleRequest
@@ -1834,10 +1862,10 @@ def phase_compression(w, smi: str) -> None:
     var.var_set("mpi_base_compress", True)
     cw, ccpu = w.dup(), cpu_world.dup()
     check(cw._coll_winners["allreduce"] == "compressed" and
-          w._coll_winners["allreduce"] == "torch",
+          w._coll_winners["allreduce"] == "tuned",
           f"winners {cw._coll_winners}")
     table = decision.decision_table(n, platform="gpu")
-    check(all(table[f][-1][2] == "compressed:int8_block"
+    check(all(any(row[2] == "compressed:int8_block" for row in table[f])
               for f in ("allreduce", "allgather", "reduce_scatter_block")),
           "decision_table lacks the compression rows")
     rows = _compressed_colls(w, cw, ccpu, smi)
@@ -2524,15 +2552,378 @@ def phase_perrank(smi: str) -> None:
           f"{time.perf_counter() - t0:.1f} s | {smi}")
 
 
+DP_SEED = 1200
+
+
+def _dp_timed(fn, iters: int = 3):
+    """(last result, median host ms) of a host-tier call."""
+    res, ts = fn(), []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        res = fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return res, statistics.median(ts)
+
+
+def _same_everywhere(w, arr) -> bool:
+    """Every rank holds the same bits of ``arr`` (a digest allgather)."""
+    import hashlib
+    digest = hashlib.sha1(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    return len(set(w.allgather(digest))) == 1
+
+
+def _dataplane_rank(report: str) -> int:
+    """The rank program of phase 12 (run by mpirun --per-rank). Rank 0
+    writes its lines to ``report``."""
+    from ompi_tpu_torch.btl import shmseg
+    from ompi_tpu_torch.coll import tuned
+    from ompi_tpu_torch.core import rankcomm
+    from ompi_tpu_torch.pml import pipeline
+    MPI.Init()
+    w = MPI.get_comm_world()
+    r, n = w.rank(), w.size
+    dev = torch.device("cuda", 0)
+    check(w.device == dev, f"rank {r} bound to {w.device}")
+    c = rankcomm.counters
+    lines = []
+    # the staging probe rank 0 ran on the card at Init
+    basis = tuned.probed_stage_basis()
+    check(basis.get("ran") and basis.get("device") == "cuda",
+          f"rank {r}: stage probe basis {basis}")
+    vals = w.allgather(int(basis["value"]))
+    check(len(set(vals)) == 1, f"stage probe values differ: {vals}")
+    lines.append(
+        f"stage probe (rank 0 on cuda:0, adopted by all {n} ranks): "
+        f"staged {basis['staged_per_mb_ms']} ms/MB + "
+        f"{basis['staged_fixed_us']} us fixed, host "
+        f"{basis['host_per_mb_ms']} ms/MB + {basis['host_fixed_us']} us "
+        f"fixed (transport {basis.get('transport_gbps')} GB/s); "
+        f"confirmed at {basis.get('confirm_bytes')} B: staged "
+        f"{basis.get('confirm_staged_ms')} ms against host "
+        f"{basis.get('confirm_host_ms')} ms; adopted stage_min_bytes "
+        f"{basis['stage_min_bytes']}")
+    var.var_set("coll_tuned_stage_min_bytes", 1 << 62)     # host tier
+    xs = _pr_inputs(n)
+    stack = np.stack(xs)
+    xi = (xs[r] * 1000).astype(np.int32)
+    mb = LOCAL_ELEMS * 4 >> 20
+
+    # the pipelined ring and chain over 1 and 2 rails, in turns
+    s0, i0 = (pvar.pvar_read("pml_pipeline_segments"),
+              pvar.pvar_read("pml_pipeline_inits"))
+    ring0 = c["coll_pipelined_ring"]
+    ring_ms, chain_ms, overlap = {1: [], 2: []}, {1: [], 2: []}, {}
+    for rails in (1, 2, 2, 1):
+        var.var_set("mpi_base_btl_rails", rails)
+        before = [pvar.pvar_read(f"btl_rail_bytes_c{k}") for k in (0, 1)]
+        y, ms = _dp_timed(lambda: w.allreduce(xs[r], MPI.SUM), iters=1)
+        ring_ms[rails].append(ms)
+        overlap[rails] = pvar.pvar_read("pml_overlap_ratio")
+        b, ms = _dp_timed(lambda: w.bcast(xs[0] if r == 0 else None, 0),
+                          iters=1)
+        chain_ms[rails].append(ms)
+        # a rank that is done early may already send the next turn's
+        # segments: the counters are read between two barriers
+        w.barrier()
+        grew = [pvar.pvar_read(f"btl_rail_bytes_c{k}") - before[k]
+                for k in (0, 1)]
+        w.barrier()
+        check(grew[0] > 0 and (grew[1] > 0) == (rails == 2),
+              f"rank {r}: rails {rails} carried {grew} bytes")
+    check(np.allclose(y, stack.astype(np.float64).sum(0), rtol=1e-5,
+                      atol=1e-6), f"rank {r}: pipelined ring SUM")
+    check(_same_everywhere(w, y), "pipelined ring SUM: ranks differ")
+    check(np.array_equal(b, xs[0]), f"rank {r}: chain bcast")
+    ring_sum = y
+    ym, ms_max = _dp_timed(lambda: w.allreduce(xs[r], MPI.MAX), iters=1)
+    check(np.array_equal(ym, stack.max(0)), f"rank {r}: ring MAX f32")
+    yi, _ = _dp_timed(lambda: w.allreduce(xi, MPI.MAX), iters=1)
+    check(np.array_equal(yi, np.stack([(a * 1000).astype(np.int32)
+                                       for a in xs]).max(0)),
+          f"rank {r}: ring MAX i32")
+    check(_same_everywhere(w, yi), "pipelined ring MAX i32: ranks differ")
+    check(c["coll_pipelined_ring"] - ring0 == 12,
+          f"rank {r}: the ring did not run every call")
+    check(c["coll_pipelined_chain"] == 8, f"rank {r}: chain did not run")
+    segs = pvar.pvar_read("pml_pipeline_segments") - s0
+    inits = pvar.pvar_read("pml_pipeline_inits") - i0
+    per_rail = [pvar.pvar_read(f"btl_rail_bytes_c{k}") for k in (0, 1)]
+    for rails in (1, 2):
+        lines.append(
+            f"pipelined ring allreduce SUM, {mb} MB f32 per rank, rails "
+            f"{rails}: {ring_ms[rails][0]:.1f} / {ring_ms[rails][1]:.1f} ms "
+            f"per call (host clock, runs in turns 1 2 2 1), "
+            f"pml_overlap_ratio {overlap[rails]}; chain bcast "
+            f"{chain_ms[rails][0]:.1f} / {chain_ms[rails][1]:.1f} ms")
+    lines.append(f"pipelined ring MAX f32 (rails 1): {ms_max:.1f} ms; "
+                 f"{segs / max(inits, 1):.1f} segments per train; bytes "
+                 f"per rail {per_rail}")
+
+    # the in-segment fold against the ring, and pt2pt adoption
+    var.var_set("mpi_base_shm_zerocopy", True)
+    f0 = c["coll_shm_fold"]
+    yf, ms_fold = _dp_timed(lambda: w.allreduce(xs[r], MPI.SUM))
+    check(np.allclose(yf, ring_sum, rtol=1e-5, atol=1e-6),
+          f"rank {r}: fold SUM against the ring")
+    ymf, _ = _dp_timed(lambda: w.allreduce(xs[r], MPI.MAX), iters=1)
+    check(np.array_equal(ymf, ym), f"rank {r}: fold MAX against the ring")
+    check(_same_everywhere(w, yf), "fold SUM: ranks differ")
+    check(c["coll_shm_fold"] - f0 == 6, f"rank {r}: the fold did not run")
+    right, left = (r + 1) % n, (r - 1) % n
+    a0, p0 = (pvar.pvar_read("btl_shm_adoptions"),
+              pvar.pvar_read("btl_shm_seg_packs"))
+    w.barrier()                  # no message lands before the counts
+    req = w.irecv(left, tag=21)
+    w.send(xs[r], right, tag=21)
+    got = req.get()
+    check(np.array_equal(got, xs[left]), f"rank {r}: zero-copy pt2pt")
+    del got
+    check(pvar.pvar_read("btl_shm_adoptions") - a0 == 1 and
+          pvar.pvar_read("btl_shm_seg_packs") - p0 == 1,
+          f"rank {r}: pt2pt did not ride the shared segment "
+          f"({pvar.pvar_read('btl_shm_adoptions') - a0} adoptions, "
+          f"{pvar.pvar_read('btl_shm_seg_packs') - p0} packs)")
+    var.var_set("mpi_base_shm_zerocopy", False)
+    w.barrier()
+    ring_med = statistics.median(ring_ms[1] + ring_ms[2])
+    lines.append(f"in-segment fold SUM, {mb} MB f32 per rank: "
+                 f"{ms_fold:.1f} ms per fold (host clock) against the "
+                 f"pipelined ring's {ring_med:.1f} (median of the four "
+                 f"turns); MAX bit for bit, SUM "
+                 f"rtol 1e-5; pt2pt adopted in place (btl_shm_adoptions "
+                 f"+1, btl_shm_seg_packs +1 on every rank)")
+
+    # a CUDA tensor through the pipeline, against the devxfer ring
+    x = torch.from_numpy(xs[r]).to(dev)
+
+    def ring(tag):
+        buf = x.clone()
+        q = w.irecv(left, tag=tag)
+        w.send(buf, right, tag=tag)
+        buf.fill_(-1.0)                  # the sender overwrites its buffer
+        return q.get()
+    var.var_set("btl_devxfer_min_bytes", 1 << 40)
+    st0, recv0 = pipeline.stats["staged"], w.router.xfer.stats["received"]
+    w.barrier()
+    z, ms_pipe = _dp_timed(lambda: ring(31))
+    # a CUDA payload arrives as numpy, as on the eager path
+    check(np.array_equal(z if isinstance(z, np.ndarray) else z.numpy(),
+                         xs[left]),
+          f"rank {r}: pipelined CUDA message changed")
+    staged = pipeline.stats["staged"] - st0
+    check(staged > 0 and w.router.xfer.stats["received"] == recv0,
+          f"rank {r}: the CUDA tensor did not go through SegmentStager")
+    var.var_set("btl_devxfer_min_bytes", 1 << 20)
+    w.barrier()
+    zd, ms_xfer = _dp_timed(lambda: ring(32))
+    check(np.array_equal(zd.cpu().numpy(), xs[left]),
+          f"rank {r}: devxfer message changed")
+    lines.append(f"CUDA tensor ring, 8 x {mb} MB, devxfer declined: "
+                 f"{ms_pipe:.1f} ms per message through SegmentStager "
+                 f"({staged // 4} segments staged per message) against "
+                 f"{ms_xfer:.1f} ms through devxfer in the same job (host "
+                 f"clock, median of 3)")
+
+    # compressed host hops, with the pipeline off so the bcast takes the
+    # compressed tree, not the chain
+    full = np.stack([a[:1 << 19] for a in xs])           # 2 MB per rank
+    mine = full[r]
+    ref = full.astype(np.float64).sum(0)
+    sub = w.split(r // 4, key=r)                        # two comms of 4
+    members = [j for j in range(n) if j // 4 == r // 4]
+    sub_ref = full[members].astype(np.float64).sum(0)
+    var.var_set("mpi_base_pipeline_enable", False)
+    var.var_set("mpi_base_compress", True)
+    var.var_set("mpi_base_compress_min_bytes", 1 << 20)
+    ratios = []
+    for codec in ("int8_block", "fp8_block"):
+        var.var_set("mpi_base_compress_codec", codec)
+        scale = ENVELOPE_SCALE[codec]
+        d0 = c["coll_compress_direct"]
+        bi0 = pvar.pvar_read("compress_bytes_in")
+        bo0 = pvar.pvar_read("compress_bytes_out")
+        ya = sub.allreduce(mine, MPI.SUM)
+        check(c["coll_compress_direct"] == d0 + 1,
+              f"rank {r}: {codec} direct allreduce did not run")
+        check(np.abs(ya - sub_ref).max() <= 0.02 * np.abs(sub_ref).max()
+              * scale, f"rank {r}: {codec} direct allreduce envelope")
+        check(_same_everywhere(sub, ya), f"{codec} direct: ranks differ")
+        red = w.reduce(mine, MPI.SUM, root=2)
+        if r == 2:
+            check(np.abs(red - ref).max() <= 0.02 * np.abs(ref).max()
+                  * scale, f"{codec} reduce envelope")
+        bc = w.bcast(mine if r == 5 else None, 5)
+        check(np.abs(bc - full[5]).max() <= np.abs(full[5]).max() / 64
+              * scale, f"rank {r}: {codec} bcast envelope")
+        import hashlib
+        digests = w.allgather(hashlib.sha1(bc.tobytes()).hexdigest())
+        check(len({d for j, d in enumerate(digests) if j != 5}) == 1,
+              f"{codec} bcast: the receiving ranks differ")
+        ratios.append(
+            (pvar.pvar_read("compress_bytes_out") - bo0)
+            / max(pvar.pvar_read("compress_bytes_in") - bi0, 1))
+        lines.append(f"compressed host hops {codec}, 2 MB f32 per rank: "
+                     f"direct allreduce (comms of 4), reduce and bcast "
+                     f"within the envelope x{scale:.3g}; wire ratio "
+                     f"{ratios[-1]:.4f} (compress_ratio pvar "
+                     f"{pvar.pvar_read('compress_ratio'):.4f})")
+    var.var_set("mpi_base_compress", False)
+    var.var_set("mpi_base_pipeline_enable", True)
+    sub.free()
+
+    # persistent plans on the per-rank tier
+    def per_call_us(fn, reps=200):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+    pd = w.allreduce_init(x, MPI.SUM)
+    check(pd.plan.algorithm == "generic", f"device plan {pd.plan.algorithm}")
+    pd.start()
+    pd.wait()
+    check(torch.equal(pd.get(), w.allreduce(x, MPI.SUM)),
+          f"rank {r}: device-tier plan differs from the one-shot call")
+    var.var_set("coll_tuned_stage_min_bytes", 1 << 20)
+    h = xs[r][:1 << 20].copy()
+    ps = w.allreduce_init(h, MPI.SUM)
+    check(ps.plan.algorithm == "staged_device",
+          f"staged plan {ps.plan.algorithm}")
+    check(accelerator.current_module().is_host_registered(h),
+          "the staged plan's buffer is not registered")
+    ps.start()
+    ps.wait()
+    check(np.array_equal(ps.get(), w.allreduce(h, MPI.SUM)),
+          f"rank {r}: staged plan differs from the one-shot call")
+    b8 = np.full(1, float(r + 1))
+    p8 = w.allreduce_init(b8, MPI.SUM)
+    check(p8.plan.algorithm == "small_combine",
+          f"8 B plan {p8.plan.algorithm}")
+
+    def start_wait():
+        p8.start()
+        p8.wait()
+    w.barrier()
+    sw_us = per_call_us(start_wait)
+    w.barrier()
+    one_us = per_call_us(lambda: w.allreduce(b8, MPI.SUM))
+    check(p8.get()[0] == w.allreduce(b8, MPI.SUM)[0] == n * (n + 1) / 2,
+          f"rank {r}: 8 B plan")
+    var.var_set("mpi_base_bucket", True)
+    leaves = [np.full(64 + j, float(j + r), np.float32) for j in range(14)]
+    plans = [w.allreduce_init(leaf, MPI.SUM) for leaf in leaves]
+    fl0 = pvar.pvar_read("coll_bucket_flushes")
+    MPI.Startall(plans)
+    outs = [q.get() for q in plans]
+    flushes = pvar.pvar_read("coll_bucket_flushes") - fl0
+    var.var_set("mpi_base_bucket", False)
+    for leaf, out in zip(leaves, outs):
+        check(np.array_equal(out, w.allreduce(leaf, MPI.SUM)),
+              f"rank {r}: bucketed plan differs")
+    check(1 <= flushes < 14, f"rank {r}: {flushes} flushes for 14 plans")
+    lines.append(f"persistent plans: device tier (generic), staged numpy "
+                 f"on pinned pages (staged_device), 8 B (small_combine) "
+                 f"bit for bit against the one-shot calls; 8 B "
+                 f"Start+Wait {sw_us:.1f} us against {one_us:.1f} us per "
+                 f"one-shot allreduce (host clock, 200 calls); Startall "
+                 f"over 14 plans: {flushes} fused flush(es)")
+    MPI.Finalize()
+    if r == 0:
+        with open(report, "w") as f:
+            json.dump(lines, f)
+    print(f"OK dataplane rank={r}/{n}", flush=True)
+    return 0
+
+
+def _tuned_single(w, smi: str) -> None:
+    """The tuned component on the single-controller world: a numpy
+    (8, 1 MiB fp32) stack returns numpy equal to coll/torch on the same
+    tensor, staged (bit for bit) and on the host (rtol 1e-5)."""
+    x = np.random.default_rng(DP_SEED).standard_normal(
+        (w.size, 1 << 18)).astype(np.float32)
+    mod = w._coll("allreduce")
+    check(w._coll_winners["allreduce"] == "tuned", "tuned did not win")
+    want = mod.device.allreduce(torch.from_numpy(x).to("cuda"),
+                                MPI.SUM).cpu().numpy()
+    y = w.allreduce(x, MPI.SUM)          # the probe-earned route
+    from ompi_tpu_torch.coll import tuned
+    basis = tuned.probed_stage_basis()
+    check(isinstance(y, np.ndarray) and basis.get("device") == "cuda",
+          f"numpy in gave {type(y)}; probe {basis}")
+    times = {}
+    for route, smin in (("staged", 0), ("host", 1 << 62)):
+        var.var_set("coll_tuned_stage_min_bytes", smin)
+        got = w.allreduce(x, MPI.SUM)
+        check(isinstance(got, np.ndarray), f"{route}: {type(got)}")
+        if route == "staged":
+            check(np.array_equal(got, want), "staged: differs from "
+                  "coll/torch on the same tensor")
+        else:
+            check(np.allclose(got, want, rtol=1e-5, atol=1e-5),
+                  "host: differs from coll/torch on the same tensor")
+        times[route] = host_ms(lambda: w.allreduce(x, MPI.SUM))
+    phase("dataplane", f"tuned: numpy (8, 1 MiB f32) allreduce returns "
+          f"numpy = coll/torch; staged {times['staged']:.3f} ms, host "
+          f"{times['host']:.3f} ms (host clock); the single-controller "
+          f"probe: staged {basis.get('staged_per_mb_ms')} ms/MB against "
+          f"host {basis.get('host_per_mb_ms')} ms/MB, stage_min_bytes "
+          f"{basis.get('stage_min_bytes')} (-1: never stage) | {smi}")
+
+
+def _run_job(rank_flag: str, mca) -> list:
+    """Launch 8 rank processes of this script and return rank 0's
+    lines."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "rank0.json")
+        cmd = [sys.executable,
+               os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py"),
+               "--per-rank", "-n", str(PR_RANKS), "--timeout",
+               str(PR_TIMEOUT)]
+        for k, v in mca:
+            cmd += ["--mca", k, str(v)]
+        cmd += [os.path.abspath(__file__), rank_flag, report]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=PR_TIMEOUT + 60, cwd=root)
+        oks = res.stdout.count("OK ")
+        if res.returncode != 0 or oks != PR_RANKS:
+            sys.stderr.write(res.stderr[-6000:])
+            check(False, f"per-rank job rc={res.returncode}, {oks} "
+                  f"of {PR_RANKS} ranks OK:\n{res.stdout[-3000:]}")
+        with open(report) as f:
+            return json.load(f)
+
+
+def phase_dataplane(smi: str) -> None:
+    """The per-rank large-message data plane, 8 rank processes on
+    cuda:0."""
+    t0 = time.perf_counter()
+    lines = _run_job("--dataplane-rank", [("mpi_base_btl_rails", 2),
+                                          ("mpi_base_shm_seg_count", 2)])
+    for line in lines:
+        phase("dataplane", f"{line} | {smi}")
+    phase("dataplane", f"8 rank processes on cuda:0, every check passed on "
+          f"every rank; phase 12 took {time.perf_counter() - t0:.1f} s "
+          f"| {smi}")
+
+
 def main() -> int:
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
+    if "--dataplane-rank" in sys.argv:
+        return _dataplane_rank(sys.argv[-1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     if "--perrank" in sys.argv:
         smi, _ = phase_device()
         phase_perrank(smi)
+        MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+        _tuned_single(MPI.get_comm_world(), smi)
+        MPI.Finalize()
+        torch.cuda.empty_cache()
+        phase_dataplane(smi)
         return 0
     t0 = time.perf_counter()
     smi, kind = phase_device()
@@ -2551,9 +2942,11 @@ def main() -> int:
     phase_algorithms(world, smi)
     phase_compression(world, smi)
     phase_ptp_topo_datatype(world, smi)
+    _tuned_single(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
     phase_perrank(smi)
+    phase_dataplane(smi)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

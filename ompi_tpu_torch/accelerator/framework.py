@@ -2,8 +2,9 @@
 
 Behavioral spec: ``opal/mca/accelerator/accelerator.h`` — ``check_addr``
 :176 (is this buffer device memory?), async memcpy :280, streams/events
-:189-258, device alloc :364. The reference's CUDA component detects device
-pointers via ``cuPointerGetAttributes`` (``accelerator_cuda.c:304-360``).
+:189-258, device alloc :364, host registration :574. The reference's
+CUDA component detects device pointers via ``cuPointerGetAttributes``
+(``accelerator_cuda.c:304-360``).
 
 Here a buffer is a ``torch.Tensor`` or a numpy array, so ``check_addr`` is
 a type/placement test. Components:
@@ -228,10 +229,36 @@ class Event:
             self.event.synchronize()
 
 
+class AsyncD2H:
+    """A device-to-host copy in flight (``mem_copy_d2h_async``): ``host``
+    is its destination, ``event`` the CUDA event recorded after the copy
+    on a side stream (None on the CPU, where the copy is already done).
+    ``mem_copy_d2h`` finishes it."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, host: torch.Tensor, event=None):
+        self.host = host
+        self.event = event
+
+
+# cudaErrorHostMemoryAlreadyRegistered: the pages are pinned already
+_ALREADY_REGISTERED = 712
+
+
 class CudaAccelComponent(Component):
     """CUDA device memory (peer of accelerator/cuda)."""
 
     name = "cuda"
+
+    def __init__(self):
+        super().__init__()
+        # id(buf) -> (buf, refcount) of the numpy buffers pinned by
+        # host_register (accelerator.h:574)
+        self._pinned: dict = {}
+        # a stream per device for D2H copies: they overlap compute on
+        # the current stream instead of queueing behind it
+        self._d2h_streams: dict = {}
 
     def comm_query(self, comm):
         return (50, self)
@@ -249,9 +276,75 @@ class CudaAccelComponent(Component):
         return torch.tensor(np.asarray(host_buf), device=device or "cuda")
 
     def mem_copy_d2h(self, dev_buf) -> np.ndarray:
+        if isinstance(dev_buf, AsyncD2H):
+            if dev_buf.event is not None:
+                dev_buf.event.synchronize()
+            return dev_buf.host.numpy()
         if isinstance(dev_buf, torch.Tensor):
             return to_numpy(dev_buf)
         return np.asarray(dev_buf)
+
+    def mem_copy_d2h_async(self, dev_buf: torch.Tensor,
+                           out: Optional[torch.Tensor] = None) -> AsyncD2H:
+        """Begin a device-to-host copy without waiting for it (the async
+        memcpy of ``accelerator.h:280``): a ``non_blocking`` copy into
+        ``out`` (pinned host memory, allocated when None) on a side
+        stream that first waits for the current stream's writes; a CUDA
+        event marks its end. ``mem_copy_d2h`` finishes it."""
+        src = dev_buf.detach()
+        if not src.is_cuda:
+            host = src.cpu() if out is None else out.copy_(src)
+            return AsyncD2H(host)
+        if out is None:
+            out = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        cur = torch.cuda.current_stream(src.device)
+        side = self._d2h_streams.get(src.device.index)
+        if side is None:
+            side = self._d2h_streams[src.device.index] = \
+                torch.cuda.Stream(src.device)
+        side.wait_stream(cur)
+        ev = torch.cuda.Event()
+        with torch.cuda.stream(side):
+            out.copy_(src, non_blocking=True)
+            ev.record(side)
+        # the caching allocator must not hand the source to another
+        # tensor before the side stream has read it
+        src.record_stream(side)
+        return AsyncD2H(out, ev)
+
+    # -- host registration (accelerator.h:574) -------------------------
+    def host_register(self, buf: np.ndarray) -> None:
+        """Pin a host numpy buffer (``cudaHostRegister``), so copies
+        between it and the card are DMA from its own pages. Counted:
+        matched register/unregister pairs nest. A buffer whose pages are
+        pinned already counts as registered."""
+        entry = self._pinned.get(id(buf))
+        if entry is not None:
+            self._pinned[id(buf)] = (buf, entry[1] + 1)
+            return
+        if buf.nbytes:
+            res = torch.cuda.cudart().cudaHostRegister(
+                buf.ctypes.data, buf.nbytes, 0)
+            code = int(res)
+            if code not in (0, _ALREADY_REGISTERED):
+                raise MPIError(ERR_OTHER, f"cudaHostRegister of "
+                                          f"{buf.nbytes} B failed: error "
+                                          f"{code}")
+        self._pinned[id(buf)] = (buf, 1)
+
+    def host_unregister(self, buf: np.ndarray) -> None:
+        entry = self._pinned.get(id(buf))
+        if entry is None:
+            return
+        if entry[1] > 1:
+            self._pinned[id(buf)] = (buf, entry[1] - 1)
+            return
+        del self._pinned[id(buf)]
+        if buf.nbytes:
+            torch.cuda.cudart().cudaHostUnregister(buf.ctypes.data)
+
+    def is_host_registered(self, buf: np.ndarray) -> bool:
+        return id(buf) in self._pinned
 
     def create_stream(self, device=None) -> Stream:
         return Stream(torch.device(device or "cuda"))
@@ -287,6 +380,20 @@ class CpuAccelComponent(CudaAccelComponent):
         if isinstance(host_buf, torch.Tensor):
             return host_buf.to(device or "cpu")
         return torch.tensor(np.asarray(host_buf), device=device or "cpu")
+
+    def host_register(self, buf: np.ndarray) -> None:
+        """Nothing to pin on the CPU: the registration is only counted."""
+        entry = self._pinned.get(id(buf))
+        self._pinned[id(buf)] = (buf, entry[1] + 1 if entry else 1)
+
+    def host_unregister(self, buf: np.ndarray) -> None:
+        entry = self._pinned.get(id(buf))
+        if entry is None:
+            return
+        if entry[1] > 1:
+            self._pinned[id(buf)] = (buf, entry[1] - 1)
+        else:
+            del self._pinned[id(buf)]
 
     def create_stream(self, device=None) -> Stream:
         return Stream(None)
@@ -336,6 +443,13 @@ def to_device(buf: Any, device=None) -> torch.Tensor:
 
 def to_host(buf: Any) -> np.ndarray:
     return _mod().mem_copy_d2h(buf)
+
+
+def to_host_async(buf: torch.Tensor, out: Optional[torch.Tensor] = None
+                  ) -> AsyncD2H:
+    """Start a D2H copy; finish it with ``to_host``. The double-buffering
+    primitive behind ``btl/devxfer.SegmentStager``."""
+    return _mod().mem_copy_d2h_async(buf, out)
 
 
 def _reset_for_tests():

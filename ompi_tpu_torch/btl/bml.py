@@ -12,22 +12,34 @@ exposes the TcpEndpoint surface the Router binds (``send_frame``,
 that fits the ring -> sm; otherwise tcp. TCP connections are wired to
 every peer all the same: the connection monitor is the failure detector.
 
+Large-message segments (``send_segment``, the pipelined rendezvous of
+``pml/pipeline``) are striped round-robin over ``mpi_base_btl_rails``
+rails: rail r >= 1 is an extra tcp connection per peer with its own lock
+and its own sender thread. Segments carry a per-(sender, rail) stamp
+``_rq`` instead of the ordered ``_sq`` and are delivered at once: the pml
+reassembles them by index. The bml also owns the zero-copy segment plane
+(``btl/shmseg``); with ``mpi_base_shm_zerocopy`` on, a same-host segment
+is parked in a shared slot and only its descriptor (``_seg``) travels.
+
 Locality (the hwloc modex): every rank publishes its host and boot
 identity; peers that share it are same-host.
 """
 from __future__ import annotations
 
 import itertools
+import queue
 import socket
 import threading
 import time
 import traceback
 import uuid
 from collections import deque
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
+from ompi_tpu_torch.btl import shmseg as _shmseg
 from ompi_tpu_torch.btl.sm import Ring, SmEndpoint
-from ompi_tpu_torch.btl.tcp import TcpEndpoint
+from ompi_tpu_torch.btl.tcp import PeerDownError, TcpEndpoint
+from ompi_tpu_torch.mca import pvar as _pvar
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.runtime import progress as _progress
 
@@ -67,26 +79,37 @@ def register_params() -> None:
                      help="Device-tensor payloads at or above this ride "
                           "the IPC plane (the rndv eager limit, "
                           "pml_ob1_sendreq.h:389-460 role)")
+    var.var_register("mpi", "base", "btl_rails", vtype="int", default=1,
+                     help="Channels per peer for large-message segment "
+                          "striping (extra tcp connections with their own "
+                          "send locks and sender threads); 1 = one rail. "
+                          "Read per segment")
+    _shmseg.register_params()
 
 
-def _probe_stream(chunk: int = 64 << 10,
-                  reps: int = 8) -> "tuple[float, float]":
+def _probe_stream(chunk: int = 64 << 10, reps: int = 8,
+                  probe_sm: bool = True) -> "tuple[float, float]":
     """~1 ms micro-probe of the two planes on this host: bytes/s pushing
     and popping a loopback ring against writing and reading a local
-    socketpair. Returns (sm_bps, tcp_bps)."""
+    socketpair. Returns (sm_bps, tcp_bps); sm_bps is 0.0 when the ring
+    half is skipped. The tcp half always runs: its number is also the
+    per-rail bandwidth estimate the segment decision rows read
+    (``coll/decision.pipeline_plan``)."""
     payload = b"\x5a" * chunk
-    ring = Ring(None, capacity=max(2 * chunk + (1 << 12), 1 << 20),
-                create=True)
-    try:
-        ring.push(payload)               # warm the mapping
-        ring.pop()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            ring.push(payload)
+    sm_s = 0.0
+    if probe_sm:
+        ring = Ring(None, capacity=max(2 * chunk + (1 << 12), 1 << 20),
+                    create=True)
+        try:
+            ring.push(payload)           # warm the mapping
             ring.pop()
-        sm_s = time.perf_counter() - t0
-    finally:
-        ring.close()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                ring.push(payload)
+                ring.pop()
+            sm_s = time.perf_counter() - t0
+        finally:
+            ring.close()
     a, b = socket.socketpair()
     try:
         a.sendall(payload)
@@ -100,7 +123,8 @@ def _probe_stream(chunk: int = 64 << 10,
         a.close()
         b.close()
     total = float(reps * chunk)
-    return total / max(sm_s, 1e-9), total / max(tcp_s, 1e-9)
+    sm_bps = total / max(sm_s, 1e-9) if sm_s > 0 else 0.0
+    return sm_bps, total / max(tcp_s, 1e-9)
 
 
 def _drain_sock(sock, n: int) -> None:
@@ -149,23 +173,69 @@ class BmlEndpoint:
                                                _DEF_RING_BYTES)))
             except OSError:              # no /dev/shm: tcp carries all
                 self.sm = None
+        # the zero-copy segment plane: built in every multi-rank world (it
+        # allocates nothing until a send packs, and a receiver must be
+        # able to adopt whatever its own send gate says); segfree frames
+        # ride the unsequenced tcp plane, as the sm doorbells do
+        self.shm_seg: Optional[_shmseg.SegPlane] = None
+        if nprocs > 1:
+            self.shm_seg = _shmseg.SegPlane(rank, kv_set, kv_get,
+                                            ctl_send=self.tcp.send_frame)
         self._same_host: Dict[int, bool] = {}
         self._sm_min = int(var.var_get("btl_sm_min_bytes", _DEF_MIN_BYTES))
         self.stats = {"sm": 0, "tcp": 0, "self": 0}
+        # -- multi-rail striping state (send_segment) ------------------
+        self._rail_lock = threading.Lock()
+        self._rail_rr: Dict[int, "itertools.count"] = {}   # peer -> rr
+        self._rail_seq: Dict[Tuple[int, int], "itertools.count"] = {}
+        self._rail_expect: Dict[Tuple[int, int], int] = {}
+        self._rail_qs: Dict[Tuple[int, int], "queue.Queue"] = {}
+        # segment payload bytes per rail, sent + received, as the
+        # btl_rail_bytes_c<r> pvars
+        self.rail_bytes: Dict[int, int] = {}
+        self.rail_stats = {"ooo": 0, "fallback": 0, "recv_frames": 0}
+        self._rail_pvars(self.rails)
         # routing earns its default from data: sm is demoted for bulk
         # unless the micro-probe shows it beats tcp on this host. A
-        # user-set btl_sm_min_bytes suppresses the probe.
+        # user-set btl_sm_min_bytes suppresses the routing half ("ran"
+        # stays False); the tcp half always runs, since its number is
+        # the per-rail bandwidth estimate (rail_gbps)
         self.probe_basis: Dict[str, object] = {"ran": False}
-        if self.sm is not None and var.var_source("btl_sm_min_bytes") \
-                in (None, var.SOURCE_DEFAULT):
-            sm_bps, tcp_bps = _probe_stream()
-            demote = sm_bps <= tcp_bps * 1.1
-            if demote:
-                self._sm_min = 1 << 62       # bulk stays on tcp
-            self.probe_basis = {"ran": True,
-                                "sm_gbps": round(sm_bps / 1e9, 3),
-                                "tcp_gbps": round(tcp_bps / 1e9, 3),
-                                "sm_demoted": demote}
+        user_min = var.var_overridden("btl_sm_min_bytes")
+        sm_bps, tcp_bps = _probe_stream(
+            probe_sm=self.sm is not None and not user_min)
+        self.probe_basis["rail_gbps"] = round(tcp_bps / 1e9, 3)
+        if not user_min:
+            self.probe_basis.update({
+                "ran": True,
+                "sm_gbps": round(sm_bps / 1e9, 3) if sm_bps else None,
+                "tcp_gbps": round(tcp_bps / 1e9, 3),
+                "sm_demoted": False})
+            if sm_bps > 0:
+                demote = sm_bps <= tcp_bps * 1.1
+                if demote:
+                    self._sm_min = 1 << 62   # bulk stays on tcp
+                self.probe_basis["sm_demoted"] = bool(demote)
+
+    # -- rails ---------------------------------------------------------
+    @property
+    def rails(self) -> int:
+        """``mpi_base_btl_rails``, read per segment: a change takes effect
+        at the next segment (rail connections open lazily)."""
+        return max(1, int(var.var_get("mpi_base_btl_rails", 1)))
+
+    def _rail_pvars(self, rails: int) -> None:
+        """A ``btl_rail_bytes_c<r>`` pvar for every rail up to ``rails``."""
+        for r in range(rails):
+            if r in self.rail_bytes:
+                continue
+            self.rail_bytes[r] = 0
+            _pvar.pvar_register(
+                f"btl_rail_bytes_c{r}",
+                (lambda rr=r, ep=self: ep.rail_bytes.get(rr, 0)),
+                unit="bytes",
+                help=f"Segment payload bytes carried on rail {r} by this "
+                     f"endpoint, send + receive")
 
     # -- the TcpEndpoint surface the Router binds ----------------------
     @property
@@ -197,6 +267,10 @@ class BmlEndpoint:
                     self.sm.drain(header.get("peer"))
                 finally:
                     _progress.wake_end()
+            return
+        rq = header.pop("_rq", None)
+        if rq is not None:
+            self._rail_deliver(rq, header, payload)
             return
         sq = header.pop("_sq", None)
         if sq is None:                   # unsequenced (ctl) frame
@@ -238,6 +312,39 @@ class BmlEndpoint:
         finally:
             _progress.wake_end()
 
+    def _rail_deliver(self, rq, header: dict, payload) -> None:
+        """A rail-striped segment: per-rail FIFO is tracked (a gap means
+        cross-rail overtaking or a detour through rail 0: counted, never
+        held back) and delivery is immediate, since the pml reassembles
+        by segment index and MPI order was fixed by the train's init
+        frame on the ordered stream. A ``_seg`` descriptor points at a
+        shared slot: the segment is read from the mapping and the slot is
+        freed once the sink's synchronous copy-out has returned."""
+        src, rail, rseq = rq
+        with self._order_lock:
+            key = (src, rail)
+            exp = self._rail_expect.get(key, 1)
+            if rseq != exp:
+                self.rail_stats["ooo"] += 1
+            self._rail_expect[key] = max(exp, rseq + 1)
+            self.rail_stats["recv_frames"] += 1
+        seg = header.pop("_seg", None)
+        view = None
+        if seg is not None and self.shm_seg is not None:
+            view = payload = self.shm_seg.view(seg)
+        with self._rail_lock:
+            self._rail_pvars(rail + 1)
+            self.rail_bytes[rail] += len(payload)
+        _progress.wake_note_frame()
+        if view is None:
+            self.sink(header, payload)
+            return
+        try:
+            self.sink(header, payload)
+        finally:
+            view.release()
+            self.shm_seg.send_free(seg["o"], seg["i"])
+
     def send_frame(self, peer: int, header: dict,
                    payload: bytes = b"") -> None:
         if peer == self.rank:            # btl/self loopback
@@ -272,7 +379,129 @@ class BmlEndpoint:
         self.stats["tcp"] += 1
         self.tcp.send_frame(peer, header, payload)
 
+    # -- rail-striped segments (the pipelined rendezvous data plane) ---
+    def send_segment(self, peer: int, header: dict, payload,
+                     on_done=None) -> None:
+        """Queue one unordered large-message segment on the next rail
+        (round robin over ``mpi_base_btl_rails``). Each (peer, rail) has
+        its own sender thread, so the caller returns at once and the
+        next segment's preparation overlaps this one's wire time.
+        ``on_done(wire_seconds)`` runs on the sender thread once the
+        segment has left (0.0 for loopback): the pml's window and
+        overlap accounting hang off it."""
+        if peer == self.rank:            # btl/self loopback
+            self.stats["self"] += 1
+            with self._rail_lock:
+                self.rail_bytes[0] = self.rail_bytes.get(0, 0) \
+                    + len(payload)
+            self.sink(dict(header), payload)
+            if on_done is not None:
+                on_done(0.0)
+            return
+        rails = self.rails
+        with self._rail_lock:
+            self._rail_pvars(rails)
+            rr = self._rail_rr.get(peer)
+            if rr is None:
+                rr = self._rail_rr[peer] = itertools.count()
+            rail = next(rr) % rails
+            key = (peer, rail)
+            seq = self._rail_seq.get(key)
+            if seq is None:
+                seq = self._rail_seq[key] = itertools.count(1)
+            rseq = next(seq)
+            q = self._rail_qs.get(key)
+            if q is None:
+                q = self._rail_qs[key] = queue.Queue()
+                threading.Thread(
+                    target=self._rail_send_loop, args=(q, peer, rail),
+                    daemon=True,
+                    name=f"btl-rail-{self.rank}-{peer}-{rail}").start()
+            self.rail_bytes[rail] += len(payload)
+        header = dict(header)
+        header["_rq"] = (self.rank, rail, rseq)
+        q.put((header, payload, on_done))
+
+    def _rail_send_loop(self, q: "queue.Queue", peer: int,
+                        rail: int) -> None:
+        while True:
+            item = q.get()
+            if item is None:
+                return                   # close(): retire
+            header, payload, on_done = item
+            t0 = time.perf_counter()
+            seg = None
+            if (self.shm_seg is not None and _shmseg.enabled()
+                    and "off" in header
+                    and len(payload) >= self.shm_seg.min_bytes
+                    and self._is_same_host(peer)):
+                # zero-copy: park the segment in a shared slot and ship
+                # only its descriptor. Offset-addressed segments only:
+                # compressed ones lack "off" and are kept by the
+                # receiving PipeStore, so they must not ride a slot the
+                # receiver frees at once. A dry pool packs nothing.
+                seg = self.shm_seg.pack(peer, payload)
+                if seg is not None:
+                    header["_seg"] = seg
+                    payload = b""
+            sent = False
+            try:
+                sent = self._rail_push(peer, header, payload, rail)
+            finally:
+                if seg is not None and not sent:
+                    # the descriptor never left: the receiver will never
+                    # free the slot, so reclaim it here
+                    self.shm_seg.release(peer, seg["i"])
+                if on_done is not None:
+                    on_done(time.perf_counter() - t0)
+            # the payload may view a staging buffer or the sender's
+            # array: hold nothing while waiting for the next segment
+            del item, header, payload, on_done
+
+    def _rail_push(self, peer: int, header: dict, payload,
+                   rail: int) -> bool:
+        """One segment onto the wire: a same-host peer's sm ring (all
+        rails share the one ring per peer; index reassembly absorbs the
+        interleaving), else the rail's socket, else a detour through
+        rail 0's socket. False when the peer is gone (the failure
+        detector reports that)."""
+        if (self.sm is not None and len(payload) >= self._sm_min
+                and self._is_same_host(peer)):
+            try:
+                pushed = self.sm.try_send(peer, header, payload,
+                                          timeout=60.0)
+            except (OSError, ValueError):    # ring closed mid-shutdown
+                pushed = False
+            if pushed:
+                self.stats["sm"] += 1
+                try:
+                    self.tcp.send_frame(peer, {"ctl": "_smpoke",
+                                               "peer": self.rank})
+                except OSError:
+                    pass
+                return True
+        try:
+            self.tcp.send_frame_rail(peer, header, payload, rail)
+            self.stats["tcp"] += 1
+            return True
+        except PeerDownError:
+            pass
+        try:                             # dropped rail: detour via rail 0
+            self.tcp.send_frame(peer, header, payload)
+        except OSError:
+            return False
+        self.stats["tcp"] += 1
+        with self._rail_lock:
+            self.rail_stats["fallback"] += 1
+        return True
+
     def close(self) -> None:
+        with self._rail_lock:
+            rail_qs = list(self._rail_qs.values())
+        for q in rail_qs:                # retire the rail senders
+            q.put(None)
+        if self.shm_seg is not None:
+            self.shm_seg.close()
         if self.sm is not None:
             self.sm.close()
         self.tcp.close()

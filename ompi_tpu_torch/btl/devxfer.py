@@ -26,6 +26,7 @@ import itertools
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ompi_tpu_torch import accelerator
@@ -200,3 +201,63 @@ def maybe_resolve(data):
     if isinstance(data, DevPayload):
         return data.resolve()
     return data
+
+
+class SegmentStager:
+    """Double-buffered device-to-host staging of a tensor's segments for
+    the pipelined rendezvous (``pml/pipeline``; the reference's
+    ``SegmentStager``, ``ompi_tpu/btl/devxfer.py:170-205``). Segments are
+    element ranges of the flattened tensor, sliced on the device; each
+    is copied into one of two reused host staging buffers (pinned on
+    CUDA) by ``accelerator.to_host_async``. Fetching segment s finishes
+    its copy and issues segment s+1's when its buffer is free, so the
+    staging of s+1 overlaps the wire time of s. A buffer is free again
+    once the caller ``release``s the segment it held (its bytes have
+    left), so at most two staged segments are ever in flight."""
+
+    def __init__(self, t: torch.Tensor, elems_per_seg: int,
+                 timeout: float = 600.0):
+        self._flat = t.detach().reshape(-1)
+        self._eps = max(1, int(elems_per_seg))
+        self._n = -(-int(self._flat.numel()) // self._eps)
+        self._timeout = timeout
+        width = min(self._eps, int(self._flat.numel()))
+        pin = self._flat.is_cuda
+        self._bufs = [torch.empty(width, dtype=self._flat.dtype,
+                                  pin_memory=pin) for _ in range(2)]
+        self._free = [threading.Event(), threading.Event()]
+        for ev in self._free:
+            ev.set()
+        self._ahead: Dict[int, Any] = {}     # idx -> copy in flight
+        self.staged = 0                      # segments copied to host
+
+    @property
+    def nseg(self) -> int:
+        return self._n
+
+    def _start(self, i: int, wait: bool = True) -> None:
+        if not (0 <= i < self._n) or i in self._ahead:
+            return
+        free = self._free[i % 2]
+        if not wait and not free.is_set():
+            return                       # its buffer is still on the wire
+        if not free.wait(self._timeout):
+            raise MPIError(ERR_PROC_FAILED, "staging buffer never "
+                                            "released by the wire")
+        free.clear()
+        seg = self._flat[i * self._eps:(i + 1) * self._eps]
+        out = self._bufs[i % 2][:seg.numel()]
+        self._ahead[i] = accelerator.to_host_async(seg, out)
+        self.staged += 1
+
+    def get(self, i: int) -> np.ndarray:
+        """Segment ``i`` on the host, as a numpy view of its staging
+        buffer, valid until ``release(i)``."""
+        self._start(i)
+        out = accelerator.to_host(self._ahead.pop(i))
+        self._start(i + 1, wait=False)   # prefetch the next segment
+        return out
+
+    def release(self, i: int) -> None:
+        """Segment ``i``'s bytes have left: its buffer may be reused."""
+        self._free[i % 2].set()

@@ -122,6 +122,12 @@ class TcpEndpoint:
         self.on_peer_lost = on_peer_lost
         self._peers: Dict[int, socket.socket] = {}
         self._peer_locks: Dict[int, threading.Lock] = {}
+        # multi-rail striping (bml.send_segment): rails >= 1 are extra
+        # connections to the same peer listener, each with its own send
+        # lock, so bulk sends on different rails overlap; rail 0 is the
+        # ordinary _peers socket
+        self._rail_peers: Dict[Tuple[int, int], socket.socket] = {}
+        self._rail_locks: Dict[Tuple[int, int], threading.Lock] = {}
         self._lock = threading.Lock()
         self._closed = False
         # reader threads never block sending (acks): a reader stuck in
@@ -161,6 +167,7 @@ class TcpEndpoint:
 
     def _read_loop(self, conn: socket.socket) -> None:
         peer = -1                            # set by the hello frame
+        rail = 0                             # ditto (extra-rail conns)
         self._reader_tls.active = True
         # a buffered reader takes a frame's prefix, header and small
         # payload in one recv where they arrived together
@@ -189,6 +196,7 @@ class TcpEndpoint:
                     header = pickle.loads(hraw)
                     if header.get("ctl") == "hello":
                         peer = header["peer"]
+                        rail = int(header.get("rail", 0))
                         continue
                     self.sink(header, praw)
                 except Exception:            # noqa: BLE001
@@ -204,7 +212,10 @@ class TcpEndpoint:
                     c.close()
                 except OSError:
                     pass
-            if peer >= 0 and not self._closed and self.on_peer_lost:
+            # a dropped extra rail is degraded mode (its segments detour
+            # to rail 0), not a death: only rail 0 reports the peer lost
+            if peer >= 0 and rail == 0 and not self._closed \
+                    and self.on_peer_lost:
                 try:
                     self.on_peer_lost(peer)
                 except Exception:            # noqa: BLE001
@@ -240,6 +251,69 @@ class TcpEndpoint:
         with self._peer_locks[peer]:
             s.sendall(_LEN.pack(MAGIC, len(hraw), 0) + hraw)
         return s
+
+    def _connect_rail(self, peer: int, rail: int) -> socket.socket:
+        """An extra per-peer channel (multi-rail striping): rails >= 1
+        open more connections to the same published listener. The hello
+        carries the rail index, so the peer's reader knows this
+        connection's EOF is a dropped rail, not a dead process: rail 0
+        stays the failure detector's wire."""
+        key = (peer, rail)
+        with self._lock:
+            s = self._rail_peers.get(key)
+            if s is not None:
+                return s
+        addr = self._kv_get(f"ompi_tpu_torch/btl/{peer}")
+        if isinstance(addr, bytes):
+            addr = addr.decode()
+        host, port = addr.rsplit(":", 1)
+        s = socket.create_connection((host, int(port)), timeout=60)
+        s.settimeout(None)               # as _connect: death is EOF's
+        s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        try:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, _SOCK_BUF)
+        except OSError:
+            pass
+        with self._lock:
+            cur = self._rail_peers.setdefault(key, s)
+            won = cur is s
+            self._rail_locks.setdefault(key, threading.Lock())
+        if not won:
+            s.close()                        # lost the race, never sent
+            return cur
+        hraw = pickle.dumps({"ctl": "hello", "peer": self.rank,
+                             "rail": rail})
+        with self._rail_locks[key]:
+            s.sendall(_LEN.pack(MAGIC, len(hraw), 0) + hraw)
+        return s
+
+    def evict_rail_socket(self, peer: int, rail: int) -> None:
+        """Drop a broken rail connection; the next segment on this rail
+        reconnects (meanwhile the caller detours through rail 0)."""
+        with self._lock:
+            s = self._rail_peers.pop((peer, rail), None)
+        if s is not None:
+            try:
+                s.close()
+            except OSError:
+                pass
+
+    def send_frame_rail(self, peer: int, header: dict, payload,
+                        rail: int) -> None:
+        """Blocking send over one rail's own socket (rail <= 0 is the
+        ordinary path). Each rail holds its own lock, so N rails carry N
+        frames at once. A broken rail raises :class:`PeerDownError`
+        after evicting the socket."""
+        if rail <= 0 or peer == self.rank:
+            self.send_frame(peer, header, payload)
+            return
+        try:
+            s = self._connect_rail(peer, rail)
+            self._sendmsg(s, self._rail_locks[(peer, rail)], header,
+                          payload)
+        except OSError as e:
+            self.evict_rail_socket(peer, rail)
+            raise PeerDownError(peer, e) from e
 
     def _evict_peer_socket(self, peer: int) -> None:
         with self._lock:
@@ -420,12 +494,14 @@ class TcpEndpoint:
         except OSError:
             pass
         with self._lock:
-            for s in self._peers.values():
+            for s in (list(self._peers.values())
+                      + list(self._rail_peers.values())):
                 try:
                     s.close()
                 except OSError:
                     pass
             self._peers.clear()
+            self._rail_peers.clear()
 
 
 def _drain(q: "queue.Queue") -> None:

@@ -12,8 +12,10 @@ Components:
               above ``torch``, selected while ``mpi_base_compress`` is on.
 
 ``decision`` holds the per-collective algorithm tables the ``torch``
-component selects its schedules from, ``tuned`` the dynamic-rules file
-that overrides them, and ``persistent`` the pre-bound
+component selects its schedules from; ``tuned`` the dynamic-rules file
+that overrides them, the probe-earned staging switch point, and the
+``tuned`` component (priority 60) that routes numpy stacks between
+``basic`` and ``torch``; and ``persistent`` the pre-bound
 persistent-collective plans and the DDP-style bucket fuser behind
 ``*_init``/``Startall``.
 """

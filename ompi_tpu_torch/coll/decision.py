@@ -18,8 +18,10 @@ one tensor in one HBM, and which schedule wins there is a measurement
 (``chip_smoke.py``'s ``algorithms`` phase), not a port item.
 
 The compression gate (:func:`compress_eligible`) and its rows are the
-reference's too; the segment-pipeline and shared-segment rows of the
-reference's :func:`decision_table` wait for the per-rank tier.
+reference's too, and so are the per-rank tier's host rows: the
+segment-pipeline rows and plan (:func:`pipeline_rules`,
+:func:`pipeline_plan`) and the shared-segment fold rows
+(:func:`shm_rules`).
 """
 from __future__ import annotations
 
@@ -198,6 +200,61 @@ def compression_rules() -> Dict[str, List[Sequence]]:
             for func in sorted(COMPRESSIBLE)}
 
 
+# -- large-message pipeline gating (pml/pipeline) ----------------------------
+# Host-tier collectives with a segment-pipelined schedule (core/rankcomm):
+# the ring allreduce and the chain bcast, whose chunk hops ride the pml's
+# pipelined rendezvous.
+PIPELINED: Dict[str, str] = {"allreduce": "pipelined_ring",
+                             "bcast": "pipelined_chain"}
+
+
+def pipeline_rules() -> Dict[str, List[Sequence]]:
+    """The segment-pipeline rows in the fixed tables' shape; empty when
+    ``mpi_base_pipeline_enable`` is off. Two ranks at least: a one-rank
+    ring is a copy."""
+    from ompi_tpu_torch.pml import pipeline as _pl
+    if not _pl.enabled():
+        return {}
+    mb = _pl.min_bytes()
+    return {func: [[2, mb, alg]] for func, alg in sorted(PIPELINED.items())}
+
+
+def pipeline_plan(nbytes: int, rails: int = 1,
+                  rail_gbps: "float | None" = None) -> Dict[str, int]:
+    """Segment size and rail count of one ``nbytes`` pipelined transfer:
+    segments sized to carry about 2 ms of wire time at the probed per-rail
+    bandwidth (the bml probe's tcp estimate, ``probe_basis['rail_gbps']``),
+    clamped to [256 KiB, 8 MiB], grown toward ``pipeline_depth`` segments
+    per train (up to the ceiling) and never fewer than about 4 segments.
+    The floor on the count is there because the window must fill before
+    anything overlaps; the growth because each segment costs a fixed slice
+    of host time (header, syscall, rail-thread wake)."""
+    seg = 1 << 20
+    if rail_gbps:
+        seg = int(float(rail_gbps) * 1e9 * 0.002)
+    seg = max(256 << 10, min(8 << 20, seg))
+    from ompi_tpu_torch.pml import pipeline as _pl
+    seg = max(seg, min(8 << 20, int(nbytes) // max(1, _pl.depth())))
+    seg = min(seg, max(64 << 10, int(nbytes) // 4))
+    return {"segment_bytes": int(seg), "rails": max(1, int(rails))}
+
+
+# -- zero-copy shared-segment fold gating (btl/shmseg) ------------------------
+# Node-local collectives with an in-segment schedule (core/rankcomm): every
+# member's contribution is folded in place in shared memory.
+SHM_FOLDS: Dict[str, str] = {"allreduce": "shm_fold"}
+
+
+def shm_rules() -> Dict[str, List[Sequence]]:
+    """The in-segment fold rows in the fixed tables' shape; empty when
+    ``mpi_base_shm_zerocopy`` is off. Two ranks at least."""
+    from ompi_tpu_torch.btl import shmseg as _shm
+    if not _shm.enabled():
+        return {}
+    mb = _shm.min_bytes()
+    return {func: [[2, mb, alg]] for func, alg in sorted(SHM_FOLDS.items())}
+
+
 def persistent_rules() -> Dict[str, List[Sequence]]:
     """The pre-bound persistent-plan rows (MPI-4 ``*_init``), keyed
     ``<func>_init``: always present."""
@@ -223,7 +280,8 @@ def decision_table(comm_size: int = 0, multihost: bool = False,
     """The effective selection table after every override source: the
     per-func pins (``coll_torch_<func>_algorithm``), the dynamic-rules
     file, the multihost and platform rows, the compression rows, the
-    bucket rows and the persistent rows."""
+    bucket rows, the pipeline and shared-segment rows and the persistent
+    rows."""
     from ompi_tpu_torch.mca import var as _var
     table: Dict[str, List[Sequence]] = {}
     for func in sorted(set(FIXED_RULES) | {"scan"}):
@@ -236,6 +294,10 @@ def decision_table(comm_size: int = 0, multihost: bool = False,
     for func, rows in compression_rules().items():
         table[func] = table[func] + [list(r) for r in rows]
     for func, rows in bucket_rules().items():
+        table[func] = table[func] + [list(r) for r in rows]
+    for func, rows in pipeline_rules().items():
+        table[func] = table[func] + [list(r) for r in rows]
+    for func, rows in shm_rules().items():
         table[func] = table[func] + [list(r) for r in rows]
     for func, rows in persistent_rules().items():
         table[func] = [list(r) for r in rows]

@@ -32,7 +32,7 @@ def _ensure_components() -> None:
         return
     # Importing registers each component with the framework.
     from ompi_tpu_torch.coll import (basic, compressed, nbc,  # noqa: F401
-                                     self_, torch_)
+                                     self_, torch_, tuned)
     _components_loaded = True
 
 

@@ -1,8 +1,8 @@
 """coll/persistent — pre-bound persistent collectives + bucket fusion.
 
-The port of ``ompi_tpu/coll/persistent.py``'s single-controller
-(stacked) tier. Two mechanisms behind the MPI-4 persistent-collective
-family (``MPI_Allreduce_init`` …):
+The port of ``ompi_tpu/coll/persistent.py``, for the single-controller
+(stacked) tier and the per-rank tier. Two mechanisms behind the MPI-4
+persistent-collective family (``MPI_Allreduce_init`` …):
 
 1. **Plan pre-binding.** Validation, component selection and the
    algorithm selection run ONCE at ``*_init``, with one warm-up
@@ -21,6 +21,18 @@ family (``MPI_Allreduce_init`` …):
 Every result is a materialized tensor, never a view that a later flush
 or start could write. A start's completion is the CUDA event recorded
 after its launch (``core/request``).
+
+On the per-rank tier (``_perrank_plan``) an allreduce plan binds its
+route at init, as the reference's does: ``staged_device`` (a numpy
+buffer at or above the staging minimum, registered with the accelerator
+so every Start copies from pinned pages), ``small_combine`` (the
+combined small allreduce, pre-bound: N outstanding Starts pipeline) or
+``generic`` (the one-shot dispatch); a device tensor's plan runs the
+shared-buffer device tier through the generic route. bcast, allgather,
+reduce_scatter_block and barrier plans run the host call (``host``).
+Starts run on the comm's collective worker, and bucket flushes happen
+only at program points every rank reaches alike (bytes, Startall, wait),
+never from the progress engine's idle sweep.
 
 Observability: pvars ``coll_persistent_starts``, ``coll_bucket_flushes``,
 ``coll_bucket_fused_members``, ``coll_bucket_flush_<reason>`` and the
@@ -219,14 +231,25 @@ class PersistentCollRequest(Request):
 
 
 def _bucket_spec(comm, data, op) -> Optional[Tuple]:
-    """(key, payload_fn, epilogue, per_rank_nbytes) when (buffer, op) is
-    bucket-fusable on the stacked tier, else None. Fusion is elementwise,
-    so any real non-pair reduction qualifies; pair (MINLOC/MAXLOC) and
-    freed ops keep the unfused path. ``payload_fn`` reads the buffer's
-    contents when the bucket flushes."""
+    """(key, payload_fn, epilogue, per_rank_nbytes) when (comm tier,
+    buffer, op) is bucket-fusable, else None. Fusion is elementwise, so
+    any real non-pair reduction qualifies; pair (MINLOC/MAXLOC) and freed
+    ops keep the unfused path. ``payload_fn`` reads the buffer's contents
+    when the bucket flushes. On the per-rank tier a member is a numpy
+    array of this rank's; on the stacked tier the leading axis is the
+    rank."""
     if (op is None or getattr(op, "fn", None) is None
             or getattr(op, "is_loc", False)):
         return None
+    if getattr(comm, "is_per_rank", False):
+        if (not isinstance(data, np.ndarray) or data.ndim == 0
+                or data.dtype.kind not in "fiub"):
+            return None
+        shape, dt = data.shape, data.dtype
+        return ((op.uid, dt.str),
+                lambda: np.ascontiguousarray(data).reshape(-1),
+                lambda flat: np.asarray(flat).reshape(shape),
+                int(data.nbytes))
     n = comm.size
     if getattr(data, "ndim", 0) < 1 or data.shape[0] != n:
         return None
@@ -335,10 +358,76 @@ def _stacked_plan(comm, func: str, *args) -> CollPlan:
                     codec=_preselect_codec(func, per_rank, buf.dtype, op))
 
 
+def _perrank_plan(comm, func: str, *args) -> CollPlan:
+    """The per-rank plan (``ompi_tpu/coll/persistent.py:388-438``): the
+    allreduce route decided once, as the one-shot dispatch would decide
+    it for this buffer; every Start runs on the comm's collective worker
+    (or, for the small combine, posts its slot inline)."""
+    from ompi_tpu_torch import accelerator
+    from ompi_tpu_torch.core.rankcomm import RankCommunicator as RC
+    from ompi_tpu_torch.core.rankcomm import counters as _rc
+    comm._check()
+    if func == "allreduce":
+        data, op = args
+        comm._validate_op(op)
+        if isinstance(data, torch.Tensor):
+            nbytes = data.numel() * data.element_size()
+        else:
+            nbytes = int(getattr(data, "nbytes", 0) or 0)
+        launch = None
+        algorithm = "generic"
+        if comm._stageable(data, op):
+            # the registered buffer is read (and staged) at every Start;
+            # registering it pins its pages, so each Start's copy to the
+            # device is DMA from them
+            algorithm = "staged_device"
+            accelerator.current_module().host_register(data)
+
+            def body(_c=comm, _d=data, _op=op):
+                _rc["coll_staged_device"] += 1
+                return _c._to_host(_c._device_allreduce(_c._to_dev(_d),
+                                                        _op))
+        elif comm._small_allreduce_ok(data):
+            # a Start-only launcher: posts the slot and multicasts
+            # inline, so N outstanding Starts pipeline on the wire
+            algorithm = "small_combine"
+            launch = comm.bind_small_allreduce(data, op)
+        else:
+            def body(_c=comm, _d=data, _op=op):
+                return RC.allreduce(_c, _d, _op)
+        if launch is None:
+            launch = lambda: comm._nb(body)          # noqa: E731
+        spec = _bucket_spec(comm, data, op)
+        key, payload, epilogue = spec[:3] if spec else (None, None, None)
+        plan = CollPlan(
+            comm, "allreduce", launch, op=op, nbytes=nbytes,
+            algorithm=algorithm,
+            codec=_preselect_codec("allreduce", nbytes,
+                                   getattr(data, "dtype", ""), op),
+            bucket_key=key, payload=payload, epilogue=epilogue)
+        if algorithm == "staged_device":
+            weakref.finalize(plan, accelerator.current_module()
+                             .host_unregister, data)
+        return plan
+    body = getattr(RC, func, None)
+    if func not in PERSISTENT_FUNCS or body is None:
+        raise ValueError(f"no persistent plan for collective {func!r}")
+    if func == "bcast":
+        comm._validate_root(args[1] if len(args) > 1 else 0)
+    if func == "reduce_scatter_block":
+        comm._validate_op(args[1])
+    return CollPlan(comm, func, lambda: comm._nb(body, comm, *args),
+                    nbytes=int(getattr(args[0], "nbytes", 0) or 0)
+                    if args else 0,
+                    algorithm="host")
+
+
 def coll_init(comm, func: str, *args) -> PersistentCollRequest:
     """Build the pre-bound plan for ``func`` on ``comm`` and return the
     persistent request. Collective: every member calls the ``*_init``
     together."""
+    if getattr(comm, "is_per_rank", False):
+        return PersistentCollRequest(_perrank_plan(comm, func, *args))
     return PersistentCollRequest(_stacked_plan(comm, func, *args))
 
 
@@ -407,10 +496,16 @@ def _own(x):
 class BucketFuser:
     """Per-communicator small-collective fuser (DDP-style gradient
     bucketing): members on the same (op, dtype) key accumulate until a
-    flush trigger, then ride ONE flattened fused allreduce."""
+    flush trigger, then ride ONE flattened fused allreduce. On a per-rank
+    comm every flush trigger is a point of the program order (the bytes
+    threshold, Startall, a wait), so every rank fuses the same buckets;
+    the progress engine's idle sweep is the stacked tier's alone, and a
+    per-rank flush runs on the comm's collective worker, drawing its
+    sequence tag in issue order."""
 
     def __init__(self, comm):
         self.comm = comm
+        self._per_rank = bool(getattr(comm, "is_per_rank", False))
         self._lock = threading.RLock()
         # key -> [(member_req, payload_fn, epilogue, nbytes)]
         self._items: Dict[Tuple, List[Tuple]] = {}
@@ -432,7 +527,7 @@ class BucketFuser:
             self._bytes[key] = self._bytes.get(key, 0) + int(nbytes)
             self._ops[key] = op
             full = self._bytes[key] >= bucket_bytes()
-            if not self._cb_registered:
+            if not self._per_rank and not self._cb_registered:
                 prog.register(self._progress_cb, low_priority=True)
                 self._cb_registered = True
         if full:
@@ -464,14 +559,32 @@ class BucketFuser:
         _count("coll_bucket_flushes")
         _count(f"coll_bucket_flush_{reason}")
         _count("coll_bucket_fused_members", len(items))
-        try:
-            self._launch_fused(items, op)
-        except Exception as e:     # noqa: BLE001 — each member raises it
-            for req, _pf, _ep, _nb in items:
-                req._fail(e)
+
+        def run():
+            try:
+                self._launch_fused(items, op)
+            except Exception as e:  # noqa: BLE001 — each member raises it
+                for req, _pf, _ep, _nb in items:
+                    req._fail(e)
+        if self._per_rank:
+            self.comm._coll_submit(run)
+        else:
+            run()
         return 1
 
     def _launch_fused(self, items: List[Tuple], op) -> None:
+        if self._per_rank:
+            from ompi_tpu_torch.core.rankcomm import RankCommunicator as RC
+            flats = [pf() for _req, pf, _ep, _nb in items]
+            fused = np.asarray(RC.allreduce(
+                self.comm,
+                flats[0] if len(flats) == 1 else np.concatenate(flats), op))
+            off = 0
+            for (req, _pf, ep, _nb), flat in zip(items, flats):
+                ln = flat.shape[0]
+                req._deliver(ep(fused[off:off + ln]), None)
+                off += ln
+            return
         parts = [pf() for _req, pf, _ep, _nb in items]     # (n, w_i)
         fused = self.comm._coll("allreduce").allreduce(
             parts[0] if len(parts) == 1 else torch.cat(parts, dim=1), op)

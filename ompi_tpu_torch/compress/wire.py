@@ -12,9 +12,10 @@ on a sample of calls, feeds the measured round-trip error into the
 Error feedback (``compress/feedback``) runs per (stream, shape, dtype)
 when ``mpi_base_compress_error_feedback`` is on.
 
-Its consumers — the per-rank tier's pml hops — wait for that tier
-(ROADMAP A.15), and the ``compress.quant``/``compress.dequant`` spans for
-``trace/`` (A.17).
+Its consumers are the per-rank tier's host hops (``core/rankcomm``'s
+reduce, bcast and allreduce) and the pipelined rendezvous's per-segment
+codec (``pml/pipeline``); the ``compress.quant``/``compress.dequant``
+spans wait for ``trace/`` (A.17).
 """
 from __future__ import annotations
 

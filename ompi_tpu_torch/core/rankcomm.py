@@ -16,7 +16,11 @@ it). Two tiers:
   collectives on numpy arrays and Python objects run textbook algorithms
   (dissemination barrier, binomial bcast/reduce, ring allgather, pairwise
   alltoall — the coll/base registry, ``coll_base_functions.h:185-320``),
-  plus the combined small-message allreduce.
+  plus the combined small-message allreduce, and for large payloads the
+  in-segment shared-memory fold (btl/shmseg), the segment-pipelined ring
+  allreduce and the chain bcast (whose hops ride pml/pipeline). With
+  ``mpi_base_compress`` on, eligible host hops carry quantized payloads
+  (``compress/wire``).
 - **Device tier** (the shared-buffer tier): collectives on device tensors
   replace the reference's one XLA program over the process mesh. Each
   communicator lazily allocates, on every member's device, a staging slot
@@ -53,6 +57,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import accelerator
+from ompi_tpu_torch.compress import wire as _cwire
 from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.core.errhandler import (ERR_ARG, ERR_COMM, ERR_COUNT,
                                             ERR_OP, ERR_OTHER, ERR_RANK,
@@ -67,7 +72,16 @@ from ompi_tpu_torch.pml.perrank import (ANY_SOURCE, ANY_TAG,
                                         _Msg)
 
 # what ran, by path: read by tests and the chip smoke
-counters: Dict[str, int] = {"coll_device": 0, "coll_staged_device": 0}
+counters: Dict[str, int] = dict.fromkeys((
+    "coll_device", "coll_staged_device", "coll_small_combine",
+    "coll_compress_direct", "coll_shm_fold", "coll_pipelined_ring",
+    "coll_pipelined_chain"), 0)
+
+# Compressed host-tier allreduce: worlds at or below this size take the
+# direct code exchange (one parallel round, one quantization per
+# contribution); larger worlds the binomial reduce and the code-forwarding
+# bcast, whose wire bytes per rank stay O(1)
+_WIRE_DIRECT_MAX_RANKS = 4
 
 _SLOT_ALIGN = 1 << 20
 _live_slots: "weakref.WeakSet" = weakref.WeakSet()
@@ -95,6 +109,40 @@ class _CollChannel:
 
     def world_rank_of(self, local: int) -> int:
         return self._comm.world_rank_of(local)
+
+
+class _SlotRequest(Request):
+    """A request completed by a posted CombineSlot (the persistent small
+    allreduce's Start): waiting blocks on the slot, takes its rank-order
+    fold and retires the slot's tag."""
+
+    def __init__(self, eng, tag: int, slot, epilogue):
+        super().__init__()
+        self._complete = False
+        self._eng = eng
+        self._tag_ = tag
+        self._slot = slot
+        self._epilogue = epilogue
+
+    def _collect(self, timeout: Optional[float] = None) -> None:
+        try:
+            out = self._slot.wait(600 if timeout is None else timeout)
+        finally:
+            self._eng.end_combine(self._tag_)
+            self._complete = True
+        self._result = self._epilogue(out)
+
+    def test(self):
+        if not self._complete:
+            if not self._slot._event.is_set():
+                return False, None
+            self._collect()
+        return True, self.status
+
+    def wait(self, timeout: Optional[float] = None) -> Status:
+        if not self._complete:
+            self._collect(timeout)
+        return self.status
 
 
 def chunk_bounds(numel: int, n: int, rec: int = 1) -> List[int]:
@@ -183,6 +231,8 @@ def _serialized(fn):
 
 class RankCommunicator:
     """A communicator whose caller is exactly one rank."""
+
+    is_per_rank = True
 
     def __init__(self, group: Group, my_world_rank: int, router: Router,
                  device, *, cid: Any = "w", name: str = "",
@@ -359,15 +409,6 @@ class RankCommunicator:
     def _to_host(t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()
 
-    def _check_compress(self, data: Any, op=None) -> None:
-        """Compressed host hops wait for a later slice: with compression
-        on, an eligible payload raises instead of quietly going
-        uncompressed."""
-        from ompi_tpu_torch.compress import wire
-        if wire.eligible(data, op):
-            _not_in_slice("compressed host hops (mpi_base_compress)",
-                          "the per-rank compression slice (ROADMAP 15b.5)")
-
     def _dissemination(self, t: int) -> None:
         n, r = self.size, self._rank
         k = 1
@@ -388,24 +429,34 @@ class RankCommunicator:
         """Binomial-tree bcast (coll_base_bcast.c): non-root callers pass
         nothing and receive the root's value. A device tensor (passed by
         every caller, of one shape) takes the device tier. Host arguments
-        are asymmetric, so the root's staging decision rides the first
-        binomial round with the payload: staged -> (meta, None) and the
-        payload takes the device tier; not staged -> (None, data)."""
+        are asymmetric, so the root's decision rides the first binomial
+        round with the payload: staged -> (("stage", ...), None) and the
+        payload takes the device tier; a large array -> (("chain",), None)
+        and the payload follows as the pipelined chain; otherwise (None,
+        data), compressed where eligible."""
         self._check()
         self._validate_root(root)
         if self._is_dev(data):
             return self._device_bcast(data, root)
         if self._rank == root:
-            self._check_compress(data)
             if self._stageable(data, func="bcast"):
                 msg = (("stage", tuple(data.shape), data.dtype.str), None)
+            elif self._pipeline_bcast_ok(data):
+                msg = (("chain",), None)
+            elif _cwire.eligible(data):
+                # quantize once at the root; the tree forwards the codes
+                # as they are (one quantization error in all)
+                msg = (None, _cwire.encode(data))
             else:
                 msg = (None, data)
         else:
             msg = None
         meta, payload = self._host_bcast(msg, root)
         if meta is None:
-            return data if self._rank == root else payload
+            return data if self._rank == root \
+                else _cwire.maybe_decode(payload)
+        if meta[0] == "chain":
+            return self._pipelined_chain_bcast(data, root)
         counters["coll_staged_device"] += 1
         local = (data if self._rank == root
                  else np.empty(meta[1], np.dtype(meta[2])))
@@ -451,16 +502,21 @@ class RankCommunicator:
             counters["coll_staged_device"] += 1
             y = self._device_allreduce(self._to_dev(data), op)
             return self._to_host(y) if self._rank == root else None
-        self._check_compress(data, op)
+        # compressed hops: a large float sum is decoded, folded and
+        # re-encoded at every tree level; the decision depends only on
+        # (shape, dtype, nbytes, op), alike on every member
+        use_wire = _cwire.eligible(data, op)
         vr = (self._rank - root) % n
         acc = data
         k = 1
         while k < n:
             if vr & k:
-                self._csend(((vr - k) + root) % n, t, acc)
+                self._csend(((vr - k) + root) % n, t,
+                            _cwire.encode(acc) if use_wire else acc)
                 return None
             if vr + k < n:
-                acc = _apply(op, acc, self._crecv(((vr + k) + root) % n, t))
+                acc = _apply(op, acc, _cwire.maybe_decode(
+                    self._crecv(((vr + k) + root) % n, t)))
             k <<= 1
         return acc if self._rank == root else None
 
@@ -498,6 +554,42 @@ class RankCommunicator:
             self._small_fold[op.uid] = fold
         return fold
 
+    def bind_small_allreduce(self, data: Any, op: op_mod.Op) -> Callable:
+        """Pre-bound persistent small allreduce (``coll/persistent``): the
+        fold, the destinations and the engine's multicast template
+        resolve once here. The launcher draws the sequence tag (on the
+        comm's collective context, so its order never races deferred
+        i-collectives), posts the combining slot and multicasts this
+        rank's contribution; completion rides the slot through the
+        returned request. N outstanding starts therefore pipeline: every
+        contribution is on the wire before the first wait. ``data`` (the
+        registered buffer) is read at every Start."""
+        n, r = self.size, self._rank
+        fold = self._small_fold_for(op)
+        eng = self._coll_pml
+        send = eng.bind_small_multicast(
+            data, [(r + off) % n for off in range(1, n)])
+        scalar_in = not isinstance(data, np.ndarray)
+
+        def epilogue(out):
+            if scalar_in and (isinstance(out, np.generic)
+                              or (isinstance(out, np.ndarray)
+                                  and out.ndim == 0)):
+                out = out.item()
+            return out
+
+        def post():
+            counters["coll_small_combine"] += 1
+            t = self._tag()
+            slot = eng.post_combine(t, n, n - 1, fold, own=(r, data))
+            send(data, t)
+            return t, slot
+
+        def launch() -> Request:
+            t, slot = self._coll_serial(post)
+            return _SlotRequest(eng, t, slot, epilogue)
+        return launch
+
     def _small_allreduce_ok(self, data: Any) -> bool:
         from ompi_tpu_torch.coll.tuned import small_allreduce_limits
         max_bytes, max_ranks = small_allreduce_limits()
@@ -509,6 +601,11 @@ class RankCommunicator:
 
     @_serialized
     def allreduce(self, data: Any, op: op_mod.Op = op_mod.SUM) -> Any:
+        """The reference's dispatch, in its order
+        (``ompi_tpu/core/rankcomm.py:672-697``): the device tier, the
+        staged device tier, the combined small allreduce, the direct
+        compressed exchange (small worlds), the in-segment fold, the
+        pipelined ring, then reduce and bcast (compressed or plain)."""
         self._check()
         self._validate_op(op)
         if self._is_dev(data):
@@ -518,8 +615,219 @@ class RankCommunicator:
             return self._to_host(self._device_allreduce(
                 self._to_dev(data), op))
         if self._small_allreduce_ok(data):
+            counters["coll_small_combine"] += 1
             return self._small_allreduce(data, op)
-        return self.bcast(self.reduce(data, op, 0), 0)
+        if _cwire.eligible(data, op) \
+                and 1 < self.size <= _WIRE_DIRECT_MAX_RANKS:
+            return self._wire_allreduce_direct(data, op)
+        if self._shm_fold_ok(data, op):
+            return self._shm_fold_allreduce(data, op)
+        if self._pipeline_ring_ok(data, op):
+            return self._pipelined_ring_allreduce(data, op)
+        red = self.reduce(data, op, 0)
+        if _cwire.eligible(data, op):
+            # every rank must return the same value: the root broadcasts
+            # the wire form and every member, the root too, decodes the
+            # same image
+            w = _cwire.encode(red) if self._rank == 0 else None
+            return _cwire.maybe_decode(self.bcast(w, 0))
+        return self.bcast(red, 0)
+
+    def _wire_allreduce_direct(self, data: np.ndarray,
+                               op: op_mod.Op) -> np.ndarray:
+        """Direct compressed allreduce (small worlds): every rank
+        quantizes its contribution once and sends the codes to every
+        peer; every rank decodes all n images and folds them in rank
+        order. One parallel round, one quantization error per
+        contribution, and the same bits on every rank."""
+        n, r, t = self.size, self._rank, self._tag()
+        counters["coll_compress_direct"] += 1
+        w = _cwire.encode(data)
+        for off in range(1, n):
+            self._csend((r + off) % n, t, w)
+        parts: Dict[int, Any] = {r: w}
+        for _ in range(n - 1):
+            d, st = self._coll_pml.recv(ANY_SOURCE, t)
+            parts[st.source] = d
+        out = None
+        for i in range(n):
+            img = _cwire.maybe_decode(parts[i])
+            out = img if out is None else _apply(op, out, img)
+        return out
+
+    # -- in-segment shared-memory fold (btl/shmseg) ---------------------
+    def _shm_fold_ok(self, data: Any, op: op_mod.Op) -> bool:
+        """Rank-symmetric gate of the in-segment fold: every member on
+        this host (the fold is the shared mapping), a payload that fits
+        one workspace, an op with a numpy kernel, and the shm decision
+        row selecting it. Commutativity is not needed: each slice is
+        folded once, in rank order, by one rank."""
+        if self.size < 2 or not isinstance(data, np.ndarray):
+            return False
+        if data.dtype.kind not in "fiu" or data.ndim == 0:
+            return False
+        if op.is_loc or not op.predefined \
+                or op_mod.NP_COMBINERS.get(op.name) is None:
+            return False
+        ep = self.router.endpoint
+        plane = getattr(ep, "shm_seg", None)
+        if plane is None or int(data.nbytes) > plane.slot_bytes:
+            return False
+        from ompi_tpu_torch.coll import decision
+        rules = decision.shm_rules().get("allreduce")
+        if not rules or decision._match(rules, self.size,
+                                        int(data.nbytes)) != "shm_fold":
+            return False
+        return all(ep._is_same_host(self.world_rank_of(i))
+                   for i in range(self.size) if i != self._rank)
+
+    def _shm_fold_allreduce(self, data: np.ndarray,
+                            op: op_mod.Op) -> np.ndarray:
+        """Node-local allreduce in the fold workspaces: every rank writes
+        its contribution into its own per-comm shared segment once; after
+        a fence it folds its slice of the elements across all members'
+        segments in rank order and writes the folded slice back into
+        every segment (disjoint slices: no writer races another); after
+        the second fence it reads the whole result out of its own
+        segment. About 4 byte-touches per rank against the ring's 2·P,
+        and the same bits on every rank. No third fence: a rank's next
+        write into its own segment comes after its own read-out, and
+        peers touch that segment again only after the next collective's
+        first fence."""
+        from ompi_tpu_torch.btl import shmseg as _shmseg
+        n, r = self.size, self._rank
+        counters["coll_shm_fold"] += 1
+        plane = self.router.endpoint.shm_seg
+        token = _shmseg.coll_token(self.cid)
+        arr = np.ascontiguousarray(data)
+        shape, dtype = arr.shape, arr.dtype
+        flat = arr.reshape(-1)
+        nbytes = int(arr.nbytes)
+        ws = plane.coll_segment(token)
+        ws.buf[0:nbytes] = memoryview(flat).cast("B")
+        self._dissemination(self._tag())     # contributions visible
+        views = [np.frombuffer(
+            plane.coll_attach(token, self.world_rank_of(i)).buf,
+            dtype=dtype, count=flat.size) for i in range(n)]
+        b = chunk_bounds(flat.size, n)
+        lo, hi = b[r], b[r + 1]
+        npfn = op_mod.NP_COMBINERS[op.name]
+        if hi > lo:
+            acc = views[0][lo:hi].copy()
+            for k in range(1, n):
+                acc = npfn(acc, views[k][lo:hi])
+            for v in views:
+                v[lo:hi] = acc
+        self._dissemination(self._tag())     # folded slices visible
+        out = views[r].copy()
+        _shmseg.count("folds")
+        return out.reshape(shape)
+
+    # -- segment-pipelined host tier (pml/pipeline) ---------------------
+    def _pipeline_ring_ok(self, data: Any, op: op_mod.Op) -> bool:
+        """Rank-symmetric gate of the pipelined ring: the pipeline rows
+        select by size and bytes, and the fold must be a commutative
+        predefined op with a numpy kernel (the ring reassociates chunk
+        folds, as the other reordering schedules do)."""
+        if self.size < 2 or not isinstance(data, np.ndarray):
+            return False
+        if data.dtype.kind not in "fiu" or data.ndim == 0:
+            return False
+        if not op.commute or op.is_loc or not op.predefined \
+                or op_mod.NP_COMBINERS.get(op.name) is None:
+            return False
+        from ompi_tpu_torch.coll import decision
+        rules = decision.pipeline_rules().get("allreduce")
+        return bool(rules) and decision._match(
+            rules, self.size, int(data.nbytes)) == "pipelined_ring"
+
+    def _pipelined_ring_allreduce(self, data: np.ndarray,
+                                  op: op_mod.Op) -> np.ndarray:
+        """Segment-pipelined ring allreduce (coll_base_allreduce.c ring:
+        a reduce-scatter ring, then an allgather ring). Each rank computes
+        one chunk's whole fold and circulates it, so every rank holds the
+        same bits; each chunk hop is a large pt2pt send that rides the
+        pipelined rendezvous over the rails, and all ranks send and
+        receive at once. Wire bytes per rank: 2(n-1)/n payloads."""
+        n, r, t = self.size, self._rank, self._tag()
+        counters["coll_pipelined_ring"] += 1
+        arr = np.ascontiguousarray(data)
+        shape, flat = arr.shape, arr.reshape(-1)
+        b = chunk_bounds(flat.size, n)
+        # views: sends pack straight from the source; the fold below
+        # replaces each entry with a fresh array, never writing the input
+        chunks = [flat[b[i]:b[i + 1]] for i in range(n)]
+        right, left = (r + 1) % n, (r - 1) % n
+        npfn = op_mod.NP_COMBINERS[op.name]
+        # reduce-scatter: at step s send chunk r-s, fold chunk r-s-1 in;
+        # after n-1 steps this rank holds the whole fold of chunk r+1
+        for s in range(n - 1):
+            si, ri = (r - s) % n, (r - s - 1) % n
+            req = self._coll_pml.irecv(left, t)
+            self._csend(right, t, chunks[si])
+            inc = req.get()
+            chunks[ri] = npfn(chunks[ri],
+                              np.asarray(inc).reshape(chunks[ri].shape))
+        own = (r + 1) % n
+        cur = chunks[own]
+        for s in range(n - 1):           # allgather the folded chunks
+            req = self._coll_pml.irecv(left, t)
+            self._csend(right, t, cur)
+            cur = np.asarray(req.get())
+            idx = (own - 1 - s) % n
+            chunks[idx] = cur.reshape(chunks[idx].shape)
+        out = np.concatenate([np.asarray(c).reshape(-1) for c in chunks])
+        return out.reshape(shape).astype(arr.dtype, copy=False)
+
+    def _pipeline_bcast_ok(self, data: Any) -> bool:
+        """Root-side gate of the chain bcast; the decision reaches the
+        other ranks in the metadata round."""
+        if self.size < 2 or not isinstance(data, np.ndarray):
+            return False
+        if data.dtype.kind not in "fiub" or data.ndim == 0:
+            return False
+        from ompi_tpu_torch.coll import decision
+        rules = decision.pipeline_rules().get("bcast")
+        return bool(rules) and decision._match(
+            rules, self.size, int(data.nbytes)) == "pipelined_chain"
+
+    def _pipelined_chain_bcast(self, data: Any, root: int) -> Any:
+        """Segment-pipelined chain bcast (coll_base_bcast.c chain): the
+        ranks form a chain from the root and the payload moves as a train
+        of chunks; every inner rank forwards chunk c while its
+        predecessor sends chunk c+1, so once the chain fills every link
+        streams at once. Chunks large enough pipeline inside each hop
+        too."""
+        n, t = self.size, self._tag()
+        vr = (self._rank - root) % n
+        succ = ((vr + 1) + root) % n if vr + 1 < n else None
+        pred = ((vr - 1) + root) % n
+        counters["coll_pipelined_chain"] += 1
+        if vr == 0:
+            arr = np.ascontiguousarray(data)
+            flat = arr.reshape(-1)
+            from ompi_tpu_torch.pml import pipeline as _pl
+            seg = _pl.segment_bytes_for(int(arr.nbytes),
+                                        self.router.endpoint)
+            # a chunk is a few segments: big enough to pipeline inside
+            # the hop, small enough that the chain fills quickly
+            per = max(1, (seg * 4) // max(arr.dtype.itemsize, 1))
+            k = max(1, -(-flat.size // per))
+            self._csend(succ, t, (k, tuple(arr.shape), arr.dtype.str))
+            for c in range(k):
+                self._csend(succ, t, flat[c * per:(c + 1) * per])
+            return data
+        k, shape, dtstr = self._crecv(pred, t)
+        if succ is not None:
+            self._csend(succ, t, (k, shape, dtstr))
+        parts: List[Any] = []
+        for c in range(k):
+            part = self._crecv(pred, t)
+            if succ is not None:
+                self._csend(succ, t, part)   # forward c while pred
+            parts.append(part)               # streams c+1 behind it
+        flat = np.concatenate([np.asarray(p).reshape(-1) for p in parts])
+        return flat.reshape(shape).astype(np.dtype(dtstr), copy=False)
 
     def _gather(self, data: Any, root: int) -> Optional[List[Any]]:
         n, t = self.size, self._tag()
@@ -743,6 +1051,14 @@ class RankCommunicator:
         return self._nb(RankCommunicator.bcast, self, data, root)
 
     def iallreduce(self, data: Any, op: op_mod.Op = op_mod.SUM) -> Request:
+        from ompi_tpu_torch.coll import persistent as _pcoll
+        if _pcoll.bucket_enabled():
+            # bucket fusion: concurrent small iallreduces on one (op,
+            # dtype) ride one fused collective, flushed at program points
+            # every rank reaches alike
+            r = _pcoll.maybe_bucket_iallreduce(self, data, op)
+            if r is not None:
+                return r
         return self._nb(RankCommunicator.allreduce, self, data, op)
 
     def iallgather(self, data: Any) -> Request:
@@ -752,23 +1068,26 @@ class RankCommunicator:
                 root: int = 0) -> Request:
         return self._nb(RankCommunicator.reduce, self, data, op, root)
 
-    # -- persistent collectives: the per-rank plan builder ------------
-    def _init_plan(self, func: str) -> Request:
+    # -- persistent collectives (MPI-4 *_init; coll/persistent) --------
+    # The plan — route, fold, multicast template, staging, codec gate —
+    # binds once at init; Start is launch-only and bucketable starts fuse
+    # (Startall).
+    def _init_plan(self, func: str, *args) -> Request:
         self._check()
-        _not_in_slice(f"{func}_init", "the per-rank persistent plan "
-                                      "builder (ROADMAP 15b.3)")
+        from ompi_tpu_torch.coll import persistent as _pcoll
+        return _pcoll.coll_init(self, func, *args)
 
     def allreduce_init(self, data: Any, op: op_mod.Op = op_mod.SUM):
-        return self._init_plan("allreduce")
+        return self._init_plan("allreduce", data, op)
 
     def bcast_init(self, data: Any = None, root: int = 0):
-        return self._init_plan("bcast")
+        return self._init_plan("bcast", data, root)
 
     def allgather_init(self, data: Any):
-        return self._init_plan("allgather")
+        return self._init_plan("allgather", data)
 
     def reduce_scatter_block_init(self, chunks, op: op_mod.Op = op_mod.SUM):
-        return self._init_plan("reduce_scatter_block")
+        return self._init_plan("reduce_scatter_block", chunks, op)
 
     def barrier_init(self):
         return self._init_plan("barrier")

@@ -185,6 +185,13 @@ def var_source(full: str) -> Optional[str]:
         return v.source if v is not None else None
 
 
+def var_overridden(full: str) -> bool:
+    """True when a non-default value is in effect for ``full`` (env, file
+    or ``var_set``): probe-earned defaults (the staged tier's switch
+    point, the bml's sm threshold) yield to it."""
+    return var_source(full) not in (None, SOURCE_DEFAULT)
+
+
 def var_dump() -> List[Dict[str, Any]]:
     """Introspect all registered vars (``ompi_info -a`` equivalent)."""
     with _lock:

@@ -19,9 +19,15 @@ does not exist yet (a peer raced ahead through communicator creation)
 wait in a pending queue, as the reference holds fragments until the
 communicator exists (comm_cid.c activation).
 
-A tensor payload is cloned at send (the host byte path copies it into the
-frame; btl/devxfer into a send slot), so a sender may overwrite its buffer
-as soon as ``send`` returns.
+Protocol switch at send, in the reference's order
+(``ompi_tpu/pml/perrank.py:722-756``): a large device tensor rides
+btl/devxfer; else a same-host bulk payload is packed once into a shared
+segment (btl/shmseg, with ``mpi_base_shm_zerocopy``); else a large host
+payload, or a device tensor devxfer declined, takes the segment-pipelined
+rendezvous (pml/pipeline); else the eager frame. Every protocol copies the
+payload out before ``send`` returns (into the frame, a send slot, a shared
+segment or the segment train), so a sender may overwrite its buffer as
+soon as ``send`` returns.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ompi_tpu_torch.btl import shmseg as _shmseg
 from ompi_tpu_torch.btl.bml import BmlEndpoint
 from ompi_tpu_torch.btl.devxfer import DevPayload, DevXfer, maybe_resolve
 from ompi_tpu_torch.btl.tcp import PeerDownError, decode_payload, \
@@ -41,6 +48,7 @@ from ompi_tpu_torch.btl.tcp import PeerDownError, decode_payload, \
 from ompi_tpu_torch.core.errhandler import (ERR_PENDING, ERR_PROC_FAILED,
                                             ERR_RANK, ERR_TAG, MPIError)
 from ompi_tpu_torch.core.request import Request, Status
+from ompi_tpu_torch.pml import pipeline as _pipeline
 from ompi_tpu_torch.runtime import progress as _progress
 
 ANY_SOURCE = -1
@@ -83,6 +91,10 @@ class Router:
         self._departed: set = set()      # peers that said goodbye
         self.failed: set = set()         # peers whose link died
         self.xfer = DevXfer(self)
+        # segment-train reassembly of the pipelined rendezvous, fed by
+        # rail reader threads below the matching layer: built before the
+        # endpoint, so no reader thread can race it
+        self.pipes = _pipeline.PipeStore()
         self.endpoint = BmlEndpoint(rank, nprocs, kv_set, kv_get,
                                     self._deliver,
                                     on_peer_lost=self.peer_lost)
@@ -119,6 +131,12 @@ class Router:
                 return
             self.failed.add(world_rank)
             engines = list(self._engines.values())
+        # its unfinished segment trains never complete, and the slots
+        # parked for it are never freed by it
+        self.pipes.fail_peer(world_rank)
+        plane = getattr(self.endpoint, "shm_seg", None)
+        if plane is not None:
+            plane.peer_failed(world_rank)
         for eng in engines:
             eng._peer_failed(world_rank)
 
@@ -159,6 +177,18 @@ class Router:
             return
         if ctl == "xferack":
             self.xfer.release(header["slot"])
+            return
+        if ctl == "segfree":
+            # the receiver is done with a shared slot of ours
+            plane = getattr(self.endpoint, "shm_seg", None)
+            if plane is not None:
+                plane.release(header["peer"], header["i"])
+            return
+        if "pipeseg" in header:
+            # a rail-striped segment of a pipelined train: reassembled by
+            # index below the matching layer; only the train's ordered
+            # init frame matches
+            self.pipes.deliver(header, raw)
             return
         cid = header["cid"]
         with self._lock:
@@ -242,8 +272,9 @@ class RankRequest(Request):
                            "recv timed out waiting for a matching send")
         if self._error is not None:
             raise self._error
-        # completion means the data is placed: read a device payload now
-        self._result = maybe_resolve(self._result)
+        # completion means the data is placed: read a device payload, or
+        # assemble a segment train (releasing the store's buffer), now
+        self._result = _pipeline.maybe_resolve(maybe_resolve(self._result))
         return self.status
 
     def get(self):
@@ -340,8 +371,16 @@ class PerRankEngine:
     # -- wire side -----------------------------------------------------
     def _incoming(self, header: dict, raw) -> None:
         d = header["desc"]
-        if d.get("kind") in ("devipc", "devlocal"):
+        kind = d.get("kind")
+        if kind in ("devipc", "devlocal"):
             payload = DevPayload(self.router.xfer, d)
+        elif kind == "pipe":
+            # the pipelined rendezvous' init frame matches now, with the
+            # right counts; the train assembles on the consumer thread
+            payload = _pipeline.PipePayload(self.router, d)
+        elif kind == "shmseg":
+            # adopt the payload in place over the sender's shared slot
+            payload = _shmseg.adopt(self.router.endpoint, d)
         else:
             payload = decode_payload(d, raw)
             # a posted combining slot for this tag absorbs the value right
@@ -435,12 +474,21 @@ class PerRankEngine:
                            f"send peer rank {dest} has failed")
         # protocol switch: large device tensors ride the IPC plane (a
         # descriptor-only frame, the receiver reads the sender's slot);
+        # then the shared-segment plane, then the pipelined rendezvous,
+        # each returning None when it declines without touching the wire;
         # everything else goes eager over the host byte path
         desc = self.router.xfer.try_register(data, wdest)
         if desc is not None:
             raw = b""
             wire_bytes = data.numel() * data.element_size()
         else:
+            req = _shmseg.maybe_send_zerocopy(self, data, dest, tag,
+                                              synchronous)
+            if req is None:
+                req = _pipeline.maybe_send_pipelined(self, data, dest, tag,
+                                                     synchronous)
+            if req is not None:
+                return req
             desc, raw = encode_payload(data)
             wire_bytes = len(raw)
         me = self.comm.rank()
@@ -493,6 +541,41 @@ class PerRankEngine:
             # the bml copies the header before stamping its sequence
             # number, so one template serves every destination
             _send(self.router, wdest, header, raw)
+
+    def bind_small_multicast(self, example: Any, dests):
+        """Pre-bound sub-eager multicast (the persistent small allreduce's
+        prebind, ``coll/persistent``): the descriptor template, the world
+        ranks and the traffic rows resolve once here; each send is the
+        byte copy, the per-peer liveness check (peers may die between
+        rounds) and the frame pushes. A refill that changes the buffer's
+        (dtype, shape) gets a fresh descriptor."""
+        arr = np.asarray(example)
+        key = (arr.dtype.str, arr.shape)
+        desc = self._small_desc.get(key)
+        if desc is None:
+            desc = self._small_desc[key] = {
+                "kind": "nd", "dtype": arr.dtype.str, "shape": arr.shape}
+        me = self.comm.rank()
+        peers = [(d, self.comm.world_rank_of(d),
+                  self.traffic.setdefault((me, d), [0, 0])) for d in dests]
+        router = self.router
+        cid = self.comm.cid
+
+        def send(data: Any, tag: int) -> None:
+            a = np.ascontiguousarray(np.asarray(data))
+            d0 = desc
+            if (a.dtype.str, a.shape) != key:
+                d0 = {"kind": "nd", "dtype": a.dtype.str, "shape": a.shape}
+            raw = a.tobytes()
+            header = {"cid": cid, "src": me, "tag": tag, "desc": d0}
+            for dest, wdest, t in peers:
+                if wdest in router.failed:
+                    raise MPIError(ERR_PROC_FAILED,
+                                   f"send peer rank {dest} has failed")
+                t[0] += 1
+                t[1] += len(raw)
+                _send(router, wdest, header, raw)
+        return send
 
     # -- receive side --------------------------------------------------
     def _cancel_posted(self, req: RankRequest) -> None:
@@ -590,7 +673,7 @@ class PerRankEngine:
 
     @staticmethod
     def mrecv(msg: _Msg) -> Tuple[Any, Status]:
-        data = maybe_resolve(msg.data)
+        data = _pipeline.maybe_resolve(maybe_resolve(msg.data))
         count, nbytes = _count(data)
         return data, Status(source=msg.src, tag=msg.tag, count=count,
                             nbytes=nbytes)

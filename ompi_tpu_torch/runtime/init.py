@@ -18,11 +18,17 @@ process is one rank, ``rank()`` is the process index, and the job's
 coordination KV (the PMIx modex and fence of
 ``ompi/instance/instance.c:508-569``). Each rank binds
 ``cuda:(local_rank % device_count)``; with no CUDA device it raises unless
-the job asked for the CPU (``mpi_base_device=cpu``).
+the job asked for the CPU (``mpi_base_device=cpu``). The router's bml
+builds the rank's byte planes, the zero-copy segment plane (btl/shmseg)
+among them, and ``finalize`` closes them. Unless the user set
+``coll_tuned_stage_min_bytes``, rank 0 runs the staging probe on its
+device at Init and publishes the result through the KV; every rank adopts
+the same value.
 """
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import socket
 import time
@@ -31,13 +37,14 @@ from typing import List, Optional
 import torch
 
 from ompi_tpu_torch import accelerator, compress
+from ompi_tpu_torch.btl import shmseg
 from ompi_tpu_torch.coll import persistent, tuned
 from ompi_tpu_torch.core.communicator import Communicator
 from ompi_tpu_torch.core.errhandler import ERR_OTHER, MPIError
 from ompi_tpu_torch.core.group import Group
 from ompi_tpu_torch.core.info import INFO_ENV
 from ompi_tpu_torch.mca import base, var
-from ompi_tpu_torch.pml import stacked
+from ompi_tpu_torch.pml import pipeline, stacked
 from ompi_tpu_torch.runtime import progress
 
 THREAD_SINGLE = 0
@@ -81,6 +88,8 @@ def _register_component_vars() -> None:
     tuned.register_vars()
     compress._register_vars()
     stacked._register_vars()
+    pipeline.register_params()
+    shmseg.register_params()
 
 
 def init(requested: int = THREAD_SINGLE,
@@ -205,6 +214,7 @@ def _init_per_rank(requested: int) -> int:
     # rank's endpoints are published; then wire every pair eagerly
     kv.fence("init", nprocs)
     router.wire_up()
+    _adopt_stage_probe(kv, router, rank, nprocs, device)
     INFO_ENV.set("command", os.environ.get("_", ""))
     INFO_ENV.set("maxprocs", str(nprocs))
     INFO_ENV.set("host", socket.gethostname())
@@ -213,6 +223,43 @@ def _init_per_rank(requested: int) -> int:
                   self=self_comm, router=router, kv=kv,
                   thread_level=min(requested, THREAD_MULTIPLE))
     return _state["thread_level"]
+
+
+def _adopt_stage_probe(kv: "_Kv", router, rank: int, nprocs: int,
+                       device: torch.device) -> None:
+    """The staging switch point, earned by a probe: rank 0 measures on its
+    device (with the bml probe's transport rate as the host tier's wire
+    cost) and publishes; every rank adopts the same value, since the
+    staging decision is collective. A user-set
+    ``coll_tuned_stage_min_bytes`` skips it. A probe that fails on CUDA
+    raises; on the CPU it is advisory and 1 MiB stands."""
+    if var.var_overridden("coll_tuned_stage_min_bytes"):
+        return
+    key = "ompi_tpu_torch/coll/stage_probe"
+    if rank == 0:
+        pb = dict(getattr(router.endpoint, "probe_basis", {}) or {})
+        g = None
+        if pb.get("ran"):
+            g = pb.get("sm_gbps") if not pb.get("sm_demoted") \
+                else pb.get("tcp_gbps")
+        g = g or pb.get("rail_gbps")
+        try:
+            value, basis = tuned.staging_probe(
+                transport_bps=g * 1e9 if g else None, nranks=nprocs,
+                device=device)
+        except Exception as e:           # noqa: BLE001
+            if device.type == "cuda":
+                kv.set(key, json.dumps({"error": f"{type(e).__name__}: "
+                                                 f"{e}"}))
+                raise MPIError(ERR_OTHER, f"staging probe on {device} "
+                                          f"failed: {e}") from e
+            value, basis = 1 << 20, {"ran": False, "error": True}
+        kv.set(key, json.dumps({"v": value, **basis}))
+    d = json.loads(kv.get(key))
+    if "v" not in d:
+        raise MPIError(ERR_OTHER, f"rank 0's staging probe failed: "
+                                  f"{d.get('error')}")
+    tuned.adopt_probed_stage_min(int(d.pop("v")), d)
 
 
 def finalize() -> None:
@@ -286,6 +333,9 @@ def _reset_for_tests() -> None:
         router.close()
     for k in rankcomm.counters:
         rankcomm.counters[k] = 0
+    tuned._reset_for_tests()
+    pipeline.reset_stats()
+    shmseg._reset_for_tests()
     _state.update(initialized=False, finalized=False, world=None, self=None,
                   router=None, kv=None)
     var._reset_for_tests()

@@ -140,8 +140,8 @@ def test_subeager_cache_serves_repeat_allreduce(pworld):
 
 def test_host_input_and_recvbuf(pworld):
     x = np.ones((N, 4), np.float32)
-    y = pworld.allreduce(x, P.SUM)            # numpy in: device result
-    assert isinstance(y, torch.Tensor) and torch.all(y == N)
+    y = pworld.allreduce(x, P.SUM)            # numpy in: numpy out (tuned)
+    assert isinstance(y, np.ndarray) and np.all(y == N)
     recv = pworld.put(x)
     out = pworld.allreduce(P.IN_PLACE, P.MAX, recvbuf=recv)
     assert out is recv and torch.all(recv == 1)
@@ -209,7 +209,7 @@ def test_mca_env_var_is_seen(monkeypatch):
         assert pvar.var_get("coll_torch_bcast_algorithm") == "auto"
         assert pvar.var_source("coll_torch_bcast_algorithm") == "default"
         assert pvar.var_get("coll_torch_priority") == 40
-        assert w._coll_winners["allreduce"] == "torch"
+        assert w._coll_winners["allreduce"] == "tuned"
         x = w.alloc((2,), fill=1.0)
         assert torch.all(w.allreduce(x) == N)      # the ring ran
         assert w._coll("allreduce").selected("allreduce", x,

@@ -439,23 +439,22 @@ def test_decide_matches_reference(dynamic):
             jdecision.effective_rules(func, mh, dynamic, plat)
 
 
-_LATER_ROWS = (tuple(jdecision.PIPELINED.values())
-               + tuple(jdecision.SHM_FOLDS.values()))
-
-
 @pytest.mark.parametrize("dynamic", [None, DYN])
 def test_decision_table_matches_reference(pworld, dynamic):
-    """Equal to the reference's table but for the rows of modules not
-    ported yet (segment pipeline, shared-segment fold, compression)."""
+    """Equal to the reference's table, segment-pipeline and
+    shared-segment fold rows included, but for the compression rows
+    (compression is off here and its rows are checked in
+    test_torch_compress_coll.py)."""
     for mh in (False, True):
         for plat in ("cpu", "gpu"):
-            want = {f: [r for r in rows if r[2] not in _LATER_ROWS
-                        and not str(r[2]).startswith("compressed:")]
+            want = {f: [r for r in rows
+                        if not str(r[2]).startswith("compressed:")]
                     for f, rows in jdecision.decision_table(
                         8, mh, dynamic, plat).items()}
             assert decision.decision_table(8, mh, dynamic, plat) == want
     pvar.var_set("coll_torch_bcast_algorithm", "knomial")
-    assert decision.decision_table()["bcast"] == [[0, 0, "knomial"]]
+    assert decision.decision_table()["bcast"] == [
+        [0, 0, "knomial"], [2, 4 << 20, "pipelined_chain"]]
 
 
 def test_platform_key():

@@ -674,29 +674,60 @@ def test_init_without_cuda_raises(tmp_path):
     assert rc == 0 and "OK nocuda" in out, (out, err[-2000:])
 
 
-def test_compressed_host_hops_raise(tmp_path):
-    """Compression on the host hops waits for a later slice: with it on,
-    an eligible payload raises instead of quietly going uncompressed."""
-    path = write_prog(tmp_path, "wire", """
-        MPI.Init()
-        w = MPI.get_comm_world()
-        try:
-            w.allreduce(np.ones(1 << 16, np.float32), MPI.SUM)
-        except MPI.MPIError as e:
-            assert "compression" in str(e), e
-        else:
-            raise SystemExit("compressed allreduce ran uncompressed")
-        for call in (lambda: w.allreduce_init(np.ones(4)),
-                     lambda: w.shrink(), lambda: w.revoke()):
+WIRE_CASES = {
+    # compression on the host hops runs now: quantized, within the
+    # reference's envelope, the same bits on every rank
+    "allreduce": """
+        from ompi_tpu_torch.core.rankcomm import counters
+        from ompi_tpu_torch.mca import pvar
+        x = np.random.default_rng(r).standard_normal(1 << 16) \\
+            .astype(np.float32)
+        rows = w.allgather(x)
+        y = w.allreduce(x, MPI.SUM)
+        assert counters["coll_compress_direct"] == 1
+        assert pvar.pvar_read("compress_bytes_in") > 0
+        ref = np.sum(rows, axis=0, dtype=np.float64)
+        assert np.abs(y - ref).max() <= 0.02 * np.abs(ref).max()
+        ys = w.allgather(y)
+        assert all(np.array_equal(ys[0], v) for v in ys)
+        """,
+    # a persistent plan binds the one-shot route and gives its result
+    "allreduce_init": """
+        x = np.full(1 << 16, float(r + 1), np.float32)
+        p = w.allreduce_init(x, MPI.SUM)
+        assert p.plan.algorithm == "generic" and p.plan.codec
+        p.start()
+        p.wait()
+        assert np.array_equal(p.get(), w.allreduce(x, MPI.SUM))
+        """,
+    # the ULFM recovery entries still wait for their slice
+    "shrink": "CALL = w.shrink\n",
+    "revoke": "CALL = w.revoke\n",
+}
+
+
+@pytest.mark.parametrize("case", sorted(WIRE_CASES))
+def test_compressed_host_hops_raise(tmp_path, case):
+    """With compression on, the compressed allreduce and its persistent
+    plan run (they raised while the hops waited for their slice);
+    ``shrink`` and ``revoke`` still raise, naming the ULFM slice."""
+    body = textwrap.dedent(WIRE_CASES[case])
+    if case in ("shrink", "revoke"):
+        body += textwrap.dedent("""
             try:
-                call()
+                CALL()
             except MPI.MPIError as e:
-                assert "waits for" in str(e), e
+                assert "waits for" in str(e) and "ULFM" in str(e), e
             else:
                 raise SystemExit("an out-of-slice entry ran")
-        print("OK wire", flush=True)
-        """)
+            """)
+    path = write_prog(tmp_path, "wire", "MPI.Init()\n"
+                      "w = MPI.get_comm_world()\n"
+                      "r = w.rank()\n" + body +
+                      "MPI.Finalize()\nprint('OK wire', flush=True)\n")
     rc, out, err = run_job(path, 2, mca=[("mpi_base_compress", "1"),
                                          ("mpi_base_compress_min_bytes",
-                                          "1024")])
+                                          "1024"),
+                                         ("coll_tuned_stage_min_bytes",
+                                          str(1 << 40))])
     assert out.count("OK wire") == 2, (rc, out, err[-3000:])

@@ -25,6 +25,17 @@ payloads run the host algorithms on both: the port stages 64-bit
 payloads (torch has no x64 switch), where the reference keeps them on the
 host, and a non-associative user op would show the two fold orders.
 
+The algorithm each ``*_init`` plan binds for the same payloads is held
+equal to the reference's. The same job then drives the large-message
+data plane with the thresholds
+set alike on both sides (staging off, the pipeline from 256 KiB in 64 KiB
+segments): the pipelined ring allreduce (SUM f32, MAX i32, PROD f64), the
+chain bcast, the in-segment shm fold (``mpi_base_shm_zerocopy``), and the
+compressed direct allreduce, reduce and bcast (``int8_block`` and
+``fp8_block``, pipeline off). Both sides fold with the same numpy kernels
+over the same chunks in the same order, and the codecs are the
+reference's, so all of these are held bit for bit.
+
 In-process: the payload codec for every predefined dtype, tcp framing,
 the bml's ordered sink, the sm ring, the matching engine over a loopback
 pair of endpoints, the device tier's chunk arithmetic, and the IPC
@@ -64,7 +75,13 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 import ompi_tpu as MPI
+from ompi_tpu.mca import var
+from ompi_tpu.runtime import spc
 TAG = "ref"
+
+
+def ran(path):
+    return spc.read(path)
 
 
 def dev(x):
@@ -81,7 +98,13 @@ import sys
 import numpy as np
 import torch
 import ompi_tpu_torch as MPI
+from ompi_tpu_torch.core.rankcomm import counters
+from ompi_tpu_torch.mca import var
 TAG = "port"
+
+
+def ran(path):
+    return counters[path]
 
 
 def dev(x):
@@ -151,6 +174,42 @@ k = len(cart.topo.neighbors(cart.rank()))
 res["nbr_a2a"] = np.stack(cart.neighbor_alltoall([x64[:3] + j
                                                   for j in range(k)]))
 cart.free()
+# the routes persistent plans bind at init, for the same payloads
+res["plan_algs"] = np.array([
+    w.allreduce_init(x64[:1], MPI.SUM).plan.algorithm,
+    w.allreduce_init(x64b, MPI.SUM).plan.algorithm,
+    w.allreduce_init(x32, MPI.SUM).plan.algorithm,
+    w.allreduce_init(dev(x32), MPI.SUM).plan.algorithm,
+    w.bcast_init(x64, 0).plan.algorithm,
+    w.barrier_init().plan.algorithm])
+# -- the large-message data plane, host tier only -----------------------
+var.var_set("coll_tuned_stage_min_bytes", 1 << 62)
+var.var_set("mpi_base_pipeline_min_bytes", 1 << 18)
+var.var_set("mpi_base_pipeline_segment_bytes", 64 << 10)
+big = rng.standard_normal(1 << 19).astype(np.float32)        # 2 MB
+bigi = rng.integers(-1000, 1000, 1 << 19).astype(np.int32)
+bigd = 1 + 0.001 * rng.standard_normal(1 << 18)              # 2 MB f64
+res["pr_sum"] = w.allreduce(big, MPI.SUM)
+res["pr_max_i32"] = w.allreduce(bigi, MPI.MAX)
+res["pr_prod"] = w.allreduce(bigd, MPI.PROD)
+res["chain"] = np.asarray(w.bcast(big if r == 1 else None, 1))
+assert ran("coll_pipelined_ring") == 3 and ran("coll_pipelined_chain") == 1
+var.var_set("mpi_base_shm_zerocopy", True)
+res["fold_sum"] = w.allreduce(big, MPI.SUM)
+res["fold_max"] = w.allreduce(big, MPI.MAX)
+var.var_set("mpi_base_shm_zerocopy", False)
+assert ran("coll_shm_fold") == 2
+var.var_set("mpi_base_pipeline_min_bytes", 1 << 30)
+var.var_set("mpi_base_compress", True)
+var.var_set("mpi_base_compress_min_bytes", 1 << 16)
+for codec in ("int8_block", "fp8_block"):
+    var.var_set("mpi_base_compress_codec", codec)
+    res[f"cw_ar_{codec}"] = w.allreduce(big, MPI.SUM)     # direct: n <= 4
+    red = w.reduce(big, MPI.SUM, root=0)
+    res[f"cw_red_{codec}"] = np.zeros(0) if red is None else red
+    res[f"cw_bc_{codec}"] = np.asarray(w.bcast(big if r == 0 else None, 0))
+var.var_set("mpi_base_compress", False)
+assert ran("coll_compress_direct") == 2
 np.savez(os.path.join(out_dir, f"{TAG}_{r}.npz"), **res)
 MPI.Finalize()
 print(f"OK parity {TAG} rank={r}/{n}", flush=True)
@@ -158,7 +217,12 @@ print(f"OK parity {TAG} rank={r}/{n}", flush=True)
 
 EXACT = {"ar_max_i32", "ar_sum_i32", "st_max", "dev_max", "bc", "bc_obj",
          "bc_staged", "dev_bc", "gather", "scatter", "a2a", "a2a_staged",
-         "dev_a2a", "ag", "ag_staged", "dev_ag", "nbr_ag", "nbr_a2a"}
+         "dev_a2a", "ag", "ag_staged", "dev_ag", "nbr_ag", "nbr_a2a",
+         # the persistent plans' routes, the large-message data plane
+         "plan_algs", "pr_sum", "pr_max_i32", "pr_prod", "chain",
+         "fold_sum", "fold_max",
+         "cw_ar_int8_block", "cw_red_int8_block", "cw_bc_int8_block",
+         "cw_ar_fp8_block", "cw_red_fp8_block", "cw_bc_fp8_block"}
 
 
 def _job(launcher, header, n, out_dir, mca, env):
