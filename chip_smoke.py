@@ -140,8 +140,37 @@ Phases, one or more lines each:
                 ring and chain are timed on 1 and 2 rails in turns
                 (``mpi_base_btl_rails`` is read per segment). The job has
                 its own 300 s launcher limit.
-                ``python3 chip_smoke.py --perrank`` runs phases 1, 11 and
-                12 alone.
+13. observe   — on the live 8-rank world on ``cuda:0``, before
+                ``Finalize``: tracing and monitoring on for a ``dup()``,
+                each of allreduce, bcast, reduce, allgather, gather,
+                scatter, alltoall,
+                reduce_scatter_block, scan and barrier at 32 MB fp32 per
+                rank, twice: bit for bit the plain world's result, one
+                ``coll_<func>`` span per call (the dup's cid, seq 0 and 1),
+                a Perfetto export that loads as JSON, monitoring bytes equal
+                to the payloads, SPC counts equal to the calls; a ring of 64
+                under 1000 calls counting its drops; host µs per 8 B
+                allreduce with tracing off and on, and with the SPC
+                counters off and on, each in turns. uint16/32/64 x
+                SUM, PROD, MAX, MIN, BAND on tensors and staged numpy stacks,
+                exact against numpy. ``pml_v_protocol=pessimist``: wildcard
+                receives of 1 MiB CUDA tensors logged, a replay from the
+                JSON snapshot forcing the logged order, redelivery bit for
+                bit after the senders overwrote their buffers. Then 8 rank
+                processes on ``cuda:0`` with tracing on
+                (``--observe-rank``; 300 s launcher limit): rank 5 sleeps
+                200 ms before the third 32 MB device allreduce, every rank
+                dumps its spans and rank 0's ``late_arrival`` must name rank
+                5 with a skew of at least 150 ms; a 32 MB host-tier ring
+                with ``pml_send``, ``pml_recv``, ``pml.segment`` and
+                ``btl.rail`` spans and one ``coll_allreduce`` span per call;
+                ``coll_sync_barrier_before=3`` leaving results unchanged; a
+                32 MB CUDA tensor sent from rank 0 to rank 1 in 4
+                partitions (``pready`` 2, 0, 1, 3), twice through the same
+                requests, bit for bit; µs per 8 B round trip with tracing
+                off and on, in turns.
+                ``python3 chip_smoke.py --perrank`` runs phases 1, 11, 12
+                and 13 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -2908,11 +2937,395 @@ def phase_dataplane(smi: str) -> None:
           f"| {smi}")
 
 
+# -- phase 13 ----------------------------------------------------------
+OBS_SEED = 1300
+OBS_COLLS = ("allreduce", "bcast", "reduce", "allgather", "gather",
+             "scatter", "alltoall", "reduce_scatter_block", "scan",
+             "barrier")
+
+
+def _obs_args(w, func, x):
+    """The arguments of one call of ``func`` on the stacked ``x``."""
+    n = w.size
+    return {"allreduce": (x, MPI.SUM), "bcast": (x, 3),
+            "reduce": (x, MPI.SUM, 2), "allgather": (x,),
+            "gather": (x, 1), "scatter": (x, 4),
+            "alltoall": (x.view(n, n, -1),),
+            "reduce_scatter_block": (x.view(n, n, -1), MPI.SUM),
+            "scan": (x, MPI.SUM), "barrier": ()}[func]
+
+
+def _obs_same(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    return bool(torch.equal(a, b))
+
+
+def _obs_8b_us(comm, calls: int = 2000) -> float:
+    """Host µs per 8 B allreduce on ``comm`` (synchronised at the end)."""
+    small = comm.alloc((2,), dtype=torch.float32, fill=1.0)
+    comm.allreduce(small, MPI.SUM)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        comm.allreduce(small, MPI.SUM)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _obs_tracing(w, dev, elems: int) -> list:
+    """13(a): every collective once per round, two rounds, on a dup
+    built with monitoring and tracing on, against the same calls on the
+    plain world."""
+    from ompi_tpu_torch import trace
+    from ompi_tpu_torch.coll import monitoring
+    from ompi_tpu_torch.runtime import spc
+    n = w.size
+    g = torch.Generator(device=dev).manual_seed(OBS_SEED)
+    x = torch.rand((n, elems), generator=g, device=dev)
+    trace.enable()
+    trace.reset()
+    var.var_set("coll_monitoring_enable", True)
+    d = w.dup()
+    var.var_set("coll_monitoring_enable", False)
+    monitoring.reset()
+    spc_before = spc.snapshot()
+    for _ in range(2):
+        for func in OBS_COLLS:
+            args = _obs_args(w, func, x)
+            want = getattr(w, func)(*args)
+            got = getattr(d, func)(*args)
+            check(_obs_same(got, want), f"traced {func} differs from the "
+                  f"untraced call")
+    torch.cuda.synchronize()
+    spans = trace.spans()
+    for func in OBS_COLLS:
+        mine = [s for s in spans if s.name == f"coll_{func}"]
+        check([s.seq for s in mine] == [0, 1]
+              and all(s.cid == str(d.cid) for s in mine),
+              f"coll_{func} spans {[(s.cid, s.seq) for s in mine]}")
+    check(all(s.name.startswith("coll_") for s in spans),
+          f"unexpected spans {sorted({s.name for s in spans})}")
+    export = json.loads(json.dumps(trace.perfetto.export(spans)))
+    check(len([e for e in export["traceEvents"] if e["ph"] == "X"])
+          == 2 * len(OBS_COLLS), "perfetto export")
+    snap = monitoring.snapshot()
+    for func in OBS_COLLS:
+        args = _obs_args(w, func, x)
+        nbytes = args[0].nbytes if args else 0
+        check(snap.get((d.cid, func)) == (2, 2 * nbytes),
+              f"monitoring {func}: {snap.get((d.cid, func))}")
+    spc_after = spc.snapshot()
+    for func in OBS_COLLS:
+        key = f"coll_{func}"
+        check(spc_after.get(key, 0) - spc_before.get(key, 0) == 4,
+              f"spc {key}: {spc_after.get(key, 0) - spc_before.get(key, 0)}"
+              f" for 4 calls")
+    lines = [f"tracing: 10 collectives x 2 rounds at {elems * 4 >> 20} MB "
+             f"fp32 per rank on a dup with monitoring and tracing on = the "
+             f"plain world bit for bit; one coll_<func> span per call, cid "
+             f"{d.cid}, seq 0, 1; Perfetto export loads as JSON; monitoring "
+             f"bytes = payloads; SPC coll_<func> +4 per function (2 traced, "
+             f"2 untraced calls)"]
+    d.free()
+    # a small ring under many calls: drops are counted, never block
+    trace.enable(capacity=64)
+    dt = w.dup()
+    small = dt.alloc((2,), dtype=torch.float32, fill=1.0)
+    for _ in range(1000):
+        dt.allreduce(small, MPI.SUM)
+    st = trace.stats()
+    check(st["spans"] == 64 and st["dropped"] == 936
+          and pvar.pvar_read("trace_dropped") == 936,
+          f"ring of 64 under 1000 calls: {st}")
+    lines.append(f"ring of 64 under 1000 allreduces: trace_spans "
+                 f"{pvar.pvar_read('trace_spans')}, trace_dropped "
+                 f"{pvar.pvar_read('trace_dropped')}")
+    # host µs per 8 B allreduce, tracing off (the plain world, unwrapped)
+    # and on (the traced dup), in turns a b b a
+    trace.enable(capacity=1 << 16)
+    us = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        trace.reset()
+        us[mode].append(_obs_8b_us(w if mode == "off" else dt))
+    dt.free()
+    trace.disable()
+    trace.reset()
+    lines.append("8 B allreduce host us/call, tracing off then on, in "
+                 "turns (off on on off): "
+                 + ", ".join(f"{u:.2f}" for u in (us["off"][0], *us["on"],
+                                                   us["off"][1])))
+    # host µs per 8 B allreduce on the plain world with the SPC counters
+    # off and on (``mpi_base_spc_enable``; tracing off), in turns a b b a.
+    # spc.reset() makes record() read the switch again.
+    spc_us = {False: [], True: []}
+    try:
+        for on in (False, True, True, False):
+            var.var_set("mpi_base_spc_enable", on)
+            spc.reset()
+            spc_us[on].append(_obs_8b_us(w))
+    finally:
+        var.var_set("mpi_base_spc_enable", True)
+        spc.reset()
+    lines.append("8 B allreduce host us/call, SPC off then on, in turns "
+                 "(off on on off): "
+                 + ", ".join(f"{u:.2f}" for u in (spc_us[False][0],
+                                                   *spc_us[True],
+                                                   spc_us[False][1])))
+    return lines
+
+
+def _obs_unsigned(w, dev) -> str:
+    """13(b): unsigned reductions on the card, on a tensor and on a numpy
+    stack staged above stage_min, exact against numpy."""
+    n = w.size
+    rng = np.random.default_rng(OBS_SEED + 1)
+    ops = {"SUM": np.add, "PROD": np.multiply, "MAX": np.maximum,
+           "MIN": np.minimum, "BAND": np.bitwise_and}
+    cases = 0
+    saved = var.var_get("coll_tuned_stage_min_bytes")
+    var.var_set("coll_tuned_stage_min_bytes", 4096)
+    try:
+        for dt in (np.uint16, np.uint32, np.uint64):
+            x = rng.integers(0, np.iinfo(dt).max, size=(n, 4096), dtype=dt,
+                             endpoint=True)
+            for name, fold in ops.items():
+                want = np.broadcast_to(fold.reduce(x, 0, dtype=dt), x.shape)
+                op = getattr(MPI, name)
+                t = w.allreduce(torch.from_numpy(x).to(dev), op)
+                check(t.device == dev and t.dtype == torch.from_numpy(x).dtype
+                      and np.array_equal(t.cpu().numpy(), want),
+                      f"{name} {np.dtype(dt).name} tensor on the card")
+                h = w.allreduce(x.copy(), op)
+                check(isinstance(h, np.ndarray) and h.dtype == dt
+                      and np.array_equal(h, want),
+                      f"{name} {np.dtype(dt).name} staged numpy")
+                cases += 2
+    finally:
+        var.var_set("coll_tuned_stage_min_bytes", saved)
+    return (f"unsigned reductions: uint16/32/64 x SUM, PROD, MAX, MIN, BAND "
+            f"on (8, 4096) tensors on {dev} and numpy stacks staged above "
+            f"stage_min (4096 B): {cases} cases exact against numpy, "
+            f"operand type kept, every tensor result on {dev}")
+
+
+def _obs_vprotocol(w, dev, elems: int) -> str:
+    """13(c): pessimist logging of wildcard receives of CUDA tensors; a
+    replay from the JSON snapshot forces the logged order; redelivery
+    gives the logged bits after the senders overwrote their buffers."""
+    from ompi_tpu_torch.pml import vprotocol
+    var.var_set("pml_v_protocol", "pessimist")
+    c = w.dup()
+    check(isinstance(c._pml, vprotocol.PessimistEngine), "pessimist engine")
+    var.var_set("pml_v_protocol", "none")    # the engine is chosen once
+    g = torch.Generator(device=dev).manual_seed(OBS_SEED + 2)
+    bufs = {s: torch.rand(elems, generator=g, device=dev)
+            for s in (1, 2, 3, 4)}
+    keep = {s: b.clone() for s, b in bufs.items()}
+    # wildcard receives posted first match in arrival order
+    reqs = [c.irecv(MPI.ANY_SOURCE, MPI.ANY_TAG, dst=0) for _ in range(4)]
+    for s in (3, 1, 4, 2):
+        c.send(bufs[s], s, 0, tag=10 + s)
+    order = [q.wait().source for q in reqs]
+    check(order == [3, 1, 4, 2], f"arrival order {order}")
+    for q, s in zip(reqs, order):
+        check(q.get().device == dev and torch.equal(q.get(), keep[s]),
+              "wildcard payload")
+    snap = json.dumps(c._pml.snapshot())
+    log = vprotocol.PessimistEngine.restore_log(json.loads(snap))
+    check(sum(e.kind == "match" for e in log) == 4, "determinants logged")
+    rep = vprotocol.PessimistEngine(c, replay_log=log)
+    reqs = [rep.irecv(0, MPI.ANY_SOURCE, MPI.ANY_TAG) for _ in range(4)]
+    for s in (2, 4, 1, 3):                   # another arrival order
+        rep.send(keep[s], s, 0, 10 + s)
+    again = [q.wait().source for q in reqs]
+    check(again == order, f"replay order {again} != {order}")
+    for b in bufs.values():
+        b.fill_(-1.0)                        # the senders reuse buffers
+    fresh = vprotocol.PessimistEngine(c, replay_log=log)
+    fresh.log = log
+    check(fresh.redeliver(0) == 4, "redeliver count")
+    for _ in range(4):
+        data, st = fresh.recv(0, MPI.ANY_SOURCE, MPI.ANY_TAG)
+        check(data.device == dev and torch.equal(data, keep[st.source]),
+              "redelivered payload")
+    torch.cuda.synchronize()
+    c.free()
+    return (f"vprotocol pessimist: 4 wildcard receives of {elems * 4 >> 20} "
+            f"MiB CUDA tensors logged (order {order}); a replay from the "
+            f"JSON snapshot ({len(snap) >> 20} MiB) forced that order; "
+            f"redeliver gave the logged bits on {dev} after the senders "
+            f"overwrote their buffers")
+
+
+def _observe_rank(report: str) -> int:
+    """The rank program of phase 13 (run by mpirun --per-rank with
+    tracing on); rank 0 writes its lines to ``report``."""
+    from ompi_tpu_torch import trace
+    from ompi_tpu_torch.pml import part_perrank as part
+    MPI.Init()
+    w = MPI.get_comm_world()
+    r, n = w.rank(), w.size
+    dev = w.device
+    check(trace.is_active() and w._coll_interposers == ["trace"],
+          f"rank {r}: tracing not armed ({w._coll_interposers})")
+    lines = []
+    out_dir = os.path.dirname(report)
+    late = 5 if n > 5 else n - 1
+    mb = LOCAL_ELEMS * 4 >> 20
+    # device-tier allreduce, 32 MB per rank; exact sums whatever the order
+    base = (torch.arange(LOCAL_ELEMS, device=dev) % 1024).float()
+    x = base + r
+    want = base * n + n * (n - 1) / 2
+    for i in range(4):
+        if i == 2 and r == late:
+            time.sleep(0.2)
+        got = w.allreduce(x, MPI.SUM)
+        check(got.device == dev and torch.equal(got, want),
+              f"rank {r}: device allreduce {i}")
+    # host-tier pipelined ring, 32 MB per rank
+    var.var_set("coll_tuned_stage_min_bytes", 1 << 62)
+    xh = (np.arange(LOCAL_ELEMS) % 1024).astype(np.float32) + r
+    ring = w.allreduce(xh, MPI.SUM)
+    check(np.array_equal(ring, want.cpu().numpy()), f"rank {r}: host ring")
+    # coll/sync: a barrier before every 3rd collective changes nothing
+    var.var_set("coll_sync_barrier_before", 3)
+    ws = w.dup()
+    var.var_set("coll_sync_barrier_before", 0)
+    check(ws._coll_interposers == ["sync", "trace"], "sync interposer")
+    for i in range(7):
+        check(torch.equal(ws.allreduce(x, MPI.SUM), want)
+              and float(ws.allreduce(np.float64(i), MPI.SUM)) == i * n,
+              f"rank {r}: allreduce under coll/sync")
+    ws.free()
+    # part_perrank: rank 0 sends rank 1 a 32 MB CUDA tensor in 4 parts
+    q = LOCAL_ELEMS // 4
+    src = torch.rand(LOCAL_ELEMS, generator=torch.Generator(
+        device=dev).manual_seed(OBS_SEED + 3), device=dev)
+    if r == 0:
+        ps = part.psend_init(w, [src[k * q:(k + 1) * q] for k in range(4)],
+                             dest=1, tag=9)
+    elif r == 1:
+        pr = part.precv_init(w, 4, source=0, tag=9)
+    polls = 0
+    for rnd in range(2):
+        if r == 0:
+            ps.start()
+            for k in (2, 0, 1, 3):
+                ps.pready(k)
+            ps.wait()
+        elif r == 1:
+            pr.start()
+            polls += 1
+            while not all(pr.parrived(k) for k in range(4)):
+                polls += 1                   # rounds of parrived polls
+            pr.wait(timeout=120)
+            got = torch.cat(pr.get())
+            check(got.device == dev and torch.equal(got, src * 2 ** rnd),
+                  f"partitioned round {rnd}")
+        w.barrier()
+        if r == 0:
+            src.mul_(2.0)        # the sender rewrites its partitions' data
+    torch.cuda.synchronize()
+    trace.dump(os.path.join(out_dir, f"trace_r{r}.json"))
+    names = [s.name for s in trace.spans()]
+    counts = {k: names.count(k) for k in
+              ("coll_allreduce", "coll_barrier", "pml_send", "pml_recv",
+               "pml.segment", "btl.rail")}
+    check(counts["coll_allreduce"] == 5 + 14,
+          f"rank {r}: coll_allreduce spans {counts['coll_allreduce']}")
+    for k in ("pml_send", "pml_recv", "pml.segment", "btl.rail"):
+        check(counts[k] > 0, f"rank {r}: no {k} span")
+    w.barrier()
+    if r == 0:
+        spans = []
+        for j in range(n):
+            spans += trace.load_dump(
+                os.path.join(out_dir, f"trace_r{j}.json"))["spans"]
+        reps = trace.attribution.late_arrival(spans)
+        third = [p for p in reps if p["name"] == "coll_allreduce"
+                 and p["cid"] == str(w.cid) and p["seq"] == 2]
+        check(len(third) == 1 and third[0]["nranks"] == n
+              and third[0]["critical_rank"] == late
+              and third[0]["skew_s"] >= 0.15,
+              f"attribution of the third allreduce: {third}")
+        json.dumps(trace.perfetto.export(spans))
+        lines.append(
+            f"per-rank job, tracing on: spans on rank 0 {counts}; "
+            f"late_arrival names rank {third[0]['critical_rank']} of the "
+            f"third {mb} MB device allreduce with skew "
+            f"{third[0]['skew_s'] * 1e3:.1f} ms (rank {late} slept 200 ms); "
+            f"worst occurrence of the run: {reps[0]['name']} seq "
+            f"{reps[0]['seq']} ({reps[0]['skew_s'] * 1e3:.1f} ms)")
+        lines.append(f"host ring ({mb} MB per rank) and device allreduces "
+                     f"= exact sums; coll_sync_barrier_before=3 left 14 "
+                     f"results unchanged; part_perrank {mb} MB tensor in 4 "
+                     f"partitions (pready 2, 0, 1, 3), two rounds through "
+                     f"the same requests, bit for bit on {dev}")
+    # µs per 8 B round trip between ranks 0 and 1, tracing off and on
+    b8 = np.zeros(1, np.float64)
+    rt = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        (trace.enable if mode == "on" else trace.disable)()
+        w.barrier()
+        if r in (0, 1):
+            reps_ = 200
+            t0 = time.perf_counter()
+            for _ in range(reps_):
+                if r == 0:
+                    w.send(b8, 1, tag=5)
+                    w.recv(1, tag=5)
+                else:
+                    w.recv(0, tag=5)
+                    w.send(b8, 0, tag=5)
+            rt[mode].append((time.perf_counter() - t0) / reps_ * 1e6)
+    trace.disable()
+    polls = w.allgather(polls)[1]            # rank 1 polled
+    if r == 0:
+        lines.append(f"8 B round trip (ranks 0 and 1) host us, tracing off "
+                     f"then on, in turns (off on on off): "
+                     + ", ".join(f"{u:.1f}" for u in (
+                         rt["off"][0], *rt["on"], rt["off"][1]))
+                     + f"; rank 1 polled parrived in {polls} rounds over "
+                     f"the 2 partitioned rounds")
+    w.barrier()
+    MPI.Finalize()
+    if r == 0:
+        with open(report, "w") as f:
+            json.dump(lines, f)
+    print(f"OK observe rank={r}/{n}", flush=True)
+    return 0
+
+
+def phase_observe_world(w, smi: str) -> float:
+    """Phase 13, first half: tracing, monitoring and SPC on the 8-rank
+    world, the unsigned reductions and the pessimist engine on the card.
+    Returns the seconds it took."""
+    t0 = time.perf_counter()
+    dev = w.device
+    for line in _obs_tracing(w, dev, LOCAL_ELEMS):
+        phase("observe", f"{line} | {smi}")
+    phase("observe", _obs_unsigned(w, dev))
+    phase("observe", _obs_vprotocol(w, dev, 1 << 18))
+    return time.perf_counter() - t0
+
+
+def phase_observe_job(smi: str, world_s: float) -> None:
+    """Phase 13, second half: the traced per-rank job."""
+    t0 = time.perf_counter()
+    for line in _run_job("--observe-rank", [("mpi_base_trace_enable", 1)]):
+        phase("observe", f"{line} | {smi}")
+    phase("observe", f"phase 13 took {world_s + time.perf_counter() - t0:.1f}"
+          f" s | {smi}")
+
+
 def main() -> int:
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
     if "--dataplane-rank" in sys.argv:
         return _dataplane_rank(sys.argv[-1])
+    if "--observe-rank" in sys.argv:
+        return _observe_rank(sys.argv[-1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -2921,9 +3334,11 @@ def main() -> int:
         phase_perrank(smi)
         MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
         _tuned_single(MPI.get_comm_world(), smi)
+        world_s = phase_observe_world(MPI.get_comm_world(), smi)
         MPI.Finalize()
         torch.cuda.empty_cache()
         phase_dataplane(smi)
+        phase_observe_job(smi, world_s)
         return 0
     t0 = time.perf_counter()
     smi, kind = phase_device()
@@ -2943,10 +3358,12 @@ def main() -> int:
     phase_compression(world, smi)
     phase_ptp_topo_datatype(world, smi)
     _tuned_single(world, smi)
+    world_s = phase_observe_world(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
     phase_perrank(smi)
     phase_dataplane(smi)
+    phase_observe_job(smi, world_s)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

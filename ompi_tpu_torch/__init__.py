@@ -19,8 +19,10 @@ module's counterpart sits at the same path:
 - ``accelerator`` — buffer locus, H2D/D2H copies, CUDA streams/events.
 - ``runtime``     — init/finalize, world binding (single-controller and
                     per-rank), the progress engine.
-- ``pml``         — the stacked point-to-point matching engine,
-                    partitioned pt2pt, and the per-rank matching engine.
+- ``pml``         — the stacked point-to-point matching engine and its
+                    pessimist message-logging variant (vprotocol),
+                    partitioned pt2pt on both tiers, and the per-rank
+                    matching engine.
 - ``btl``         — the per-rank byte planes: tcp, shared-memory rings,
                     their multiplexer, and the device payload plane over
                     IPC handles.
@@ -31,6 +33,10 @@ module's counterpart sits at the same path:
 - ``ops``         — hand-written CUDA kernels (``csrc/``) behind torch
                     wrappers, with their plain torch versions.
 - ``models``      — the flagship transformer.
+- ``trace``, ``utils.hooks``, ``runtime.spc`` — spans with Perfetto
+                    export and late-arrival attribution, profiling hooks
+                    and software performance counters (with
+                    ``coll/monitoring`` and ``coll/sync``).
 
 It imports torch, numpy and the standard library — never JAX, and never
 ``ompi_tpu``.
@@ -38,7 +44,8 @@ It imports torch, numpy and the standard library — never JAX, and never
 
 from ompi_tpu_torch.api.mpi import (  # noqa: F401
     # constants
-    IN_PLACE, UNDEFINED, ANY_SOURCE, ANY_TAG, PROC_NULL, KEYVAL_INVALID,
+    IN_PLACE, UNDEFINED, ANY_SOURCE, ANY_TAG, PROC_NULL, ROOT,
+    KEYVAL_INVALID, MAX_ERROR_STRING, MAX_PROCESSOR_NAME,
     SUCCESS, ERR_COMM, ERR_TYPE, ERR_OP, ERR_ARG, ERR_COUNT, ERR_BUFFER,
     ERR_RANK, ERR_ROOT, ERR_TRUNCATE, ERR_OTHER, ERR_PENDING, ERR_TOPOLOGY,
     ERR_PROC_FAILED,
@@ -60,15 +67,18 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     # lifecycle
     Init, Init_thread, Finalize, Initialized, Finalized, Wtime, Wtick,
     get_comm_world, get_comm_self, COMM_NULL, Get_processor_name,
+    Query_thread, Abort, Get_version, Get_library_version,
     # point-to-point (per-rank)
     Send, Ssend, Isend, Recv, Irecv, Sendrecv, Probe,
+    # collectives (both communicator kinds)
+    Barrier, Bcast, Reduce, Allreduce, Allgather,
     # request completion
     Wait, Start, Startall, Test, Waitall, Waitany, Waitsome, Testall,
     Testany, Testsome,
     # helpers
     op_create, create_keyval, free_keyval, error_string, from_numpy_dtype,
     from_torch_dtype, INFO_ENV, INFO_NULL, Comm_set_errhandler,
-    Comm_get_errhandler,
+    Comm_get_errhandler, Comm_call_errhandler,
     # local reduction + pack/external32
     reduce_local, Pack, Unpack, Pack_external, Unpack_external, Pack_size,
 )

@@ -10,6 +10,8 @@ passes its own buffer, as in textbook MPI.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 from ompi_tpu_torch.core.communicator import (IN_PLACE,  # noqa: F401
                                               Communicator, create_keyval,
                                               free_keyval)
@@ -42,7 +44,10 @@ from ompi_tpu_torch.runtime import init as _rt
 ANY_SOURCE = -1
 ANY_TAG = -1
 PROC_NULL = -2
+ROOT = -4
 KEYVAL_INVALID = -1
+MAX_ERROR_STRING = 256
+MAX_PROCESSOR_NAME = 256
 
 COMM_TYPE_SHARED = 1
 COMM_TYPE_HWTHREAD = 2
@@ -77,6 +82,23 @@ def Finalized() -> bool:
     return _rt.finalized()
 
 
+def Query_thread() -> int:
+    return _rt.query_thread()
+
+
+def Abort(comm: Optional[Communicator] = None, errorcode: int = 1):
+    (comm or _rt.comm_world()).abort(errorcode)
+
+
+def Get_version():
+    return (4, 0)      # MPI standard level this surface tracks
+
+
+def Get_library_version() -> str:
+    from ompi_tpu_torch import __version__
+    return f"ompi_tpu_torch {__version__} (PyTorch/CUDA port of ompi_tpu)"
+
+
 def Wtime() -> float:
     return _rt.wtime()
 
@@ -103,6 +125,10 @@ def Comm_set_errhandler(comm, errhandler: Errhandler) -> None:
 
 def Comm_get_errhandler(comm) -> Errhandler:
     return comm.get_errhandler()
+
+
+def Comm_call_errhandler(comm, error_class: int, message: str = ""):
+    return comm.errhandler.invoke(comm, error_class, message)
 
 
 def _guard(comm, fn, *args, **kw):
@@ -145,6 +171,28 @@ def Sendrecv(comm, senddata, dest: int, source: int = ANY_SOURCE,
 
 def Probe(comm, source: int = ANY_SOURCE, tag: int = ANY_TAG):
     return _guard(comm, comm.probe, source, tag)
+
+
+# collectives: the same call on both communicator kinds (a stacked buffer
+# on the single-controller world, the caller's own buffer per rank) ------
+def Barrier(comm) -> None:
+    _guard(comm, comm.barrier)
+
+
+def Bcast(comm, data, root: int = 0):
+    return _guard(comm, comm.bcast, data, root)
+
+
+def Reduce(comm, data, op: Op = SUM, root: int = 0):
+    return _guard(comm, comm.reduce, data, op, root)
+
+
+def Allreduce(comm, data, op: Op = SUM):
+    return _guard(comm, comm.allreduce, data, op)
+
+
+def Allgather(comm, data):
+    return _guard(comm, comm.allgather, data)
 
 
 # request completion (MPI_Wait/Test families) -----------------------------

@@ -42,6 +42,7 @@ from ompi_tpu_torch.btl.tcp import PeerDownError, TcpEndpoint
 from ompi_tpu_torch.mca import pvar as _pvar
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.runtime import progress as _progress
+from ompi_tpu_torch.trace import core as _trace
 
 _BOOT_ID: Optional[str] = None
 
@@ -430,6 +431,9 @@ class BmlEndpoint:
                 return                   # close(): retire
             header, payload, on_done = item
             t0 = time.perf_counter()
+            tok = (_trace.begin("btl.rail", rail=rail, peer=peer,
+                                bytes=len(payload))
+                   if _trace.active else None)
             seg = None
             if (self.shm_seg is not None and _shmseg.enabled()
                     and "off" in header
@@ -452,6 +456,8 @@ class BmlEndpoint:
                     # the descriptor never left: the receiver will never
                     # free the slot, so reclaim it here
                     self.shm_seg.release(peer, seg["i"])
+                if tok is not None:
+                    _trace.end(tok, sent=sent)
                 if on_done is not None:
                     on_done(time.perf_counter() - t0)
             # the payload may view a staging buffer or the sender's

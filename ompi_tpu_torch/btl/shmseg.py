@@ -41,6 +41,7 @@ import torch
 from ompi_tpu_torch.accelerator import SHM_DIR, job_tag
 from ompi_tpu_torch.mca import pvar as _pvar
 from ompi_tpu_torch.mca import var
+from ompi_tpu_torch.trace import core as _trace
 
 # the launcher's post-job sweep globs on this prefix (tools/mpirun.py
 # imports it), as it does on the rings' and the IPC segments'
@@ -251,13 +252,19 @@ class SegPlane:
             # named before any descriptor can leave, so the receiver's
             # lazy attach always finds it
             self._kv_set(*publish)
+        tok = (_trace.begin("btl.shm_seg", peer=peer, bytes=n)
+               if _trace.active else None)
+        ok = False
         try:
             off = idx * self.slot_bytes
             pf.buf[off:off + n] = mv
-        except BaseException:
-            with self._lock:             # a failed pack must not leak
-                free.add(idx)            # its slot
-            raise
+            ok = True
+        finally:
+            if tok is not None:
+                _trace.end(tok, idx=idx, ok=ok)
+            if not ok:
+                with self._lock:         # a failed pack must not leak
+                    free.add(idx)        # its slot
         count("packs")
         return {"o": self.rank, "i": idx, "n": n}
 

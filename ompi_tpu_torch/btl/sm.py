@@ -34,6 +34,7 @@ from typing import Callable, Dict, Optional
 
 from ompi_tpu_torch.accelerator import SHM_DIR, job_tag
 from ompi_tpu_torch.btl.tcp import _LEN, MAGIC
+from ompi_tpu_torch.trace import core as _trace
 
 _REC = struct.Struct("<Q")           # counter / per-record length prefix
 _TAIL_OFF = 64
@@ -198,13 +199,19 @@ class SmEndpoint:
         rings = ([self._in[src]] if src is not None and src in self._in
                  else list(self._in.values()))
         n = 0
-        with self._drain_lock:
-            for ring in rings:
-                rec = ring.pop()
-                while rec is not None:
-                    n += 1
-                    self._deliver(rec)
+        tok = (_trace.begin("btl_sm_drain", src=src)
+               if _trace.active else None)
+        try:
+            with self._drain_lock:
+                for ring in rings:
                     rec = ring.pop()
+                    while rec is not None:
+                        n += 1
+                        self._deliver(rec)
+                        rec = ring.pop()
+        finally:
+            if tok is not None and n:    # empty polls would swamp the
+                _trace.end(tok, frames=n)    # ring with noise
         return n
 
     def _deliver(self, rec: bytes) -> None:

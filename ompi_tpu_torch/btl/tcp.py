@@ -29,6 +29,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ompi_tpu_torch.trace import core as _trace
 
 MAGIC = 0x7f4d5049          # "\x7fMPI"
 _LEN = struct.Struct("!IQQ")  # magic, header_len, payload_len
@@ -381,18 +382,27 @@ class TcpEndpoint:
                     0, self._ctl_q_bytes.get(peer, 0) - cost)
             # frames carry the bml's sequence number: a dropped one would
             # park every later frame of this rank at the receiver. Retry
-            # transient failures; a persistent one is a dead link.
+            # transient failures; a persistent one is a dead link. The
+            # flush window is a span ("btl_ctl_flush"): a collective
+            # blocked behind a big sendall shows there.
+            tok = (_trace.begin("btl_ctl_flush", peer=peer,
+                                frames=len(batch), bytes=cost)
+                   if _trace.active else None)
             sent = False
-            for attempt in range(3):
-                try:
-                    self._send_batch_blocking(peer, batch)
-                    sent = True
-                    break
-                except Exception:            # noqa: BLE001
-                    if self._closed:
-                        return
-                    self._evict_peer_socket(peer)
-                    time.sleep(0.05 * (attempt + 1))
+            try:
+                for attempt in range(3):
+                    try:
+                        self._send_batch_blocking(peer, batch)
+                        sent = True
+                        break
+                    except Exception:        # noqa: BLE001
+                        if self._closed:
+                            return
+                        self._evict_peer_socket(peer)
+                        time.sleep(0.05 * (attempt + 1))
+            finally:
+                if tok is not None:
+                    _trace.end(tok, sent=sent)
             if not sent:
                 self._ctl_peer_down(peer)
                 return

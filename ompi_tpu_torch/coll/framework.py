@@ -31,8 +31,9 @@ def _ensure_components() -> None:
     if _components_loaded:
         return
     # Importing registers each component with the framework.
-    from ompi_tpu_torch.coll import (basic, compressed, nbc,  # noqa: F401
-                                     self_, torch_, tuned)
+    from ompi_tpu_torch.coll import (basic, compressed,  # noqa: F401
+                                     monitoring, nbc, self_, sync, torch_,
+                                     tuned)
     _components_loaded = True
 
 
@@ -53,7 +54,11 @@ def select_winners(comm):
 
 def comm_select_coll(comm) -> Dict[str, Any]:
     """Build the c_coll vtable for ``comm``: highest-priority provider per
-    collective function."""
+    collective function; when monitoring is enabled, every slot is
+    served by the counting shim (which delegates to the slot's real
+    winner), and when tracing is enabled the span shim wraps outermost.
+    Both are off by default, and the vtable is then the winners'
+    modules themselves."""
     winners, selected = select_winners(comm)
     # Cache the selection outcome: introspection, and the ordered list
     # coll/compressed delegates through.
@@ -62,4 +67,14 @@ def comm_select_coll(comm) -> Dict[str, Any]:
                           for f, (comp, _m) in winners.items()}
     comm._coll_priorities = [(comp.name, prio)
                              for prio, comp, _m in selected]
-    return {f: m for f, (_c, m) in winners.items()}
+    vtable: Dict[str, Any] = {f: m for f, (_c, m) in winners.items()}
+    from ompi_tpu_torch.coll import monitoring
+    if vtable and monitoring.enabled():
+        vtable = monitoring.wrap_vtable(comm, vtable)
+    # the telemetry histograms ride between monitoring and the tracer in
+    # the reference (ROADMAP 17b); the tracer wraps outermost, so spans
+    # measure the app-visible call with monitoring's counters inside
+    from ompi_tpu_torch import trace
+    if vtable and trace.tracing_enabled():
+        vtable = trace.wrap_coll_vtable(comm, vtable)
+    return vtable

@@ -184,6 +184,10 @@ class NbcModule:
         fused = self._fused("allreduce", x)
         if fused is not None:
             return ScheduleRequest(self, x, [lambda b: fused(b, op)])
+        # uint16/32/64 run on the signed twin (core/op.unsigned_route)
+        route = op_mod.unsigned_route(x.dtype, op)
+        if route is not None:
+            x = route[1](x)
         chunks, length, shape = self._chunked(x)
         skey = ("iar", n, shape, x.dtype, op.uid)
         hit = self._sched.get(skey)
@@ -213,7 +217,11 @@ class NbcModule:
                     memory_format=torch.contiguous_format).reshape(shape)
 
             hit = self._sched[skey] = (rounds, finalize)
-        return ScheduleRequest(self, chunks, *hit)
+        rounds, finalize = hit
+        if route is not None:
+            finalize = (lambda acc, f=finalize, back=route[2]:
+                        back(f(acc)))
+        return ScheduleRequest(self, chunks, rounds, finalize)
 
     def ibcast(self, x, root: int = 0) -> ScheduleRequest:
         """Binomial-tree bcast: ceil(log2 N) rounds; in round k ranks
@@ -255,9 +263,15 @@ class NbcModule:
         if fused is not None:
             return ScheduleRequest(self, x, [fused])
         rows = self._rows()
+        # the rounds move bits: a type torch cannot index_put (uint16/32/
+        # 64) travels as its signed twin and is viewed back at the end
+        twin = op_mod.SIGNED_TWIN.get(x.dtype)
+        dt = x.dtype
+        if twin is not None:
+            x = x.view(twin)
         out0 = x.new_zeros((n,) + tuple(x.shape)).index_put((rows, rows), x)
         if n == 1:
-            return ScheduleRequest(self, out0, [])
+            return ScheduleRequest(self, out0.view(dt), [])
         skey = ("iag", n, tuple(out0.shape), x.dtype)
         hit = self._sched.get(skey)
         if hit is None:
@@ -269,7 +283,9 @@ class NbcModule:
 
             hit = self._sched[skey] = (
                 [step((rows - 1 - s) % n) for s in range(n - 1)],)
-        return ScheduleRequest(self, out0, *hit)
+        return ScheduleRequest(self, out0, *hit,
+                               (lambda out: out.view(dt))
+                               if twin is not None else None)
 
     def ibarrier(self) -> ScheduleRequest:
         """Dissemination barrier: ceil(log2 N) host rounds with no data

@@ -54,6 +54,9 @@ from ompi_tpu_torch.core.errhandler import MPIError
 from ompi_tpu_torch.core.request import Request, event_after
 from ompi_tpu_torch.mca import pvar, var
 from ompi_tpu_torch.runtime import progress as prog
+from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.trace import core as _trace
+from ompi_tpu_torch.utils import hooks
 
 # The funcs with a pre-bound plan, and the funcs the BucketFuser
 # coalesces (coll/decision's persistent and bucket rows).
@@ -139,6 +142,7 @@ def _register_pvars() -> None:
 
 
 _register_pvars()
+hooks.declare_event("coll.bucket_flush")
 
 
 # -- plans ------------------------------------------------------------------
@@ -365,7 +369,7 @@ def _perrank_plan(comm, func: str, *args) -> CollPlan:
     (or, for the small combine, posts its slot inline)."""
     from ompi_tpu_torch import accelerator
     from ompi_tpu_torch.core.rankcomm import RankCommunicator as RC
-    from ompi_tpu_torch.core.rankcomm import counters as _rc
+    from ompi_tpu_torch.core.rankcomm import _ran
     comm._check()
     if func == "allreduce":
         data, op = args
@@ -384,7 +388,8 @@ def _perrank_plan(comm, func: str, *args) -> CollPlan:
             accelerator.current_module().host_register(data)
 
             def body(_c=comm, _d=data, _op=op):
-                _rc["coll_staged_device"] += 1
+                spc.record("coll_allreduce", 1)
+                _ran("coll_staged_device")
                 return _c._to_host(_c._device_allreduce(_c._to_dev(_d),
                                                         _op))
         elif comm._small_allreduce_ok(data):
@@ -552,20 +557,31 @@ class BucketFuser:
         of collectives launched (0 when already empty)."""
         with self._lock:
             items = self._items.pop(key, None)
-            self._bytes.pop(key, 0)
+            total = self._bytes.pop(key, 0)
             op = self._ops.get(key)
         if not items:
             return 0
         _count("coll_bucket_flushes")
         _count(f"coll_bucket_flush_{reason}")
         _count("coll_bucket_fused_members", len(items))
+        hooks.fire("coll.bucket_flush", self.comm,
+                   {"reason": reason, "members": len(items),
+                    "bytes": total})
 
         def run():
+            tok = (_trace.begin("coll.bucket_flush",
+                                cid=getattr(self.comm, "cid", None),
+                                reason=reason, members=len(items),
+                                nbytes=total)
+                   if _trace.active else None)
             try:
                 self._launch_fused(items, op)
             except Exception as e:  # noqa: BLE001 — each member raises it
                 for req, _pf, _ep, _nb in items:
                     req._fail(e)
+            finally:
+                if tok is not None:
+                    _trace.end(tok)
         if self._per_rank:
             self.comm._coll_submit(run)
         else:

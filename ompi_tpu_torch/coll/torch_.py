@@ -68,6 +68,7 @@ import torch.nn.functional as F
 from ompi_tpu_torch.coll import decision, tuned
 from ompi_tpu_torch.coll.framework import coll_framework
 from ompi_tpu_torch.core import convertor
+from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.mca.base import Component
 
@@ -270,12 +271,25 @@ class TorchCollModule:
                root: Optional[int] = None) -> Tuple:
         """(epoch, fn, algorithm) for this call's (func, shape, dtype, op,
         root): one dict probe when warm. The epoch is read before the
-        decision, so a rules-file reload during it re-decides once."""
+        decision, so a rules-file reload during it re-decides once. A
+        predefined op on uint16/32/64 plans the schedule for the signed
+        twin and runs it between the twin's ``into`` and ``back`` maps
+        (``op.unsigned_route``): every schedule below sees only types
+        torch reduces."""
         fk = (func, x.shape, x.dtype, None if op is None else op.uid, root)
         ep = var.epoch()
         hit = self._fast.get(fk)
         if hit is None or hit[0] != ep:
-            alg, fn = getattr(self, "_plan_" + func)(x, op, root)
+            route = op_mod.unsigned_route(x.dtype, op)
+            if route is None:
+                alg, fn = getattr(self, "_plan_" + func)(x, op, root)
+            else:
+                twin, into, back = route
+                alg, inner = getattr(self, "_plan_" + func)(
+                    x.view(twin), op, root)
+
+                def fn(b, inner=inner, into=into, back=back):
+                    return back(inner(into(b)))
             hit = self._fast[fk] = (ep, fn, alg)
         return hit
 

@@ -11,9 +11,11 @@ pvars in the port's ``mca/pvar`` registry:
   passes (the device schedules' error is checked out of band, by the
   tests and ``chip_smoke.py``).
 
-The ``compress.quant`` / ``compress.dequant`` span names are kept; their
-trace spans and hook events wait for the port's ``trace/`` and
-``utils/hooks`` (ROADMAP A.17).
+The ``compress.quant`` / ``compress.dequant`` names are trace spans
+(``compress/wire`` records them around the host codec, when tracing is
+on) and declared MPI_T event types in ``utils/hooks``, so a profiler
+hook and the trace's attribution (``trace.attribution.compress_by_rank``)
+see compression time under one name.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import threading
 from typing import Dict
 
 from ompi_tpu_torch.mca import pvar as _pvar
+from ompi_tpu_torch.utils import hooks as _hooks
 
 EV_QUANT = "compress.quant"
 EV_DEQUANT = "compress.dequant"
@@ -94,6 +97,9 @@ def _register() -> None:
         unit="value", var_class="highwatermark",
         help="Largest measured per-element |x - dequant(quant(x))| "
              "(host codec path + verification passes)")
+    # the span names are MPI_T event types too: tools can bind handlers
+    _hooks.declare_event(EV_QUANT)
+    _hooks.declare_event(EV_DEQUANT)
 
 
 _register()

@@ -26,6 +26,7 @@ import numpy as np
 from ompi_tpu_torch.compress import codecs as _codecs
 from ompi_tpu_torch.compress import feedback as _feedback
 from ompi_tpu_torch.compress import stats as _stats
+from ompi_tpu_torch.trace import core as _trace
 
 _NP_ELIGIBLE = ("float32", "float64")
 
@@ -102,7 +103,13 @@ def encode(arr: np.ndarray, stream_key: Any = None) -> CompressedWire:
     if use_ef:
         key = (stream_key, arr.shape, arr.dtype.name)
         arr = _feedback.default.compensate(key, arr)
-    codes, scales = codec.encode(arr, block)
+    tok = (_trace.begin(_stats.EV_QUANT, nbytes=int(arr.nbytes))
+           if _trace.active else None)
+    try:
+        codes, scales = codec.encode(arr, block)
+    finally:
+        if tok is not None:
+            _trace.end(tok)
     w = CompressedWire(codec.name, block, codes, scales,
                        tuple(arr.shape), arr.dtype.str)
     _stats.account(arr.nbytes, w.nbytes)
@@ -125,8 +132,15 @@ def encode(arr: np.ndarray, stream_key: Any = None) -> CompressedWire:
 
 def decode(w: CompressedWire) -> np.ndarray:
     codec = _codecs.get_codec(w.codec)
-    out = codec.decode(w.codes, w.scales, w.shape, np.dtype(w.dtype),
-                       w.block)
+    tok = (_trace.begin(_stats.EV_DEQUANT,
+                        nbytes=int(getattr(w.codes, "nbytes", 0)))
+           if _trace.active else None)
+    try:
+        out = codec.decode(w.codes, w.scales, w.shape, np.dtype(w.dtype),
+                           w.block)
+    finally:
+        if tok is not None:
+            _trace.end(tok)
     _stats.account_dequant()
     return out
 

@@ -51,6 +51,8 @@ from ompi_tpu_torch.core.errhandler import (ERR_ARG, ERR_COMM, ERR_COUNT,
 from ompi_tpu_torch.core.group import Group, UNDEFINED
 from ompi_tpu_torch.core.info import Info
 from ompi_tpu_torch.core.request import Request, Status, event_after
+from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.utils import hooks
 
 
 # Sentinel mirroring MPI_IN_PLACE: "sendbuf is recvbuf".
@@ -157,6 +159,8 @@ class Communicator:
         if m is None:
             self._err(ERR_ARG, f"no coll component provides {func} "
                                f"for {self.name}")
+        spc.record(f"coll_{func}", 1)
+        hooks.fire(f"coll_{func}", self, {})
         return m
 
     def _validate_op(self, op):
@@ -234,6 +238,8 @@ class Communicator:
                 fn = self._subeager[key] = self._coll("allreduce").allreduce
                 return fn(sendbuf, op)
             self._check()
+            spc.record("coll_allreduce", 1)
+            hooks.fire("coll_allreduce", self, {})
             return fn(sendbuf, op)
         self._validate_stacked(sendbuf)
         self._validate_op(op)
@@ -684,40 +690,58 @@ class Communicator:
     # ==================================================================
     @property
     def _pml(self):
+        """The matching engine, made on first use: the pessimist
+        message-logging engine when ``pml_v_protocol=pessimist``
+        (``pml/vprotocol``), else the plain one."""
         eng = getattr(self, "_pml_engine", None)
         if eng is None:
+            from ompi_tpu_torch.mca import var
+            from ompi_tpu_torch.pml import vprotocol  # its var
             from ompi_tpu_torch.pml.stacked import MatchingEngine
-            eng = self._pml_engine = MatchingEngine(self)
+            if var.var_get("pml_v_protocol", "none") == "pessimist":
+                eng = self._pml_engine = vprotocol.PessimistEngine(self)
+            else:
+                eng = self._pml_engine = MatchingEngine(self)
         return eng
+
+    def _record_pml(self, event: str) -> None:
+        spc.record(event, 1)
+        hooks.fire(event, self, {})
 
     def send(self, data, src: int, dest: int, tag: int = 0) -> None:
         """MPI_Send from rank ``src`` to ``dest``."""
         self._check()
+        self._record_pml("pml_send")
         self._pml.send(data, src, dest, tag)
 
     def isend(self, data, src: int, dest: int, tag: int = 0) -> Request:
         self._check()
+        self._record_pml("pml_send")
         return self._pml.send(data, src, dest, tag)
 
     def ssend(self, data, src: int, dest: int, tag: int = 0) -> None:
         """MPI_Ssend: completes only if the receive has started; raises
         the deadlock otherwise (single-controller semantics)."""
         self._check()
+        self._record_pml("pml_send")
         self._pml.send(data, src, dest, tag, synchronous=True)
 
     def bsend(self, data, src: int, dest: int, tag: int = 0) -> None:
         """MPI_Bsend: the payload is buffered (copied) at send time."""
         self._check()
+        self._record_pml("pml_send")
         self._pml.send(data, src, dest, tag)
 
     def recv(self, source: int, tag: int = -1, *, dst: int = 0):
         """MPI_Recv executed by rank ``dst``: returns (data, Status).
         Raises instead of deadlocking if no matching send was posted."""
         self._check()
+        self._record_pml("pml_recv")
         return self._pml.recv(dst, source, tag)
 
     def irecv(self, source: int, tag: int = -1, *, dst: int = 0) -> Request:
         self._check()
+        self._record_pml("pml_recv")
         return self._pml.irecv(dst, source, tag)
 
     def sendrecv(self, senddata, src: int, dest: int, recvsource: int,
@@ -725,6 +749,8 @@ class Communicator:
         """MPI_Sendrecv executed by rank ``src``: post the send, then
         receive (deadlock-free by construction)."""
         self._check()
+        self._record_pml("pml_send")
+        self._record_pml("pml_recv")
         self._pml.send(senddata, src, dest, sendtag)
         return self._pml.recv(src, recvsource, recvtag)
 
@@ -1105,6 +1131,13 @@ class Communicator:
 
     def get_name(self) -> str:
         return self.name
+
+    def abort(self, errorcode: int = 1):
+        """MPI_Abort: one controller drives every rank, so ending it ends
+        the job — a line on stderr, then ``SystemExit(errorcode)``."""
+        import sys
+        sys.stderr.write(f"MPI_Abort on {self.name} errorcode={errorcode}\n")
+        raise SystemExit(errorcode)
 
     def __repr__(self):
         return (f"Communicator({self.name}, size={self.size}, "

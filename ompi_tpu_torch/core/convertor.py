@@ -31,12 +31,9 @@ import torch
 
 from ompi_tpu_torch.accelerator import to_numpy
 from ompi_tpu_torch.core.datatype import Datatype, numpy_dtype
-
-
 # torch has no index_copy_ for its unsigned types wider than a byte; the
 # copy moves bits, so it runs on the signed type of the same width
-_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32,
-                torch.uint64: torch.int64}
+from ompi_tpu_torch.core.op import SIGNED_TWIN as _SIGNED_TWIN
 
 
 def _bits_view(t: torch.Tensor) -> torch.Tensor:

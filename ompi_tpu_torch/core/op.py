@@ -13,16 +13,57 @@ MINLOC/MAXLOC operate on (value, index) pair types carried as a trailing
 axis of size 2. User-defined ops (MPI_Op_create) supply a torch combiner;
 the ``commute`` flag gates algorithm choice as the reference documents
 (``coll_base_allreduce.c:291-294``).
+
+torch has no add, sum, prod, max or min kernels for its unsigned types
+wider than a byte. A predefined op on uint16, uint32 or uint64 runs on
+the signed type of the same width (``unsigned_route``): SUM, PROD and
+the bitwise and logical ops on the same bits, which gives the same
+result mod 2**n; MAX and MIN on the bits with the top one flipped, which
+orders the signed values as the unsigned ones. The result is flipped
+back and viewed as the operand type, as MPI keeps it.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 _op_counter = itertools.count()
+
+# the signed type of the same width, for the unsigned types torch cannot
+# add, reduce or compare (the convertor's index copies use it too)
+SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+               torch.uint64: torch.int64}
+_SAME_BITS = frozenset(("sum", "prod", "band", "bor", "bxor", "land", "lor",
+                        "lxor"))
+_ORDERED = frozenset(("max", "min"))
+
+
+def _route(dtype, name: str):
+    twin = SIGNED_TWIN.get(dtype)
+    if twin is None:
+        return None
+    if name in _ORDERED:
+        top = torch.iinfo(twin).min
+        return (twin, lambda t: t.view(twin) ^ top,
+                lambda t: (t ^ top).view(dtype))
+    if name in _SAME_BITS:
+        return twin, lambda t: t.view(twin), lambda t: t.view(dtype)
+    return None
+
+
+def unsigned_route(dtype, op) -> Optional[Tuple[torch.dtype, Callable,
+                                                Callable]]:
+    """``(twin, into, back)`` when predefined ``op`` on ``dtype`` must run
+    on the signed twin (see the module doc): ``into`` maps an operand to
+    the twin, ``back`` maps a result of the twin's reduction to
+    ``dtype``. None when torch reduces ``dtype`` itself, and for user ops
+    (their combiner sees the operand type)."""
+    if op is None or not op.predefined:
+        return None
+    return _route(dtype, op.name)
 
 
 class Op:
@@ -47,7 +88,17 @@ class Op:
         self.predefined = predefined
 
     def __call__(self, a, b):
-        return self.fn(a, b)
+        """Combine two operands, taking uint16/32/64 through the signed
+        twin for a predefined op: the pairwise callers (the per-rank
+        tier, reduce_local, the in-graph folds) combine through here. The
+        coll/torch and nbc schedules route whole buffers at their entry
+        and call ``fn`` directly."""
+        r = (_route(getattr(a, "dtype", None), self.name)
+             if self.predefined else None)
+        if r is None:
+            return self.fn(a, b)
+        _twin, into, back = r
+        return back(self.fn(into(a), into(b)))
 
     def __repr__(self):
         return f"Op({self.name})"
@@ -69,6 +120,10 @@ class Op:
         n = stacked.shape[axis]
         if n == 1:
             return stacked.select(axis, 0)
+        r = unsigned_route(stacked.dtype, self)
+        if r is not None:
+            _twin, into, back = r
+            return back(self.reduce_tree(into(stacked), axis))
         if self.predefined and self.name in _TORCH_REDUCERS:
             return _TORCH_REDUCERS[self.name](stacked, axis)
 
@@ -203,5 +258,5 @@ def reduce_local(inbuf, inoutbuf, op: Op):
     if not isinstance(op, Op) or op.fn is None:
         raise TypeError("invalid reduction op")
     if isinstance(inbuf, torch.Tensor) or isinstance(inoutbuf, torch.Tensor):
-        return op.fn(torch.as_tensor(inbuf), torch.as_tensor(inoutbuf))
+        return op(torch.as_tensor(inbuf), torch.as_tensor(inoutbuf))
     return np_combiner(op)(np.asarray(inbuf), np.asarray(inoutbuf))

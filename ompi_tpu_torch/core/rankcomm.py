@@ -70,12 +70,20 @@ from ompi_tpu_torch.core.request import Request, Status
 from ompi_tpu_torch.pml.perrank import (ANY_SOURCE, ANY_TAG,
                                         PerRankEngine, RankRequest, Router,
                                         _Msg)
+from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.utils import hooks as _hooks_mod
 
-# what ran, by path: read by tests and the chip smoke
+# what ran, by path: read by tests and the chip smoke; each bump is an
+# SPC count too (``spc_<path>``), as the reference records them
 counters: Dict[str, int] = dict.fromkeys((
     "coll_device", "coll_staged_device", "coll_small_combine",
     "coll_compress_direct", "coll_shm_fold", "coll_pipelined_ring",
     "coll_pipelined_chain"), 0)
+
+
+def _ran(path: str) -> None:
+    counters[path] += 1
+    spc.record(path, 1)
 
 # Compressed host-tier allreduce: worlds at or below this size take the
 # direct code exchange (one parallel round, one quantization per
@@ -92,13 +100,14 @@ def _not_in_slice(what: str, where: str):
                               f"for {where}")
 
 
-class _CollChannel:
-    """The hidden collective channel of a communicator: same ranks,
-    separate CID, so internal messages never match user receives."""
+class _HiddenChannel:
+    """A hidden matching-channel view of a communicator: same ranks,
+    separate CID, so internal and tool messages never match user
+    receives. Channels: "c" collectives, "part" partitioned pt2pt."""
 
-    def __init__(self, comm: "RankCommunicator"):
+    def __init__(self, comm: "RankCommunicator", prefix: str):
         self._comm = comm
-        self.cid = ("c", comm.cid)
+        self.cid = (prefix, comm.cid)
 
     @property
     def size(self) -> int:
@@ -109,6 +118,23 @@ class _CollChannel:
 
     def world_rank_of(self, local: int) -> int:
         return self._comm.world_rank_of(local)
+
+
+class _CollChannel(_HiddenChannel):
+    def __init__(self, comm: "RankCommunicator"):
+        super().__init__(comm, "c")
+
+
+def hidden_engine(comm: "RankCommunicator", prefix: str) -> PerRankEngine:
+    """The matching engine of one hidden channel of ``comm``, made on
+    first use (two engines on one CID would split matching state) and
+    closed with the communicator."""
+    with comm._lock:
+        eng = comm._aux_pmls.get(prefix)
+        if eng is None:
+            eng = PerRankEngine(_HiddenChannel(comm, prefix), comm.router)
+            comm._aux_pmls[prefix] = eng
+    return eng
 
 
 class _SlotRequest(Request):
@@ -257,6 +283,7 @@ class RankCommunicator:
         self._my_world = my_world_rank
         self._pml = PerRankEngine(self, router)
         self._coll_pml = PerRankEngine(_CollChannel(self), router)
+        self._aux_pmls: Dict[str, PerRankEngine] = {}   # hidden_engine
         self._seq = itertools.count(1)          # collective sequence
         self._create_seq = itertools.count(1)   # comm-creation sequence
         self._small_fold: Dict[Any, Callable] = {}  # op.uid -> fold
@@ -265,6 +292,11 @@ class RankCommunicator:
         self._cq: Optional["queue.Queue"] = None   # serial collective
         self._cworker: Optional[threading.Thread] = None  # executor
         self._cclosed = False
+        # the interposition tier of the coll framework (sync, monitoring,
+        # the tracer) wraps this comm's bound collective methods, as the
+        # stacked composer wraps a vtable: the same MCA vars
+        from ompi_tpu_torch.coll.interpose_perrank import interpose
+        interpose(self)
 
     # ------------------------------------------------------------------
     @property
@@ -300,14 +332,17 @@ class RankCommunicator:
     # ==================================================================
     def send(self, data: Any, dest: int, tag: int = 0) -> None:
         self._check()
+        spc.record("pml_send", 1)
         self._pml.send(data, dest, tag)
 
     def isend(self, data: Any, dest: int, tag: int = 0) -> Request:
         self._check()
+        spc.record("pml_send", 1)
         return self._pml.send(data, dest, tag)
 
     def ssend(self, data: Any, dest: int, tag: int = 0) -> None:
         self._check()
+        spc.record("pml_send", 1)
         self._pml.send(data, dest, tag, synchronous=True)
 
     def bsend(self, data: Any, dest: int, tag: int = 0) -> None:
@@ -316,11 +351,13 @@ class RankCommunicator:
     def recv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG
              ) -> Tuple[Any, Status]:
         self._check()
+        spc.record("pml_recv", 1)
         return self._pml.recv(source, tag)
 
     def irecv(self, source: int = ANY_SOURCE,
               tag: int = ANY_TAG) -> RankRequest:
         self._check()
+        spc.record("pml_recv", 1)
         return self._pml.irecv(source, tag)
 
     def sendrecv(self, senddata: Any, dest: int, source: int = ANY_SOURCE,
@@ -422,6 +459,7 @@ class RankCommunicator:
         """Dissemination barrier: ceil(log2 n) rounds
         (coll_base_barrier.c)."""
         self._check()
+        spc.record("coll_barrier", 1)
         self._dissemination(self._tag())
 
     @_serialized
@@ -436,6 +474,7 @@ class RankCommunicator:
         data), compressed where eligible."""
         self._check()
         self._validate_root(root)
+        spc.record("coll_bcast", 1)
         if self._is_dev(data):
             return self._device_bcast(data, root)
         if self._rank == root:
@@ -457,7 +496,7 @@ class RankCommunicator:
                 else _cwire.maybe_decode(payload)
         if meta[0] == "chain":
             return self._pipelined_chain_bcast(data, root)
-        counters["coll_staged_device"] += 1
+        _ran("coll_staged_device")
         local = (data if self._rank == root
                  else np.empty(meta[1], np.dtype(meta[2])))
         res = self._device_bcast(self._to_dev(local), root)
@@ -487,6 +526,7 @@ class RankCommunicator:
         self._check()
         self._validate_op(op)
         self._validate_root(root)
+        spc.record("coll_reduce", 1)
         n, t = self.size, self._tag()
         if n == 1:
             return data
@@ -499,7 +539,7 @@ class RankCommunicator:
                 acc = _apply(op, acc, x)
             return acc
         if self._stageable(data, op, func="reduce"):
-            counters["coll_staged_device"] += 1
+            _ran("coll_staged_device")
             y = self._device_allreduce(self._to_dev(data), op)
             return self._to_host(y) if self._rank == root else None
         # compressed hops: a large float sum is decoded, folded and
@@ -579,7 +619,7 @@ class RankCommunicator:
             return out
 
         def post():
-            counters["coll_small_combine"] += 1
+            _ran("coll_small_combine")
             t = self._tag()
             slot = eng.post_combine(t, n, n - 1, fold, own=(r, data))
             send(data, t)
@@ -608,14 +648,18 @@ class RankCommunicator:
         pipelined ring, then reduce and bcast (compressed or plain)."""
         self._check()
         self._validate_op(op)
+        spc.record("coll_allreduce", 1)
+        if _hooks_mod._hooks:            # a tool is bound: fire the event
+            _hooks_mod.fire("coll_allreduce", self,
+                            {"value": int(getattr(data, "nbytes", 0) or 0)})
         if self._is_dev(data):
             return self._device_allreduce(data, op)
         if self._stageable(data, op):
-            counters["coll_staged_device"] += 1
+            _ran("coll_staged_device")
             return self._to_host(self._device_allreduce(
                 self._to_dev(data), op))
         if self._small_allreduce_ok(data):
-            counters["coll_small_combine"] += 1
+            _ran("coll_small_combine")
             return self._small_allreduce(data, op)
         if _cwire.eligible(data, op) \
                 and 1 < self.size <= _WIRE_DIRECT_MAX_RANKS:
@@ -641,7 +685,7 @@ class RankCommunicator:
         order. One parallel round, one quantization error per
         contribution, and the same bits on every rank."""
         n, r, t = self.size, self._rank, self._tag()
-        counters["coll_compress_direct"] += 1
+        _ran("coll_compress_direct")
         w = _cwire.encode(data)
         for off in range(1, n):
             self._csend((r + off) % n, t, w)
@@ -696,7 +740,7 @@ class RankCommunicator:
         first fence."""
         from ompi_tpu_torch.btl import shmseg as _shmseg
         n, r = self.size, self._rank
-        counters["coll_shm_fold"] += 1
+        _ran("coll_shm_fold")
         plane = self.router.endpoint.shm_seg
         token = _shmseg.coll_token(self.cid)
         arr = np.ascontiguousarray(data)
@@ -750,7 +794,7 @@ class RankCommunicator:
         pipelined rendezvous over the rails, and all ranks send and
         receive at once. Wire bytes per rank: 2(n-1)/n payloads."""
         n, r, t = self.size, self._rank, self._tag()
-        counters["coll_pipelined_ring"] += 1
+        _ran("coll_pipelined_ring")
         arr = np.ascontiguousarray(data)
         shape, flat = arr.shape, arr.reshape(-1)
         b = chunk_bounds(flat.size, n)
@@ -802,7 +846,7 @@ class RankCommunicator:
         vr = (self._rank - root) % n
         succ = ((vr + 1) + root) % n if vr + 1 < n else None
         pred = ((vr - 1) + root) % n
-        counters["coll_pipelined_chain"] += 1
+        _ran("coll_pipelined_chain")
         if vr == 0:
             arr = np.ascontiguousarray(data)
             flat = arr.reshape(-1)
@@ -847,6 +891,7 @@ class RankCommunicator:
         None elsewhere."""
         self._check()
         self._validate_root(root)
+        spc.record("coll_gather", 1)
         return self._gather(data, root)
 
     @_serialized
@@ -855,6 +900,7 @@ class RankCommunicator:
         """Linear scatter: root passes one chunk per rank."""
         self._check()
         self._validate_root(root)
+        spc.record("coll_scatter", 1)
         n, t = self.size, self._tag()
         if self._rank == root:
             if chunks is None or len(chunks) != n:
@@ -886,10 +932,11 @@ class RankCommunicator:
         large host buffer be staged (the decision must be rank-symmetric,
         and the generic path legally carries ragged objects)."""
         self._check()
+        spc.record("coll_allgather", 1)
         if self._is_dev(data):
             return self._device_allgather(data)
         if uniform and self._stageable(data, func="allgather"):
-            counters["coll_staged_device"] += 1
+            _ran("coll_staged_device")
             return [self._to_host(g) for g in
                     self._device_allgather(self._to_dev(data))]
         return self._host_allgather(data)
@@ -901,6 +948,7 @@ class RankCommunicator:
         ``uniform=True`` asserts every caller passes chunks of one (shape,
         dtype), as for ``allgather``."""
         self._check()
+        spc.record("coll_alltoall", 1)
         n, r = self.size, self._rank
         if len(chunks) != n:
             self._err(ERR_COUNT, "alltoall needs one chunk per peer")
@@ -911,7 +959,7 @@ class RankCommunicator:
                 and len({(c.shape, c.dtype.str) for c in chunks}) == 1
                 and self._stageable(chunks[0], nbytes=chunks[0].nbytes * n,
                                     func="alltoall")):
-            counters["coll_staged_device"] += 1
+            _ran("coll_staged_device")
             return [self._to_host(g) for g in self._device_alltoall(
                 [self._to_dev(c) for c in chunks])]
         t = self._tag()
@@ -929,6 +977,7 @@ class RankCommunicator:
         """Linear scan: inclusive prefix over ranks 0..r."""
         self._check()
         self._validate_op(op)
+        spc.record("coll_scan", 1)
         n, r, t = self.size, self._rank, self._tag()
         acc = data
         if r > 0:
@@ -942,6 +991,7 @@ class RankCommunicator:
         """Exclusive prefix: rank 0 gets None."""
         self._check()
         self._validate_op(op)
+        spc.record("coll_exscan", 1)
         n, r, t = self.size, self._rank, self._tag()
         prev = None if r == 0 else self._crecv(r - 1, t)
         if r + 1 < n:
@@ -955,6 +1005,7 @@ class RankCommunicator:
         fold of everyone's chunk for me (alltoall, then the host fold)."""
         self._check()
         self._validate_op(op)
+        spc.record("coll_reduce_scatter_block", 1)
         if len(chunks) != self.size:
             self._err(ERR_COUNT, "need one chunk per rank")
         mine = self.alltoall(list(chunks))
@@ -965,6 +1016,18 @@ class RankCommunicator:
 
     # -- nonblocking collectives (a serial worker thread per comm) -----
     def _coll_worker_loop(self, q: "queue.Queue") -> None:
+        # ONE worker per comm runs every deferred collective and any
+        # funneled blocking body. It never fires the interposition
+        # layers: blocking entries fire them on the caller thread before
+        # funneling, and i-slots are interposition-exempt. A fresh
+        # thread-local depth here would let sync's op counter race across
+        # threads and desynchronize injected barriers between ranks, and
+        # let an inner frame record a span whose sequence number differs
+        # across ranks.
+        from ompi_tpu_torch.coll.interpose_perrank import _tls as _itls
+        _itls.sync_depth = 1
+        _itls.mon_depth = 1
+        _itls.trace_depth = 1
         while True:
             item = q.get()
             if item is None:
@@ -1104,7 +1167,7 @@ class RankCommunicator:
         self._dissemination(self._tag())
 
     def _shared(self, nbytes: int) -> Tuple[_SharedSlots, int]:
-        counters["coll_device"] += 1
+        _ran("coll_device")
         if self._slots is None:
             self._slots = _SharedSlots(self)
         self._slots.ensure(nbytes)
@@ -1372,6 +1435,9 @@ class RankCommunicator:
             self._slots = None
         self._pml.close()
         self._coll_pml.close()
+        for eng in self._aux_pmls.values():
+            eng.close()
+        self._aux_pmls.clear()
         self._freed = True
 
     # -- attributes / naming -------------------------------------------
@@ -1422,8 +1488,8 @@ def _apply(op: op_mod.Op, a: Any, b: Any) -> Any:
     scalars."""
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         dev = (a if isinstance(a, torch.Tensor) else b).device
-        return op.fn(torch.as_tensor(a, device=dev),
-                     torch.as_tensor(b, device=dev))
+        return op(torch.as_tensor(a, device=dev),
+                  torch.as_tensor(b, device=dev))
     r = np.asarray(op_mod.np_combiner(op)(np.asarray(a), np.asarray(b)))
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         return r

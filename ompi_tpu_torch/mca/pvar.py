@@ -3,9 +3,9 @@ backend, mirroring ``opal/mca/base/mca_base_pvar.c``.
 
 Pvars are read-only named counters/levels sourced from
 component-registered callables (the persistent-collective and bucket
-counters of ``coll/persistent``). The port of ``ompi_tpu/mca/pvar.py``'s
-registry (:42-79, :167-181); the SPC counters and the per-communicator
-pvar sessions wait for the planes that own them.
+counters of ``coll/persistent``, the tracer's, the hooks' drops) and
+every SPC counter (``spc_<name>``, installed by ``refresh``). The port
+of ``ompi_tpu/mca/pvar.py``.
 """
 from __future__ import annotations
 
@@ -36,13 +36,16 @@ def _caller_site() -> str:
 
 def pvar_register(name: str, read_fn: Callable[[], Any], *,
                   unit: str = "count", help: str = "",
-                  var_class: str = CLASS_COUNTER) -> None:
+                  var_class: str = CLASS_COUNTER,
+                  comm: Any = None) -> None:
     """Register (or same-site rebind) one pvar.
 
     Double-register policy, mirroring ``var.var_register``: the SAME
     call site rebinding a name is allowed (reads follow the newest
     counter); a DIFFERENT site claiming an existing name raises — two
-    owners silently shadowing each other's counters is the bug class."""
+    owners silently shadowing each other's counters is the bug class.
+    ``comm`` tags a per-communicator pvar with its owner's cid (the
+    tracer's ``trace_skew_c<cid>``)."""
     site = _caller_site()
     with _lock:
         v = _pvars.get(name)
@@ -51,7 +54,44 @@ def pvar_register(name: str, read_fn: Callable[[], Any], *,
                 f"pvar '{name}' re-registered at {site} — owner is "
                 f"{v['site']}")
         _pvars[name] = {"read": read_fn, "unit": unit, "help": help,
-                        "class": var_class, "site": site}
+                        "class": var_class, "site": site,
+                        "comm": None if comm is None else str(comm)}
+
+
+def pvar_unregister(name: str) -> bool:
+    """Drop one pvar; whether it existed. Never raises on a missing
+    name: retirement races communicator frees by design."""
+    with _lock:
+        return _pvars.pop(name, None) is not None
+
+
+def _install_spc_pvars() -> None:
+    """Surface every SPC counter as a writable pvar ``spc_<name>``
+    (``ompi_spc.c``). The membership check and the registration happen
+    under one ``_lock`` hold, so concurrent ``refresh()`` calls register
+    each name once."""
+    from ompi_tpu_torch.runtime import spc
+
+    def make_reader(key):
+        return lambda: spc.read(key)
+
+    def make_writer(key):
+        return lambda value: spc.write(key, int(value))
+
+    for key in spc.snapshot():
+        full = f"spc_{key}"
+        with _lock:
+            if full in _pvars:
+                continue
+            _pvars[full] = {"read": make_reader(key), "unit": "count",
+                            "help": f"SPC counter {key}",
+                            "class": CLASS_COUNTER,
+                            "write": make_writer(key)}
+
+
+def refresh() -> None:
+    """Register the SPC counters recorded since the last refresh."""
+    _install_spc_pvars()
 
 
 def pvar_read(name: str) -> Any:

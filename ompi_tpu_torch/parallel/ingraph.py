@@ -139,7 +139,7 @@ class InGraphComm:
                        scatter_axis: int = 0):
         """Rank r gets chunk r (along ``scatter_axis``) of the reduction.
         sum is one torch reduction; other ops fold the ranks' chunks left
-        to right with ``op.fn``, as the JAX package folds its alltoall."""
+        to right with the op, as the JAX package folds its alltoall."""
         g = self._grid(x)
         if op.xla_prim == "sum":
             red = op.reduce_tree(g, self._dim)
@@ -147,7 +147,7 @@ class InGraphComm:
             parts = g.unbind(self._dim)
             red = parts[0]
             for p in parts[1:]:
-                red = op.fn(red, p)
+                red = op(red, p)
         ax = self._local(scatter_axis) - 1
         n, L = self._size, red.shape[ax]
         if L % n:
@@ -217,9 +217,11 @@ class InGraphComm:
     def scan(self, x, op: op_mod.Op = op_mod.SUM):
         """Inclusive prefix over the axis's ranks, in rank order."""
         g = self._grid(x)
-        if op.name == "sum":
+        # torch has no cumsum for uint16/32/64: those fold through ``op``,
+        # which takes them to the signed twin
+        if op.name == "sum" and g.dtype not in op_mod.SIGNED_TWIN:
             return self._flat(torch.cumsum(g, self._dim, dtype=g.dtype))
         parts = list(g.unbind(self._dim))
         for i in range(1, len(parts)):
-            parts[i] = op.fn(parts[i - 1], parts[i])
+            parts[i] = op(parts[i - 1], parts[i])
         return self._flat(torch.stack(parts, self._dim))

@@ -50,6 +50,7 @@ from ompi_tpu_torch.core.errhandler import (ERR_PENDING, ERR_PROC_FAILED,
 from ompi_tpu_torch.core.request import Request, Status
 from ompi_tpu_torch.pml import pipeline as _pipeline
 from ompi_tpu_torch.runtime import progress as _progress
+from ompi_tpu_torch.trace import core as _trace
 
 ANY_SOURCE = -1
 ANY_TAG = -1
@@ -461,6 +462,20 @@ class PerRankEngine:
     # -- send side -----------------------------------------------------
     def send(self, data: Any, dest: int, tag: int = 0,
              synchronous: bool = False) -> Request:
+        # tracing gate: one attribute read when off (the hooks event name
+        # "pml_send"); the cid rides in args, so pt2pt spans stay out of
+        # the collective sequence space the attribution groups on
+        if _trace.active:
+            tok = _trace.begin("pml_send", cid=None,
+                               cc=str(self.comm.cid), dest=dest, tag=tag)
+            try:
+                return self._send_impl(data, dest, tag, synchronous)
+            finally:
+                _trace.end(tok)
+        return self._send_impl(data, dest, tag, synchronous)
+
+    def _send_impl(self, data: Any, dest: int, tag: int = 0,
+                   synchronous: bool = False) -> Request:
         if dest == PROC_NULL:
             return Request.completed()
         if not (0 <= dest < self.comm.size):
@@ -514,6 +529,19 @@ class PerRankEngine:
         marshal the payload once with a cached per-(dtype, shape)
         descriptor and push one frame per destination. ``dests`` are
         comm-local ranks and exclude the caller."""
+        if _trace.active:
+            tok = _trace.begin("pml_send", cid=None,
+                               cc=str(self.comm.cid), tag=tag,
+                               ndest=(len(dests)
+                                      if hasattr(dests, "__len__")
+                                      else -1), small=True)
+            try:
+                return self._send_small_impl(data, dests, tag)
+            finally:
+                _trace.end(tok)
+        return self._send_small_impl(data, dests, tag)
+
+    def _send_small_impl(self, data: Any, dests, tag: int) -> None:
         if isinstance(data, np.generic):
             data = np.asarray(data)      # raw 0-d array, not a pickle
         if isinstance(data, np.ndarray):
@@ -629,6 +657,17 @@ class PerRankEngine:
 
     def recv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
              timeout: Optional[float] = None) -> Tuple[Any, Status]:
+        # the span covers post-to-completion: its duration is the time a
+        # late sender costs this rank
+        if _trace.active:
+            tok = _trace.begin("pml_recv", cid=None,
+                               cc=str(self.comm.cid), src=source, tag=tag)
+            try:
+                req = self.irecv(source, tag)
+                st = req.wait(timeout)
+                return req.get(), st
+            finally:
+                _trace.end(tok)
         req = self.irecv(source, tag)
         st = req.wait(timeout)
         return req.get(), st

@@ -49,6 +49,7 @@ from ompi_tpu_torch.core.errhandler import ERR_PENDING, ERR_PROC_FAILED, \
 from ompi_tpu_torch.mca import pvar as _pvar
 from ompi_tpu_torch.mca import var as _var
 from ompi_tpu_torch.runtime import progress as _progress
+from ompi_tpu_torch.trace import core as _trace
 
 _DEF_MIN_BYTES = 4 << 20
 _DEF_SEG_BYTES = 1 << 20
@@ -421,23 +422,32 @@ def maybe_send_pipelined(engine, data: Any, dest: int, tag: int,
         if not window.acquire(timeout=WAIT_TIMEOUT):
             raise MPIError(ERR_PENDING, "pipelined send window never "
                                         "drained")
+        tok = (_trace.begin("pml.segment", idx=i, pipe=uid, dest=dest)
+               if _trace.active else None)
         t0 = time.perf_counter()
-        if stager is not None:
-            seg = stager.get(i)          # staged D2H; the next copy is
-        else:                            # already in flight
-            seg = flat[i * epseg:(i + 1) * epseg]
-        seg_header = {"pipeseg": 1, "pipe": uid, "psrc": router.rank,
-                      "idx": i, "n": nseg}
-        if codec:
-            w = _cwire.encode(np.ascontiguousarray(seg))
-            raw = pickle.dumps(w, protocol=pickle.HIGHEST_PROTOCOL)
-        else:
-            # zero-copy pack: the segment rides the source (or staging)
-            # buffer straight to sendall; the byte offset lets the
-            # receiver assemble in place
-            raw = memoryview(seg).cast("B")
-            seg_header["off"] = i * epseg * np_dtype.itemsize
-            seg_header["tb"] = total
+        nraw = 0
+        try:
+            if stager is not None:
+                seg = stager.get(i)      # staged D2H; the next copy is
+            else:                        # already in flight
+                seg = flat[i * epseg:(i + 1) * epseg]
+            seg_header = {"pipeseg": 1, "pipe": uid, "psrc": router.rank,
+                          "idx": i, "n": nseg}
+            if codec:
+                w = _cwire.encode(np.ascontiguousarray(seg))
+                raw = pickle.dumps(w, protocol=pickle.HIGHEST_PROTOCOL)
+            else:
+                # zero-copy pack: the segment rides the source (or
+                # staging) buffer straight to sendall; the byte offset
+                # lets the receiver assemble in place
+                raw = memoryview(seg).cast("B")
+                seg_header["off"] = i * epseg * np_dtype.itemsize
+                seg_header["tb"] = total
+            nraw = len(raw) if codec else raw.nbytes
+        finally:
+            # all exits: a staging or encode error must not leak the span
+            if tok is not None:
+                _trace.end(tok, bytes=nraw)
         prep_s += time.perf_counter() - t0
         ep.send_segment(wdest, seg_header, raw, make_done(i))
     if not done_evt.wait(WAIT_TIMEOUT):

@@ -22,9 +22,9 @@ it the clone stays where the payload was (the eager copy). Partitioned
 pt2pt rides a separate matching *channel*, so its fragments can never
 cross-match user tags.
 
-The C++ matching backend and the pessimist message-logging engine wait
-for the per-rank tier; the request-level fault-tolerance checks wait for
-the ULFM plane.
+The pessimist message-logging engine (``pml/vprotocol``) subclasses this
+one. The C++ matching backend waits for ROADMAP item 7; the
+request-level fault-tolerance checks wait for the ULFM plane.
 """
 from __future__ import annotations
 
@@ -182,9 +182,12 @@ class MatchingEngine:
                            f"send buffer on {data.device}; this "
                            f"communicator's ranks are on {set(devs)}")
         from ompi_tpu_torch.mca import var
+        from ompi_tpu_torch.runtime import spc
         limit = var.var_get("pml_stacked_eager_limit", 1 << 16)
         if _nbytes(data) > limit and devs[dest] != data.device:
+            spc.record("pml_rndv", 1)
             return data.to(devs[dest], copy=True)
+        spc.record("pml_eager", 1)
         return data.clone()
 
     # -- send side -----------------------------------------------------

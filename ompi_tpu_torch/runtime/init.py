@@ -44,7 +44,7 @@ from ompi_tpu_torch.core.errhandler import ERR_OTHER, MPIError
 from ompi_tpu_torch.core.group import Group
 from ompi_tpu_torch.core.info import INFO_ENV
 from ompi_tpu_torch.mca import base, var
-from ompi_tpu_torch.pml import pipeline, stacked
+from ompi_tpu_torch.pml import pipeline, stacked, vprotocol
 from ompi_tpu_torch.runtime import progress
 
 THREAD_SINGLE = 0
@@ -88,6 +88,7 @@ def _register_component_vars() -> None:
     tuned.register_vars()
     compress._register_vars()
     stacked._register_vars()
+    vprotocol._register_vars()
     pipeline.register_params()
     shmseg.register_params()
 
@@ -98,6 +99,11 @@ def init(requested: int = THREAD_SINGLE,
     if _state["initialized"]:
         raise MPIError(ERR_OTHER, "MPI already initialized")
     _register_base_vars()
+    # arm the tracer when the MCA var (env/param file) asks for it,
+    # before any communicator exists: the coll composer and the per-rank
+    # interposer wrap only while it is on
+    from ompi_tpu_torch import trace
+    trace.maybe_enable_from_var()
     if var.var_get("mpi_base_per_rank", False):
         return _init_per_rank(requested)
     if devices is None:
@@ -202,6 +208,10 @@ def _init_per_rank(requested: int) -> int:
                                   "address, rank and size (launch through "
                                   "mpirun --per-rank)")
     device = _bind_device(rank)          # one host: local rank == rank
+    # every span this process records carries its world rank: the
+    # exporter's pid and the attribution layer's participant identity
+    from ompi_tpu_torch import trace
+    trace.set_process_rank(rank)
     accelerator.select_for_devices([device])
     _register_component_vars()
     kv = _Kv(addr)
@@ -291,6 +301,11 @@ def finalized() -> bool:
     return _state["finalized"]
 
 
+def query_thread() -> int:
+    """MPI_Query_thread: the level ``init`` granted."""
+    return _state["thread_level"]
+
+
 def comm_world() -> Communicator:
     if not _state["initialized"] or _state["finalized"]:
         raise MPIError(ERR_OTHER, "MPI is not active (call Init first)")
@@ -325,8 +340,21 @@ def _reset_for_tests() -> None:
     the compression counters and error-feedback residuals. A per-rank
     world left open is torn down too: its device-tier slots and mappings,
     the router with its endpoints and devxfer slots, and the store
-    client."""
+    client. The tracer is disabled and emptied, and the SPC counters,
+    the monitoring table, the hooks' drop count and the skew watermarks
+    are zeroed."""
+    from ompi_tpu_torch import trace
+    from ompi_tpu_torch.coll import monitoring
     from ompi_tpu_torch.core import rankcomm
+    from ompi_tpu_torch.runtime import spc
+    from ompi_tpu_torch.utils import hooks
+    trace.disable()
+    trace.reset()
+    trace.set_process_rank(-1)
+    trace.attribution.reset_watermarks()
+    spc.reset()
+    monitoring.reset()
+    hooks._reset_drops_for_tests()
     router = _state["router"]
     if router is not None:           # a test that never finalized
         rankcomm.close_device_tiers()

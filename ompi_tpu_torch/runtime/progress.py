@@ -21,6 +21,8 @@ from __future__ import annotations
 import threading
 from typing import Callable, List
 
+from ompi_tpu_torch.trace import core as _trace
+
 _callbacks: List[Callable[[], int]] = []
 _low_priority: List[Callable[[], int]] = []
 _low_tick = 0
@@ -108,14 +110,21 @@ def wake_end() -> None:
         return
     _wake_tls.depth = 0
     events = getattr(_wake_tls, "events", {})
+    frames = getattr(_wake_tls, "frames", 0)
+    completions = getattr(_wake_tls, "completions", 0)
     _wake_tls.events = {}
     for ev in events.values():
         ev.set()
     with _wake_lock:
         _wake_stats["wakeups"] += len(events)
-        _wake_stats["completions"] += getattr(_wake_tls, "completions", 0)
-        _wake_stats["frames"] += getattr(_wake_tls, "frames", 0)
+        _wake_stats["completions"] += completions
+        _wake_stats["frames"] += frames
         _wake_stats["batches"] += 1
+    # a timeline marker per flushed batch; one attribute read when
+    # tracing is off
+    if (events or frames) and _trace.active:
+        _trace.instant("pml_wakeup_flush", wakeups=len(events),
+                       completions=completions, frames=frames)
 
 
 def wake_stats() -> dict:
