@@ -169,8 +169,35 @@ Phases, one or more lines each:
                 partitions (``pready`` 2, 0, 1, 3), twice through the same
                 requests, bit for bit; µs per 8 B round trip with tracing
                 off and on, in turns.
-                ``python3 chip_smoke.py --perrank`` runs phases 1, 11, 12
-                and 13 alone.
+14. resilience — on the live 8-rank world on ``cuda:0``, before
+                ``Finalize``: telemetry on for a ``dup()`` (every slot
+                wrapped), the Standard collectives at 32 MB per rank
+                against numpy, calls counted per func, the 32 MB
+                allreduce histogram's p50 beside its CUDA-event time; the
+                dup's ``trace_skew_c<cid>`` and histogram pvars gone after
+                ``free()``; Prometheus text and a telemetry dump; host µs
+                per 8 B allreduce with the plane off and on, in turns.
+                ``fail_rank(3)``: allreduce, send and recv naming rank 3
+                raise ``ERR_PROC_FAILED``; revoke, agree (reporting rank
+                3) and shrink to 7 ranks; the 32 MB allreduce on the
+                survivors' rows of the stacked tensor against numpy, ms
+                before and after; ``BucketedGradSync.shrink`` and one
+                full-width DDP step on the 7 ranks against the in-graph
+                pmean step; ``probe_devices`` on the 8 handles. Then 8
+                rank processes on ``cuda:0`` (``--resilience-rank``,
+                ``mpirun --enable-recovery``, telemetry, heartbeats at
+                p34's settings and the zero-copy pools on): rank 5 exits
+                at its 2nd allreduce; the survivors detect it within 2x
+                the heartbeat timeout with nobody else declared, revoke,
+                agree and shrink, run a 32 MB CUDA allreduce on the 7 and
+                a devxfer ring against exact sums, and leave flight
+                records that ``flightrec.merge`` reads as an incident
+                naming rank 5; the job's rc is 137, no survivor's stderr
+                shows a CUDA error, and no ``otpt*`` file of the job is
+                left in ``/dev/shm``.
+                ``python3 chip_smoke.py --perrank`` runs phases 1, 11, 12,
+                13 and 14's job alone; ``--resilience`` runs phases 1 and
+                14 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -3319,6 +3346,425 @@ def phase_observe_job(smi: str, world_s: float) -> None:
           f" s | {smi}")
 
 
+# -- phase 14 ----------------------------------------------------------
+RES_SEED = 1400
+RES_VICTIM = 5                 # the per-rank job's killed rank
+RES_HB_TIMEOUT = 0.8           # p34's heartbeat settings
+RES_ENV = (("mpi_base_telemetry", 1), ("mpi_base_ft_hb_period", 0.1),
+           ("mpi_base_ft_hb_timeout", RES_HB_TIMEOUT),
+           ("mpi_base_ft_hb_miss", 3), ("mpi_base_ft_inject", 1),
+           ("mpi_base_shm_zerocopy", 1))
+# armed after the healthy allreduces are timed: the victim exits at the
+# 2nd allreduce after that
+RES_KILL = f"rank={RES_VICTIM},point=coll.allreduce,hit=2"
+
+
+def _res_std(t, dev, host) -> list:
+    """The Standard collectives on ``t`` (stacked ``host`` rows on the
+    card), each against numpy on the host copy."""
+    n = t.size
+    x = t.put(host)
+    _close(t.allreduce(x, MPI.SUM).cpu().numpy(),
+           np.broadcast_to(host.sum(0), host.shape), 1e-5, 1e-5,
+           "telemetry allreduce")
+    check(np.array_equal(t.bcast(x, root=3).cpu().numpy(),
+                         np.broadcast_to(host[3], host.shape)),
+          "telemetry bcast")
+    g = t.allgather(x[:, :1024]).cpu().numpy()
+    check(all(np.array_equal(g[i], host[:, :1024]) for i in range(n)),
+          "telemetry allgather")
+    y = x.view(n, n, -1)
+    yh = host.reshape(n, n, -1)
+    check(np.array_equal(t.alltoall(y).cpu().numpy(),
+                         np.swapaxes(yh, 0, 1)), "telemetry alltoall")
+    _close(t.reduce_scatter_block(y, MPI.SUM).cpu().numpy(), yh.sum(0),
+           1e-5, 1e-5, "telemetry reduce_scatter_block")
+    t.barrier()
+    return ["allreduce", "bcast", "allgather", "alltoall",
+            "reduce_scatter_block", "barrier"]
+
+
+def _res_telemetry(w, dev, smi) -> list:
+    """Phase 14(a), telemetry: histograms on a dup built with the plane
+    on, retirement at free, the Prometheus text and the dump, and the
+    8 B allreduce's cost with the plane off and on."""
+    import tempfile
+
+    from ompi_tpu_torch import telemetry
+    from ompi_tpu_torch.telemetry import prom
+    from ompi_tpu_torch.trace import attribution
+    n, lines = w.size, []
+    rng = np.random.default_rng(RES_SEED)
+    host = rng.standard_normal((n, LOCAL_ELEMS), dtype=np.float32)
+    telemetry.enable()
+    t = w.dup()
+    check(t.c_coll and all(isinstance(m, telemetry._HistSlot)
+                           for m in t.c_coll.values()),
+          "telemetry: the dup's vtable is not wrapped")
+    funcs = _res_std(t, dev, host)
+    x = t.put(host)
+    ev_ms = device_ms(lambda: t.allreduce(x, MPI.SUM), iters=10, warmup=2)
+    sclass = telemetry.SIZE_CLASS_NAMES[telemetry.size_class(
+        x.numel() * x.element_size())]
+    huge = telemetry.get_hist(
+        f"tele_coll_allreduce_c{telemetry._cid_token(t.cid)}_{sclass}")
+    snap = huge.snapshot()
+    counted = {f: sum(h.merged()["count"] for h in telemetry.histograms()
+                      if h.comm == str(t.cid)
+                      and h.labels.get("func") == f) for f in funcs}
+    check(all(c >= 1 for c in counted.values()) and snap["count"] >= 13,
+          f"telemetry counts {counted}, allreduce {sclass} "
+          f"{snap['count']}")
+    lines.append(
+        f"telemetry on: a dup built with the plane on wraps its "
+        f"{len(t.c_coll)} slots; the Standard collectives at "
+        f"{LOCAL_ELEMS * 4 >> 20} MB per rank = numpy; calls counted per "
+        f"func {counted}; {LOCAL_ELEMS * 4 >> 20} MB allreduce histogram "
+        f"p50 {snap['p50'] / 1e3:.3f} ms p99 {snap['p99'] / 1e3:.3f} ms "
+        f"(host clock of the app-visible call, {snap['count']} calls) "
+        f"beside its CUDA-event time {ev_ms:.3f} ms (median of 10)")
+    attribution.late_arrival([
+        {"kind": "span", "name": "coll_allreduce", "cid": t.cid, "seq": 1,
+         "rank": q, "ts": 1.0 + (0.2 if q == 3 else 0.0), "dur": 1e-3}
+        for q in range(n)])
+    mine = [p for p in pvar.pvar_names()
+            if p == f"trace_skew_c{t.cid}" or f"_c{t.cid}_" in p]
+    check(f"trace_skew_c{t.cid}" in mine and len(mine) > 1,
+          f"per-comm pvars before free: {mine}")
+    text = prom.render(rank=0)
+    check("# TYPE ompi_tpu_tele_coll_allreduce histogram" in text,
+          "prom text has no allreduce family")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = telemetry.dump(os.path.join(tmp, "telemetry_0.json"), rank=0)
+        with open(path) as f:
+            dumped = json.load(f)
+    check(dumped["telemetry"] == 1 and any(
+        h["name"] == huge.name for h in dumped["hists"]), "telemetry dump")
+    t.free()
+    left = [p for p in mine if p in set(pvar.pvar_names())]
+    check(left == [] and not [h for h in telemetry.histograms()
+                              if h.comm == str(t.cid)],
+          f"per-comm pvars after free: {left}")
+    lines.append(
+        f"free() retired the dup's {len(mine)} per-comm pvars "
+        f"(trace_skew_c{t.cid} and its histograms); prom text "
+        f"{len(text.splitlines())} lines; the dump holds "
+        f"{len(dumped['hists'])} histograms")
+    # 8 B allreduce: the plane off (a comm built with it off: no shim)
+    # and on, in turns
+    telemetry.disable()
+    off = w.dup()
+    telemetry.enable()
+    on = w.dup()
+    us = {"off": [], "on": []}
+    for mode in ("off", "on", "on", "off"):
+        us[mode].append(_obs_8b_us(off if mode == "off" else on))
+    telemetry.disable()
+    gated = _obs_8b_us(on)           # wrapped, plane off: one read
+    on.free()
+    off.free()
+    lines.append(
+        f"8 B allreduce host us, telemetry off then on, in turns (off on "
+        f"on off): {us['off'][0]:.2f}, {us['on'][0]:.2f}, "
+        f"{us['on'][1]:.2f}, {us['off'][1]:.2f}; on costs "
+        f"{(statistics.mean(us['on']) / statistics.mean(us['off']) - 1):.1%}"
+        f"; a wrapped comm with the plane turned off {gated:.2f}")
+    return lines
+
+
+def _res_ulfm(w, dev, smi) -> list:
+    """Phase 14(a), ULFM: fail world rank 3, then revoke, agree and
+    shrink; the shrunk comm's 32 MB allreduce and a DDP step on it."""
+    from ompi_tpu_torch.runtime import ft
+    n, lines = w.size, []
+    check(ft.Registry().probe_devices(w.devices) == [],
+          "probe_devices on the 8 cuda:0 handles")
+    rng = np.random.default_rng(RES_SEED + 1)
+    host = rng.standard_normal((n, LOCAL_ELEMS), dtype=np.float32)
+    f = w.dup()
+    f.set_errhandler(MPI.ERRORS_RETURN)
+    x = f.put(host)
+    before = device_ms(lambda: f.allreduce(x, MPI.SUM), iters=10, warmup=2)
+    # the DDP synchronizer is built while all 8 ranks live
+    cfg = dataclasses.replace(CONFIG, dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    specs = tree_map(lambda _: P(), params)
+    sync = T.BucketedGradSync(f, Mesh((n,), ("dp",), dev).shard(params,
+                                                              specs))
+    ft.fail_rank(f.group.world_ranks[3], "phase 14 drill")
+    raised = []
+    for name, fn in (("allreduce", lambda: f.allreduce(x, MPI.SUM)),
+                     ("send", lambda: f.send(x[0], src=0, dest=3)),
+                     ("recv", lambda: f.recv(source=3, dst=0))):
+        try:
+            fn()
+        except MPI.MPIError as e:
+            raised.append((name, e.error_class))
+    check(raised == [("allreduce", MPI.ERR_PROC_FAILED),
+                     ("send", MPI.ERR_PROC_FAILED),
+                     ("recv", MPI.ERR_PROC_FAILED)], f"raised {raised}")
+    t0 = time.perf_counter()
+    f.revoke()
+    try:
+        f.agree([0b11] * n)
+        check(False, "agree over an unacknowledged failure returned")
+    except MPI.MPIError as e:
+        check(e.error_class == MPI.ERR_PROC_FAILED and "[3]" in str(e)
+              and e.agreed_value == 0b11, f"agree: {e}")
+    s = f.shrink()
+    rs_ms = (time.perf_counter() - t0) * 1e3
+    check(s.size == n - 1 and 3 not in s.group.world_ranks
+          and s.device == dev, f"shrunk comm {s}")
+    xs = f.survivor_rows(x, s)
+    check(xs.device == dev, "survivor rows left the card")
+    keep = [r for r in range(n) if r != 3]
+    _close(s.allreduce(xs, MPI.SUM).cpu().numpy(),
+           np.broadcast_to(host[keep].sum(0), (n - 1, LOCAL_ELEMS)),
+           1e-5, 1e-5, "shrunk allreduce")
+    after = device_ms(lambda: s.allreduce(xs, MPI.SUM), iters=10, warmup=2)
+    lines.append(
+        f"fail_rank(3): allreduce, send and recv naming rank 3 raise "
+        f"ERR_PROC_FAILED; revoke, agree (reports [3], agreed "
+        f"{0b11:#b}) and shrink to {s.size} ranks took {rs_ms:.2f} ms "
+        f"(host clock); {LOCAL_ELEMS * 4 >> 20} MB allreduce on the "
+        f"survivors' rows of the stacked {dev} tensor = numpy of the 7 "
+        f"rows, {after:.3f} ms against {before:.3f} ms on 8 ranks (CUDA "
+        f"events, median of 10); probe_devices on the 8 handles: []")
+    lines.append(_res_ddp(sync, s, cfg, params, specs, dev))
+    return lines
+
+
+def _res_ddp(sync, s, cfg, params, specs, dev) -> str:
+    """``sync`` (a BucketedGradSync built on the 8 ranks) shrunk onto
+    ``s``, one DDP step there against the in-graph dp pmean on the same
+    7 ranks."""
+    n = s.size
+    mesh = Mesh((n,), ("dp",), dev)
+    start = mesh.shard(params, specs)
+    tok = torch.from_numpy(np.random.default_rng(RES_SEED + 2).integers(
+        0, cfg.vocab, (2 * n, cfg.seq + 1)))
+    batch = mesh.shard((tok[:, :-1], tok[:, 1:]), (P("dp"), P("dp")))
+    dpc = InGraphComm("dp", n, mesh)
+    sync.shrink(s)
+    check(sync.n == n and sync.comm is s, "BucketedGradSync.shrink")
+    pa, la = T.sgd_train_step(start, batch, cfg, 1e-2, dpc, grad_sync=sync)
+    pc, lc = T.sgd_train_step(start, batch, cfg, 1e-2, dpc)
+    div = mesh.divergence(pa, specs)
+    check(np.isfinite(float(la[0])) and div <= 1e-6,
+          f"DDP on the shrunk comm: loss {float(la[0])}, divergence {div}")
+    _ddp_losses_close([float(la[0])], [float(lc[0])], "shrunk DDP step")
+    worst = max((a - b).abs().max().item()
+                for a, b in zip(tree_leaves(pa), tree_leaves(pc)))
+    check(all(bool(torch.allclose(a, b, rtol=2e-4, atol=2e-6))
+              for a, b in zip(tree_leaves(pa), tree_leaves(pc))),
+          f"shrunk DDP params differ from the pmean step by {worst:.3g}")
+    return (f"BucketedGradSync built on 8 ranks, shrunk onto {n}: one "
+            f"full-width DDP step, loss {float(la[0]):.6f} (pmean step "
+            f"{float(lc[0]):.6f}), replicated-leaf divergence {div:.3g}, "
+            f"params within rtol 2e-4 atol 2e-6 of the pmean step (max "
+            f"abs diff {worst:.3g})")
+
+
+def phase_resilience_world(w, smi: str) -> float:
+    """Phase 14(a) on the live 8-rank world, just before Finalize (it
+    leaves world rank 3 failed). Returns the seconds it took."""
+    t0 = time.perf_counter()
+    dev = w.device
+    for line in _res_telemetry(w, dev, smi) + _res_ulfm(w, dev, smi):
+        phase("resilience", f"{line} | {smi}")
+    return time.perf_counter() - t0
+
+
+def _resilience_rank(report: str) -> int:
+    """The rank program of phase 14(b) (mpirun --per-rank
+    --enable-recovery, telemetry and heartbeats on, rank 5 killed at its
+    2nd allreduce); each survivor writes its flight record, rank 0 its
+    lines to ``report``."""
+    from ompi_tpu_torch import telemetry
+    from ompi_tpu_torch.accelerator import job_tag
+    from ompi_tpu_torch.ft import inject
+    from ompi_tpu_torch.runtime import ft
+    from ompi_tpu_torch.telemetry import flightrec
+    MPI.Init()
+    w = MPI.get_comm_world()
+    r, n = w.rank(), w.size
+    dev = w.device
+    out_dir = os.path.dirname(report)
+    check(telemetry.active and w.router.detector is not None,
+          f"rank {r}: telemetry or the detector is off")
+    w.set_errhandler(MPI.ERRORS_RETURN)
+    w.barrier()
+    # a 1 MiB host ring through the zero-copy pools: every rank, the
+    # victim too, maps its /dev/shm pools before the kill
+    h = np.full(1 << 18, float(r), np.float32)
+    w.send(h, (r + 1) % n, tag=3)
+    got, _ = w.recv((r - 1) % n, tag=3)
+    check(np.array_equal(got, np.full(1 << 18, float((r - 1) % n),
+                                      np.float32)), f"rank {r}: host ring")
+    base = (torch.arange(LOCAL_ELEMS, device=dev) % 1024).float()
+    x = base + r
+    full = base * n + n * (n - 1) / 2
+
+    def timed(comm, want) -> float:
+        """Median host ms of 5 synchronised 32 MB allreduces on
+        ``comm`` (after one untimed), each equal to ``want``."""
+        times = []
+        for i in range(6):
+            comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = comm.allreduce(x, MPI.SUM)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+            check(y.device == dev and torch.equal(y, want),
+                  f"rank {r}: allreduce on {comm.name}")
+        return statistics.median(times)
+
+    before_ms = timed(w, full)
+    var.var_set("mpi_base_ft_inject_kill", RES_KILL)
+    inject.refresh()
+    check(torch.equal(w.allreduce(x, MPI.SUM), full),   # point hit 1
+          f"rank {r}: healthy allreduce")
+    t_in = time.perf_counter()
+    try:
+        w.allreduce(x, MPI.SUM)                      # the victim dies here
+        check(False, f"rank {r}: an allreduce over a dead rank returned")
+    except MPI.MPIError as e:
+        # a survivor blocked on a live peer that bailed out is released
+        # by the revoke that any first detector floods
+        check(e.error_class in (MPI.ERR_PROC_FAILED, MPI.ERR_REVOKED),
+              f"rank {r}: {e}")
+    t_rev = time.perf_counter()
+    err_ms = (t_rev - t_in) * 1e3
+    w.revoke()
+    deadline = time.monotonic() + 30
+    while w.get_failed() != [RES_VICTIM]:
+        check(time.monotonic() < deadline, f"rank {r}: {w.get_failed()}")
+        time.sleep(0.01)
+    check(w.agree(1) == 1, f"rank {r}: agree")
+    s = w.shrink()
+    rs_ms = (time.perf_counter() - t_rev) * 1e3
+    sr, sn = s.rank(), s.size
+    check(sn == n - 1 and sr == (r if r < RES_VICTIM else r - 1),
+          f"rank {r}: shrunk to {sn}, rank {sr}")
+    lat = pvar.pvar_read("ft_detect_latency_us")
+    after_ms = timed(s, base * sn + sum(q for q in range(n)
+                                        if q != RES_VICTIM))
+    # a devxfer ring of 32 MB CUDA tensors among the survivors
+    pulls = w.router.xfer.stats["received"]
+    msg = base * (sr + 1)
+    s.send(msg, (sr + 1) % sn, tag=4)
+    got, _ = s.recv((sr - 1) % sn, tag=4)
+    check(got.device == dev and torch.equal(got, base * ((sr - 1) % sn + 1)),
+          f"rank {r}: devxfer ring")
+    xfer = w.router.xfer.stats["received"] - pulls
+    failed = sorted(ft.failed_ranks())
+    rows = s.allgather((lat, rs_ms, before_ms, after_ms, failed, xfer,
+                        err_ms))
+    s.barrier()                       # every flight record is written
+    frecs = sorted(f for f in os.listdir(out_dir)
+                   if f.startswith("flightrec_") and f.endswith(".json"))
+    if r == 0:
+        pays = []
+        for name in frecs:
+            with open(os.path.join(out_dir, name)) as fh:
+                pays.append(json.load(fh))
+        rep = flightrec.merge(pays)
+        ranks = sorted({p["rank"] for p in pays})
+        check(rep["critical_rank"] == RES_VICTIM
+              and rep.get("critical_absent") is True
+              and ranks == [q for q in range(n) if q != RES_VICTIM],
+              f"flight records: ranks {ranks}, report {rep}")
+        check(all(row[4] == [RES_VICTIM] for row in rows),
+              f"a survivor was declared: {[row[4] for row in rows]}")
+        # detection: every survivor's failed allreduce raised within 2x
+        # the heartbeat timeout, and so did the ft_detect_latency_us of
+        # the victim's ring successor, the one rank that heard its beats
+        # (the others count from their detector's start, as the
+        # reference's pvar does)
+        lats = [row[0] for row in rows]
+        errs = [row[6] for row in rows]
+        succ = RES_VICTIM                # its shrunk rank is the victim's
+        check(max(errs) < 2 * RES_HB_TIMEOUT * 1e3
+              and lats[succ] < 2 * RES_HB_TIMEOUT * 1e6,
+              f"detection: errors after {errs} ms, latencies {lats} us")
+        lines = [
+            f"8 rank processes on {dev}, telemetry and heartbeats on "
+            f"(period 0.1 s, timeout {RES_HB_TIMEOUT} s, miss 3): rank "
+            f"{RES_VICTIM} exited at its 2nd allreduce after the kill "
+            f"spec was armed; the 7 survivors "
+            f"saw ERR_PROC_FAILED or ERR_REVOKED, revoked, agreed and "
+            f"shrank; failed set {rows[0][4]} on every survivor (none "
+            f"declared); detection latency us per survivor {lats} (limit "
+            f"{2 * RES_HB_TIMEOUT * 1e6:.0f}; the silence since the "
+            f"victim was last known alive, less one period: its ring "
+            f"successor heard its beats, the others count from their "
+            f"detector's start); the failed allreduce raised after ms "
+            f"{[round(row[6], 1) for row in rows]}",
+            f"revoke -> shrink ms per survivor "
+            f"{[round(row[1], 2) for row in rows]}; "
+            f"{LOCAL_ELEMS * 4 >> 20} MB CUDA allreduce ms on rank 0 "
+            f"(host clock with the fences, median of 5): {rows[0][2]:.3f} "
+            f"on 8 ranks and {rows[0][3]:.3f} on the 7 survivors, = exact "
+            f"sums; devxfer ring of "
+            f"{LOCAL_ELEMS * 4 >> 20} MB CUDA tensors among the "
+            f"survivors pulled {sum(row[5] for row in rows)} slots",
+            f"flight records {frecs}; flightrec.merge: critical rank "
+            f"{rep['critical_rank']} (absent: "
+            f"{rep.get('critical_absent')}), accusations "
+            f"{rep['accusations']}; job tag {job_tag()}"]
+        with open(report, "w") as fh:
+            json.dump({"lines": lines, "tag": job_tag()}, fh)
+    s.free()
+    w.free()
+    MPI.Finalize()
+    print(f"OK resilience rank={r}/{n}", flush=True)
+    return 0
+
+
+def phase_resilience_job(smi: str, world_s: float) -> None:
+    """Phase 14(b): the per-rank ULFM drill, 8 rank processes on cuda:0,
+    with the launcher in recovery mode (the victim's 137 is the job's
+    rc; the 7 survivors must print OK)."""
+    import glob
+    import tempfile
+    from ompi_tpu_torch.accelerator import SHM_DIR
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "rank0.json")
+        cmd = [sys.executable,
+               os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py"),
+               "--per-rank", "-n", str(PR_RANKS), "--timeout",
+               str(PR_TIMEOUT), "--enable-recovery",
+               "--mca", "mpi_base_telemetry_flightrec_dir", tmp]
+        for k, v in RES_ENV:
+            cmd += ["--mca", k, str(v)]
+        cmd += [os.path.abspath(__file__), "--resilience-rank", report]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=PR_TIMEOUT + 60, cwd=root)
+        oks = res.stdout.count("OK resilience")
+        if res.returncode != 137 or oks != PR_RANKS - 1:
+            sys.stderr.write(res.stderr[-6000:])
+            check(False, f"resilience job rc={res.returncode} (want 137), "
+                  f"{oks} of {PR_RANKS - 1} survivors OK:\n"
+                  f"{res.stdout[-3000:]}")
+        cuda_err = [ln for ln in res.stderr.splitlines()
+                    if "CUDA error" in ln or "cudaError" in ln]
+        check(not cuda_err, f"CUDA errors in the survivors' stderr: "
+              f"{cuda_err[:5]}")
+        with open(report) as f:
+            rep = json.load(f)
+    left = glob.glob(os.path.join(SHM_DIR, f"otpt*_{rep['tag']}_*"))
+    check(rep["tag"] and not left, f"shared segments left: {left}")
+    for line in rep["lines"]:
+        phase("resilience", f"{line} | {smi}")
+    phase("resilience", f"no otpt*_{rep['tag']}_* file left under "
+          f"{SHM_DIR}; no CUDA error in any survivor's stderr; phase 14 "
+          f"took {world_s + time.perf_counter() - t0:.1f} s | {smi}")
+
+
 def main() -> int:
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
@@ -3326,9 +3772,19 @@ def main() -> int:
         return _dataplane_rank(sys.argv[-1])
     if "--observe-rank" in sys.argv:
         return _observe_rank(sys.argv[-1])
+    if "--resilience-rank" in sys.argv:
+        return _resilience_rank(sys.argv[-1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if "--resilience" in sys.argv:
+        smi, _ = phase_device()
+        MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+        res_s = phase_resilience_world(MPI.get_comm_world(), smi)
+        MPI.Finalize()
+        torch.cuda.empty_cache()
+        phase_resilience_job(smi, res_s)
+        return 0
     if "--perrank" in sys.argv:
         smi, _ = phase_device()
         phase_perrank(smi)
@@ -3339,6 +3795,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_dataplane(smi)
         phase_observe_job(smi, world_s)
+        phase_resilience_job(smi, 0.0)
         return 0
     t0 = time.perf_counter()
     smi, kind = phase_device()
@@ -3359,11 +3816,13 @@ def main() -> int:
     phase_ptp_topo_datatype(world, smi)
     _tuned_single(world, smi)
     world_s = phase_observe_world(world, smi)
+    res_s = phase_resilience_world(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
     phase_perrank(smi)
     phase_dataplane(smi)
     phase_observe_job(smi, world_s)
+    phase_resilience_job(smi, res_s)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

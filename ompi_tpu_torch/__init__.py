@@ -37,6 +37,11 @@ module's counterpart sits at the same path:
                     export and late-arrival attribution, profiling hooks
                     and software performance counters (with
                     ``coll/monitoring`` and ``coll/sync``).
+- ``telemetry``   — histogram pvars, the straggler health monitor, the
+                    fault flight recorder and the Prometheus exporter.
+- ``runtime.ft``, ``ft``, ``coll/ftagree``, ``mpiext`` — ULFM: the
+                    failure registry, fault injection, the heartbeat
+                    detector, agreement and the MPIX_* surface.
 
 It imports torch, numpy and the standard library — never JAX, and never
 ``ompi_tpu``.
@@ -48,7 +53,7 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     KEYVAL_INVALID, MAX_ERROR_STRING, MAX_PROCESSOR_NAME,
     SUCCESS, ERR_COMM, ERR_TYPE, ERR_OP, ERR_ARG, ERR_COUNT, ERR_BUFFER,
     ERR_RANK, ERR_ROOT, ERR_TRUNCATE, ERR_OTHER, ERR_PENDING, ERR_TOPOLOGY,
-    ERR_PROC_FAILED,
+    ERR_PROC_FAILED, ERR_REVOKED,
     CONGRUENT, IDENT, SIMILAR, UNEQUAL,
     THREAD_SINGLE, THREAD_FUNNELED, THREAD_SERIALIZED, THREAD_MULTIPLE,
     COMM_TYPE_SHARED, COMM_TYPE_HWTHREAD, COMM_TYPE_NUMA,
@@ -72,6 +77,9 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     Send, Ssend, Isend, Recv, Irecv, Sendrecv, Probe,
     # collectives (both communicator kinds)
     Barrier, Bcast, Reduce, Allreduce, Allgather,
+    # ULFM resilience surface (mpiext/ftmpi)
+    MPIX_Comm_agree, MPIX_Comm_get_failed, MPIX_Comm_is_revoked,
+    MPIX_Comm_revoke, MPIX_Comm_shrink,
     # request completion
     Wait, Start, Startall, Test, Waitall, Waitany, Waitsome, Testall,
     Testany, Testsome,

@@ -26,7 +26,8 @@ from ompi_tpu_torch.core.datatype import (  # noqa: F401
     from_numpy_dtype, from_torch_dtype)
 from ompi_tpu_torch.core.errhandler import (  # noqa: F401
     ERR_ARG, ERR_BUFFER, ERR_COMM, ERR_COUNT, ERR_OP, ERR_OTHER, ERR_PENDING,
-    ERR_PROC_FAILED, ERR_RANK, ERR_ROOT, ERR_TOPOLOGY, ERR_TRUNCATE, ERR_TYPE, ERRORS_ABORT,
+    ERR_PROC_FAILED, ERR_RANK, ERR_REVOKED, ERR_ROOT, ERR_TOPOLOGY,
+    ERR_TRUNCATE, ERR_TYPE, ERRORS_ABORT,
     ERRORS_ARE_FATAL,
     ERRORS_RETURN, Errhandler, MPIError, SUCCESS, error_string)
 from ompi_tpu_torch.core.group import (CONGRUENT, Group, IDENT,  # noqa: F401
@@ -193,6 +194,15 @@ def Allreduce(comm, data, op: Op = SUM):
 
 def Allgather(comm, data):
     return _guard(comm, comm.allgather, data)
+
+
+# -- ULFM (the MPIX_* surface, mpiext/ftmpi) ------------------------------
+from ompi_tpu_torch.mpiext.ftmpi import (  # noqa: E402,F401
+    Comm_agree as MPIX_Comm_agree,
+    Comm_get_failed as MPIX_Comm_get_failed,
+    Comm_is_revoked as MPIX_Comm_is_revoked,
+    Comm_revoke as MPIX_Comm_revoke,
+    Comm_shrink as MPIX_Comm_shrink)
 
 
 # request completion (MPI_Wait/Test families) -----------------------------

@@ -36,11 +36,14 @@ import uuid
 from collections import deque
 from typing import Callable, Dict, Optional, Tuple
 
+from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.btl import shmseg as _shmseg
 from ompi_tpu_torch.btl.sm import Ring, SmEndpoint
 from ompi_tpu_torch.btl.tcp import PeerDownError, TcpEndpoint
+from ompi_tpu_torch.ft import inject as _inject
 from ompi_tpu_torch.mca import pvar as _pvar
 from ompi_tpu_torch.mca import var
+from ompi_tpu_torch.runtime import ft
 from ompi_tpu_torch.runtime import progress as _progress
 from ompi_tpu_torch.trace import core as _trace
 
@@ -86,6 +89,12 @@ def register_params() -> None:
                           "send locks and sender threads); 1 = one rail. "
                           "Read per segment")
     _shmseg.register_params()
+    # the resilience plane's vars register beside the btl tuning vars:
+    # injection (mpi_base_ft_inject_*) and the heartbeat detector
+    # (mpi_base_ft_hb_*)
+    _inject.register_params()
+    from ompi_tpu_torch.ft import detector as _detector
+    _detector.register_params()
 
 
 def _probe_stream(chunk: int = 64 << 10, reps: int = 8,
@@ -151,6 +160,10 @@ class BmlEndpoint:
                  sink: Callable[[dict, bytes], None],
                  on_peer_lost: Optional[Callable[[int], None]] = None):
         register_params()
+        # bind the injection plane to this process's world rank and
+        # (re)compile the fault specs — a no-op leaving the gate cold
+        # when mpi_base_ft_inject is unset
+        _inject.refresh(rank)
         self.rank = rank
         self.nprocs = nprocs
         self._kv_get = kv_get
@@ -352,6 +365,16 @@ class BmlEndpoint:
             self.stats["self"] += 1
             self.sink(header, payload)
             return
+        if _inject.active:
+            # pml-plane fault hook (ft/inject): a "drop" fires here,
+            # before the sequence stamp, so the loss models a message
+            # that never reached the wire — the receiver never matches
+            # it and no reorder-buffer hole is created
+            act = _inject.frame_fault("pml", peer)
+            if act is not None:
+                if act[0] == "drop":
+                    return
+                _inject.delay_now(act[1])
         header = dict(header)
         header["_sq"] = (self.rank, next(self._send_seq[peer]))
         if (self.sm is not None and len(payload) >= self._sm_min
@@ -362,8 +385,9 @@ class BmlEndpoint:
             timeout = 0.0 if getattr(self.tcp._reader_tls, "active",
                                      False) else 60.0
             try:
-                pushed = self.sm.try_send(peer, header, payload,
-                                          timeout=timeout)
+                pushed = not ft.is_failed(peer) and \
+                    self.sm.try_send(peer, header, payload,
+                                     timeout=timeout)
             except (OSError, ValueError):    # ring closed mid-shutdown
                 pushed = False
             if pushed:
@@ -434,10 +458,15 @@ class BmlEndpoint:
             tok = (_trace.begin("btl.rail", rail=rail, peer=peer,
                                 bytes=len(payload))
                    if _trace.active else None)
+            if _tele.active:
+                # telemetry: payload bytes per rail frame — the stripe
+                # width the rendezvous scheduler actually produced
+                _tele.RAIL.record(len(payload))
             seg = None
             if (self.shm_seg is not None and _shmseg.enabled()
                     and "off" in header
                     and len(payload) >= self.shm_seg.min_bytes
+                    and not ft.is_failed(peer)
                     and self._is_same_host(peer)):
                 # zero-copy: park the segment in a shared slot and ship
                 # only its descriptor. Offset-addressed segments only:
@@ -450,7 +479,8 @@ class BmlEndpoint:
                     payload = b""
             sent = False
             try:
-                sent = self._rail_push(peer, header, payload, rail)
+                if not ft.is_failed(peer):
+                    sent = self._rail_push(peer, header, payload, rail)
             finally:
                 if seg is not None and not sent:
                     # the descriptor never left: the receiver will never

@@ -32,6 +32,7 @@ import torch
 from ompi_tpu_torch import accelerator
 from ompi_tpu_torch.core.errhandler import ERR_PROC_FAILED, MPIError
 from ompi_tpu_torch.mca import var
+from ompi_tpu_torch.runtime import ft
 
 
 def eager_limit() -> int:
@@ -127,7 +128,9 @@ class DevXfer:
         if desc["kind"] == "devlocal":
             return desc["tensor"]
         src = int(desc["src"])
-        if src in self.router.failed:
+        if ft.is_failed(src):
+            # ULFM fail-fast before any open or copy: once the exporting
+            # process is gone, reads through its IPC handle are undefined
             raise MPIError(ERR_PROC_FAILED, f"device payload source rank "
                                             f"{src} has failed")
         key = (src, int(desc["slot"]))

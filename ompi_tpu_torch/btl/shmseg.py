@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.accelerator import SHM_DIR, job_tag
 from ompi_tpu_torch.mca import pvar as _pvar
 from ompi_tpu_torch.mca import var
@@ -266,6 +267,8 @@ class SegPlane:
                 with self._lock:         # a failed pack must not leak
                     free.add(idx)        # its slot
         count("packs")
+        if _tele.active:
+            _tele.SHMSEG.record(n)
         return {"o": self.rank, "i": idx, "n": n}
 
     def release(self, peer: int, idx: int) -> None:
@@ -315,6 +318,8 @@ class SegPlane:
                              offset=idx * pf.slot_bytes)
         weakref.finalize(flat, _send_free, self, owner, idx)
         count("adoptions")
+        if _tele.active:
+            _tele.SHMSEG.record(n)
         return flat.reshape(tuple(inner["shape"]))
 
     def view(self, desc: dict) -> memoryview:

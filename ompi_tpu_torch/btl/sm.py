@@ -34,6 +34,7 @@ from typing import Callable, Dict, Optional
 
 from ompi_tpu_torch.accelerator import SHM_DIR, job_tag
 from ompi_tpu_torch.btl.tcp import _LEN, MAGIC
+from ompi_tpu_torch.ft import inject as _inject
 from ompi_tpu_torch.trace import core as _trace
 
 _REC = struct.Struct("<Q")           # counter / per-record length prefix
@@ -243,6 +244,18 @@ class SmEndpoint:
         """Send one frame if it fits the ring; False tells the bml to
         route it through tcp. Reader threads pass ``timeout=0``: a full
         ring must divert the frame at once, not stall inbound progress."""
+        if _inject.active:
+            # sm-plane fault hook (ft/inject): "drop" here means this
+            # transport refuses the frame — bml's fallback carries it
+            # over tcp (a full ring's signature), so delivery stays
+            # correct while the fallback path is exercised. A delay runs
+            # only on callers that may block (the routing timeout's rule)
+            act = _inject.frame_fault("sm", peer)
+            if act is not None:
+                if act[0] == "drop":
+                    return False
+                if timeout > 0:
+                    _inject.delay_now(act[1])
         hraw = pickle.dumps(header)
         rec = _LEN.pack(MAGIC, len(hraw), len(payload)) + hraw + payload
         ring = self._attach(peer)

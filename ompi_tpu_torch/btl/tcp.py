@@ -29,6 +29,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ompi_tpu_torch import telemetry as _tele
+from ompi_tpu_torch.ft import inject as _inject
 from ompi_tpu_torch.trace import core as _trace
 
 MAGIC = 0x7f4d5049          # "\x7fMPI"
@@ -388,6 +390,11 @@ class TcpEndpoint:
             tok = (_trace.begin("btl_ctl_flush", peer=peer,
                                 frames=len(batch), bytes=cost)
                    if _trace.active else None)
+            if _tele.active:
+                # telemetry: flush-window width — frames coalesced per
+                # sendall; a widening histogram means the ctl sender is
+                # falling behind its queue
+                _tele.FLUSH.record(len(batch))
             sent = False
             try:
                 for attempt in range(3):
@@ -440,7 +447,61 @@ class TcpEndpoint:
         if getattr(self._reader_tls, "active", False):
             self._ctl_submit(peer, header, payload)
             return
+        if _inject.active:               # fault-injection plane: one
+            self._inject_faults(peer)    # attribute read when off
         self._send_frame_blocking(peer, header, payload)
+
+    # -- fault injection (ft/inject: the tcp-plane hook site) ----------
+    def _inject_faults(self, peer: int) -> None:
+        """Runs only on app/sender threads (never readers — a delayed
+        reader would stall every peer's drain) with the gate open."""
+        act = _inject.frame_fault("tcp", peer)
+        if act is not None and act[0] == "delay":
+            _inject.delay_now(act[1])
+        if _inject.should_sever(peer):
+            self._sever_peer(peer)
+        if _inject.should_corrupt(peer):
+            self._send_corrupt(peer)
+            # evict our own socket too: the receiver drops its end at
+            # the bad magic, and a sequence-stamped frame still in
+            # flight there would be lost — a permanent hole in the
+            # peer's reorder buffer. A fresh connection carries the
+            # frame that triggered the injection, so corruption costs
+            # one reconnect and no sequenced frame.
+            self._evict_peer_socket(peer)
+
+    def _sever_peer(self, peer: int) -> None:
+        """Abruptly cut the rail-0 connection (an injected network cut):
+        SO_LINGER 0 turns the close into an RST, so the peer's reader
+        sees what a process death looks like on the wire — an error on
+        an identified connection."""
+        with self._lock:
+            s = self._peers.pop(peer, None)
+        if s is None:
+            return
+        try:
+            s.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                         struct.pack("ii", 1, 0))
+        except OSError:
+            pass
+        try:
+            s.close()
+        except OSError:
+            pass
+
+    def _send_corrupt(self, peer: int) -> None:
+        """Injected wire corruption: a frame whose magic is wrong. The
+        peer's framing check drops the connection without a death report
+        (``_read_loop``'s corrupt-stream rule); the caller evicts this
+        side's socket too, so the next send reconnects."""
+        try:
+            s = self._connect(peer)
+            hraw = pickle.dumps({"ctl": "_corrupt"})
+            bad = _LEN.pack(MAGIC ^ 0x00BAD000, len(hraw), 0) + hraw
+            with self._peer_locks[peer]:
+                s.sendall(bad)
+        except OSError:
+            pass
 
     def _send_frame_blocking(self, peer: int, header: dict,
                              payload: bytes = b"") -> None:

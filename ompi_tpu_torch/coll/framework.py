@@ -19,6 +19,9 @@ COLL_FUNCS = (
     # libnbc role; blocking-slot winners serve the rest of the i-surface
     # through async dispatch)
     "iallreduce", "ibcast", "iallgather", "ibarrier",
+    # ULFM fault-tolerant agreement (reference vtable slots
+    # ompi/mca/coll/coll.h:215-220, provided by coll/ftagree)
+    "agree", "iagree",
 )
 
 coll_framework = register_framework("coll")
@@ -32,8 +35,8 @@ def _ensure_components() -> None:
         return
     # Importing registers each component with the framework.
     from ompi_tpu_torch.coll import (basic, compressed,  # noqa: F401
-                                     monitoring, nbc, self_, sync, torch_,
-                                     tuned)
+                                     ftagree, monitoring, nbc, self_,
+                                     sync, torch_, tuned)
     _components_loaded = True
 
 
@@ -56,9 +59,9 @@ def comm_select_coll(comm) -> Dict[str, Any]:
     """Build the c_coll vtable for ``comm``: highest-priority provider per
     collective function; when monitoring is enabled, every slot is
     served by the counting shim (which delegates to the slot's real
-    winner), and when tracing is enabled the span shim wraps outermost.
-    Both are off by default, and the vtable is then the winners'
-    modules themselves."""
+    winner), the telemetry histogram shim wraps that, and when tracing
+    is enabled the span shim wraps outermost. All are off by default,
+    and the vtable is then the winners' modules themselves."""
     winners, selected = select_winners(comm)
     # Cache the selection outcome: introspection, and the ordered list
     # coll/compressed delegates through.
@@ -71,9 +74,14 @@ def comm_select_coll(comm) -> Dict[str, Any]:
     from ompi_tpu_torch.coll import monitoring
     if vtable and monitoring.enabled():
         vtable = monitoring.wrap_vtable(comm, vtable)
-    # the telemetry histograms ride between monitoring and the tracer in
-    # the reference (ROADMAP 17b); the tracer wraps outermost, so spans
-    # measure the app-visible call with monitoring's counters inside
+    # telemetry's latency histograms ride between monitoring and the
+    # tracer: they time the same app-visible call the spans do without
+    # paying the tracer's ring append; off by default
+    from ompi_tpu_torch import telemetry
+    if vtable and telemetry.telemetry_enabled():
+        vtable = telemetry.wrap_coll_vtable(comm, vtable)
+    # the tracer wraps outermost, so spans measure the app-visible call
+    # with monitoring's counters and the histograms inside
     from ompi_tpu_torch import trace
     if vtable and trace.tracing_enabled():
         vtable = trace.wrap_coll_vtable(comm, vtable)

@@ -9,8 +9,9 @@ buffer), so
 the FRAMEWORK boundary that still applies to them is the reference's
 interposition tier: coll/sync (barrier every Nth operation, the
 flow-control debugging aid), coll/monitoring (per-(comm, func)
-call/byte counters feeding the pvar/profile tools) and the tracer
-(one ``coll_<func>`` span per application call).
+call/byte counters feeding the pvar/profile tools), the telemetry
+plane's latency histograms and the tracer (one ``coll_<func>`` span
+per application call).
 
 This module applies those components to a RankCommunicator by wrapping
 and REBINDING its collective methods at construction, honoring the
@@ -18,7 +19,7 @@ same MCA vars as the stacked components (``coll_sync_barrier_before``,
 ``coll_monitoring_enable``) — one config plane, two execution models.
 The wrap order mirrors the stacked composer: sync innermost, then
 monitoring (counts what the app called; sync's injected barrier is not
-itself counted), then the tracer outermost. The base barrier is
+itself counted), then the histograms, then the tracer outermost. The base barrier is
 captured unwrapped, so sync's injections cannot recurse. Nonblocking
 collectives are sync-exempt —
 their worker threads would race the op counter across ranks, exactly
@@ -99,6 +100,36 @@ def _wrap_span(comm, funcs) -> None:
         setattr(comm, f, make(f, getattr(comm, f)))
 
 
+def _wrap_hist(comm, funcs) -> None:
+    """Rebind each collective with a latency-histogram shim (the
+    telemetry tier). Same outermost-only reentrancy contract as the
+    span shim; the live ``telemetry.active`` gate is re-read per call,
+    so the disabled cost is one attribute read. Per-(comm, func)
+    histogram tuples are resolved once at wrap time; the per-call work
+    is a size-class index plus a shard increment."""
+    from ompi_tpu_torch import telemetry as _tele
+    cid = comm.cid
+
+    def make(func, inner):
+        hists = _tele.coll_hists(cid, func)
+
+        def call(*args, **kw):
+            if not _tele.active or getattr(_tls, "tele_depth", 0):
+                return inner(*args, **kw)
+            hist = hists[_tele.size_class(_payload_nbytes(args, kw))]
+            tok = hist.start()
+            _tls.tele_depth = 1
+            try:
+                return inner(*args, **kw)
+            finally:
+                _tls.tele_depth = 0
+                hist.observe(tok)
+        call.__name__ = func
+        return call
+    for f in funcs:
+        setattr(comm, f, make(f, getattr(comm, f)))
+
+
 def _payload_nbytes(args, kw) -> int:
     """Bytes of the call's first buffer-ish argument: arrays directly,
     chunk lists by summation, keyword buffers included."""
@@ -132,8 +163,10 @@ def interpose(comm) -> None:
     mon = bool(var.var_get("coll_monitoring_enable", False))
     from ompi_tpu_torch import trace as _trace_pkg
     traced = _trace_pkg.tracing_enabled()
+    from ompi_tpu_torch import telemetry as _tele_pkg
+    tele = _tele_pkg.telemetry_enabled()
     comm._coll_interposers = []
-    if not every and not mon and not traced:
+    if not every and not mon and not traced and not tele:
         return
 
     base_barrier = comm.barrier          # unwrapped: sync's injections
@@ -160,6 +193,13 @@ def interpose(comm) -> None:
         # CLASS implementations, so nothing here re-fires
         _wrap(comm, PERRANK_ICOLL_FUNCS, "mon_depth", mon_hook)
         comm._coll_interposers.append("monitoring")
+
+    if tele:
+        # between monitoring and trace, mirroring the stacked composer:
+        # histograms time the app-visible call without the tracer's
+        # ring-append cost riding inside the measurement
+        _wrap_hist(comm, PERRANK_COLL_FUNCS + PERRANK_ICOLL_FUNCS)
+        comm._coll_interposers.append("telemetry")
 
     if traced:
         # outermost, mirroring the stacked composer: spans measure the

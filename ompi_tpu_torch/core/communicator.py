@@ -15,6 +15,12 @@ several cards waits for the per-rank (``torch.distributed``) tier.
 parent ranks, and its stacked buffers have one row per member. CID
 agreement collapses to a controller-side counter.
 
+ULFM (``mpiext/ftmpi``) runs over the communicator's failure registry
+(``runtime/ft``): collectives and pt2pt that involve a failed rank raise
+``ERR_PROC_FAILED``, ``revoke`` poisons the comm, ``agree`` is
+``coll/ftagree``'s tree, and ``shrink`` builds the survivors' comm whose
+rows are the survivors' rows of the stacked tensor, on the same device.
+
 Point-to-point runs through the stacked matching engine
 (``pml/stacked``), with the sending and receiving ranks explicit;
 process topologies (``topo/``) attach to a communicator and their
@@ -51,7 +57,7 @@ from ompi_tpu_torch.core.errhandler import (ERR_ARG, ERR_COMM, ERR_COUNT,
 from ompi_tpu_torch.core.group import Group, UNDEFINED
 from ompi_tpu_torch.core.info import Info
 from ompi_tpu_torch.core.request import Request, Status, event_after
-from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime import ft, spc
 from ompi_tpu_torch.utils import hooks
 
 
@@ -94,6 +100,12 @@ class Communicator:
         self.attributes: Dict[int, Any] = {}
         self.topo = None               # set by the topology entries
         self._freed = False
+        self._revoked = False          # ULFM
+        self._acked_failures: frozenset = frozenset()  # ULFM failure_ack
+        # failure-knowledge domain: the process-wide default registry,
+        # inherited through parent so sub-communicators share it
+        self._ft = parent._ft if parent is not None else (
+            ft.default_registry())
         # sub-eager dispatch cache: per-(shape, dtype, op) resolution of
         # the hottest allreduce call shape straight to the selected
         # module's entry point — validation is a pure function of the key
@@ -118,6 +130,9 @@ class Communicator:
     def _check(self) -> None:
         if self._freed:
             raise MPIError(ERR_COMM, "communicator has been freed")
+        if self._revoked:
+            from ompi_tpu_torch.core.errhandler import ERR_REVOKED
+            raise MPIError(ERR_REVOKED, "communicator has been revoked")
 
     # -- buffer helpers -------------------------------------------------
     def put(self, host_array) -> torch.Tensor:
@@ -155,6 +170,7 @@ class Communicator:
     # -- validation + dispatch -----------------------------------------
     def _coll(self, func: str):
         self._check()
+        self._check_ft_coll()
         m = self.c_coll.get(func)
         if m is None:
             self._err(ERR_ARG, f"no coll component provides {func} "
@@ -238,6 +254,7 @@ class Communicator:
                 fn = self._subeager[key] = self._coll("allreduce").allreduce
                 return fn(sendbuf, op)
             self._check()
+            self._check_ft_coll()
             spc.record("coll_allreduce", 1)
             hooks.fire("coll_allreduce", self, {})
             return fn(sendbuf, op)
@@ -711,11 +728,13 @@ class Communicator:
     def send(self, data, src: int, dest: int, tag: int = 0) -> None:
         """MPI_Send from rank ``src`` to ``dest``."""
         self._check()
+        self._check_peer_ft(dest)
         self._record_pml("pml_send")
         self._pml.send(data, src, dest, tag)
 
     def isend(self, data, src: int, dest: int, tag: int = 0) -> Request:
         self._check()
+        self._check_peer_ft(dest)
         self._record_pml("pml_send")
         return self._pml.send(data, src, dest, tag)
 
@@ -723,12 +742,14 @@ class Communicator:
         """MPI_Ssend: completes only if the receive has started; raises
         the deadlock otherwise (single-controller semantics)."""
         self._check()
+        self._check_peer_ft(dest)
         self._record_pml("pml_send")
         self._pml.send(data, src, dest, tag, synchronous=True)
 
     def bsend(self, data, src: int, dest: int, tag: int = 0) -> None:
         """MPI_Bsend: the payload is buffered (copied) at send time."""
         self._check()
+        self._check_peer_ft(dest)
         self._record_pml("pml_send")
         self._pml.send(data, src, dest, tag)
 
@@ -736,11 +757,21 @@ class Communicator:
         """MPI_Recv executed by rank ``dst``: returns (data, Status).
         Raises instead of deadlocking if no matching send was posted."""
         self._check()
+        if source == -1:  # ANY_SOURCE
+            self._check_anysource_ft()
+        else:
+            self._check_peer_ft(source)
         self._record_pml("pml_recv")
         return self._pml.recv(dst, source, tag)
 
     def irecv(self, source: int, tag: int = -1, *, dst: int = 0) -> Request:
+        # ULFM (req_ft.c): a nonblocking wildcard receive posts normally
+        # even with unacknowledged failures — a live sender may still
+        # match it; the pending error surfaces at test/wait
+        # (PtpRequest._check_ft). Only blocking recv raises at entry.
         self._check()
+        if source != -1:  # named peer: fail fast, as the reference does
+            self._check_peer_ft(source)
         self._record_pml("pml_recv")
         return self._pml.irecv(dst, source, tag)
 
@@ -749,6 +780,11 @@ class Communicator:
         """MPI_Sendrecv executed by rank ``src``: post the send, then
         receive (deadlock-free by construction)."""
         self._check()
+        self._check_peer_ft(dest)
+        if recvsource == -1:  # ANY_SOURCE
+            self._check_anysource_ft()
+        else:
+            self._check_peer_ft(recvsource)
         self._record_pml("pml_send")
         self._record_pml("pml_recv")
         self._pml.send(senddata, src, dest, sendtag)
@@ -901,6 +937,11 @@ class Communicator:
     def free(self) -> None:
         fire_delete_attrs(self)
         self._freed = True
+        # pvar session semantics: instruments owned by this cid
+        # (telemetry histograms, trace_skew_c<cid>) retire with it — a
+        # later pvar read must not report a freed comm's keys
+        from ompi_tpu_torch import telemetry as _telemetry
+        _telemetry.retire_comm(self.cid)
 
     # -- process topologies (topo framework) ---------------------------
     def create_cart(self, dims: Sequence[int],
@@ -1138,6 +1179,154 @@ class Communicator:
         import sys
         sys.stderr.write(f"MPI_Abort on {self.name} errorcode={errorcode}\n")
         raise SystemExit(errorcode)
+
+    # -- ULFM (mpiext/ftmpi semantics) ---------------------------------
+    # The failure registry (runtime/ft) is the PMIx-event-stream
+    # equivalent; these methods implement the MPIX_Comm_* surface over
+    # it. Per ULFM, agree/shrink/failure_ack remain usable on revoked
+    # communicators — they bypass _check().
+    def _failed_local(self) -> List[int]:
+        return [r for r, w in enumerate(self.group.world_ranks)
+                if self._ft.is_failed(w)]
+
+    def _check_ft_coll(self) -> None:
+        """Collectives must not silently complete across a failure
+        (ompi/request/req_ft.c: ops involving failed procs raise
+        MPIX_ERR_PROC_FAILED until the comm is shrunk)."""
+        if not self._ft.any_failed():        # hot path: nothing has failed
+            return
+        failed = self._failed_local()
+        if failed:
+            from ompi_tpu_torch.core.errhandler import ERR_PROC_FAILED
+            self._err(ERR_PROC_FAILED,
+                      f"rank(s) {failed} of {self.name} have failed "
+                      f"(shrink or agree to continue)")
+
+    def _check_peer_ft(self, peer: int) -> None:
+        if peer is None or not (0 <= peer < self.size):
+            return
+        if self._ft.is_failed(self.group.world_ranks[peer]):
+            from ompi_tpu_torch.core.errhandler import ERR_PROC_FAILED
+            self._err(ERR_PROC_FAILED, f"peer rank {peer} has failed")
+
+    def _check_anysource_ft(self) -> None:
+        """A wildcard receive with unacknowledged failures raises
+        MPIX_ERR_PROC_FAILED: the matching send might have come from the
+        dead peer. failure_ack() re-arms wildcards."""
+        unacked = [r for r in self._failed_local()
+                   if self.group.world_ranks[r] not in self._acked_failures]
+        if unacked:
+            from ompi_tpu_torch.core.errhandler import ERR_PROC_FAILED
+            self._err(ERR_PROC_FAILED,
+                      f"ANY_SOURCE receive with unacknowledged failed "
+                      f"rank(s) {unacked}; call failure_ack() first")
+
+    def revoke(self) -> None:
+        """MPIX_Comm_revoke. Single-controller: the comm object is the
+        shared state all ranks observe, so setting the flag is the
+        reliable revocation broadcast; pending pt2pt requests observe it
+        at completion."""
+        self._revoked = True
+
+    def is_revoked(self) -> bool:
+        return self._revoked
+
+    def shrink(self, failed_ranks: Optional[Sequence[int]] = None
+               ) -> "Communicator":
+        """MPIX_Comm_shrink: agree on the failed set, return a new
+        communicator over the survivors. Works on revoked comms. The
+        child lives on the same device: its stacked buffers hold the
+        survivors' rows, and nothing is copied to the host."""
+        if self._freed:
+            raise MPIError(ERR_COMM, "communicator has been freed")
+        failed = set(failed_ranks or ())
+        failed.update(self._failed_local())
+        # agreement on the failed set: each rank's view as a bitmask,
+        # AND-agreed (the ftagree pass the reference's shrink performs)
+        mask = ~sum(1 << r for r in failed)
+        agreed, _ = self._agree_module().agree([mask] * self.size)
+        alive = [r for r in range(self.size)
+                 if (agreed >> r) & 1 and r not in failed]
+        g = Group([self.group.world_ranks[r] for r in alive])
+        devs = [self.devices[r] for r in alive]
+        child = self.__class__(g, devs, name=f"{self.name}.shrink",
+                               parent=self, errhandler=self.errhandler)
+        # the parent keeps living (ULFM shrink does not free it), but
+        # its per-comm instruments describe the dead-rank era — retire
+        # them so reads after the shrink start from the survivor set
+        from ompi_tpu_torch import telemetry as _telemetry
+        _telemetry.retire_comm(self.cid)
+        return child
+
+    def ishrink(self) -> Request:
+        return Request.completed(self.shrink())
+
+    def survivor_rows(self, stacked, child: "Communicator"):
+        """The rows of ``stacked`` (a buffer of this comm) that belong to
+        ``child``'s members, in ``child``'s rank order — an index on the
+        device, so a shrunk comm's operands stay on the card."""
+        rows = [self.group.rank_of(w) for w in child.group.world_ranks]
+        if isinstance(stacked, torch.Tensor):
+            idx = torch.tensor(rows, dtype=torch.long,
+                               device=stacked.device)
+            return stacked.index_select(0, idx)
+        return np.asarray(stacked)[rows]
+
+    def _agree_module(self):
+        m = self.c_coll.get("agree")
+        if m is None:
+            from ompi_tpu_torch.coll.ftagree import FtAgreeModule
+            return FtAgreeModule(self)
+        return m
+
+    def agree(self, flags: Sequence[int]) -> int:
+        """MPIX_Comm_agree: uniform bitwise-AND agreement via
+        coll/ftagree. Raises MPIX_ERR_PROC_FAILED (carrying the agreed
+        value in ``.agreed_value``) when a participant failed and was not
+        acknowledged — the ULFM contract: agreement is still reached."""
+        if self._freed:
+            raise MPIError(ERR_COMM, "communicator has been freed")
+        value, failed = self._agree_module().agree(flags)
+        unacked = [r for r in failed
+                   if self.group.world_ranks[r] not in self._acked_failures]
+        if unacked:
+            from ompi_tpu_torch.core.errhandler import ERR_PROC_FAILED
+            err = MPIError(ERR_PROC_FAILED,
+                           f"agreement reached over failed rank(s) "
+                           f"{unacked}")
+            err.agreed_value = value
+            raise err
+        return value
+
+    def iagree(self, flags: Sequence[int]) -> Request:
+        return Request.completed(self.agree(flags))
+
+    def failure_ack(self) -> None:
+        """MPIX_Comm_failure_ack: acknowledge all currently-known
+        failures, re-arming ANY_SOURCE receives and quieting agree()."""
+        self._acked_failures = frozenset(self._acked_failures | {
+            w for w in self.group.world_ranks if self._ft.is_failed(w)})
+
+    def failure_get_acked(self) -> Group:
+        """MPIX_Comm_failure_get_acked: group of acknowledged failed
+        processes."""
+        return Group([w for w in self.group.world_ranks
+                      if w in self._acked_failures])
+
+    def get_failed(self) -> Group:
+        """MPIX_Comm_get_failed (MPI-5 FT): all known-failed members."""
+        return Group([w for w in self.group.world_ranks
+                      if self._ft.is_failed(w)])
+
+    def ack_failed(self, num_to_ack: Optional[int] = None) -> Group:
+        """MPIX_Comm_ack_failed (MPI-5 FT): acknowledge the first
+        ``num_to_ack`` failed members (all, when None); returns the
+        acked group."""
+        failed = [w for w in self.group.world_ranks if self._ft.is_failed(w)]
+        if num_to_ack is not None:
+            failed = failed[:num_to_ack]
+        self._acked_failures = frozenset(self._acked_failures | set(failed))
+        return Group(sorted(self._acked_failures))
 
     def __repr__(self):
         return (f"Communicator({self.name}, size={self.size}, "

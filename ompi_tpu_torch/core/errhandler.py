@@ -30,6 +30,7 @@ ERR_OTHER = 16
 ERR_INTERN = 17
 ERR_PENDING = 18
 ERR_IN_STATUS = 19
+ERR_REVOKED = 72      # ULFM: the communicator was revoked
 ERR_PROC_FAILED = 75  # ULFM: a peer process died
 
 _CLASS_NAMES = {
@@ -43,6 +44,7 @@ _CLASS_NAMES = {
     ERR_UNKNOWN: "MPI_ERR_UNKNOWN", ERR_TRUNCATE: "MPI_ERR_TRUNCATE",
     ERR_OTHER: "MPI_ERR_OTHER", ERR_INTERN: "MPI_ERR_INTERN",
     ERR_PENDING: "MPI_ERR_PENDING", ERR_IN_STATUS: "MPI_ERR_IN_STATUS",
+    ERR_REVOKED: "MPIX_ERR_REVOKED",
     ERR_PROC_FAILED: "MPIX_ERR_PROC_FAILED",
 }
 

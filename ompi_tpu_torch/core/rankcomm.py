@@ -41,6 +41,15 @@ so it never matches user point-to-point tags. Communicator creation is
 collective, so a deterministic derivation (parent cid + per-parent
 creation sequence + color) gives every member the same child CID with no
 extra traffic (the property of ``comm_cid.c:61-109``).
+
+ULFM over real process death (``mpiext/ftmpi``): the failure registry
+(``runtime/ft``) is fed by the btl's EOF monitor, the heartbeat detector
+and peers' obituaries; pending operations on a dead rank complete with
+``ERR_PROC_FAILED``. ``revoke`` floods the router's revoke frame,
+``agree`` and ``shrink`` run ``coll/ftagree``'s early-returning
+agreement among the survivors. A dead member's device-tier slot is never
+read again: every slot read checks the registry first, and ``shrink``
+and ``free`` close the survivors' mappings of it without a fence.
 """
 from __future__ import annotations
 
@@ -60,17 +69,18 @@ from ompi_tpu_torch import accelerator
 from ompi_tpu_torch.compress import wire as _cwire
 from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.core.errhandler import (ERR_ARG, ERR_COMM, ERR_COUNT,
-                                            ERR_OP, ERR_OTHER, ERR_RANK,
-                                            ERR_ROOT, ERR_TOPOLOGY,
-                                            ERRORS_ARE_FATAL, Errhandler,
-                                            MPIError)
+                                            ERR_OP, ERR_PROC_FAILED, ERR_RANK,
+                                            ERR_REVOKED, ERR_ROOT,
+                                            ERR_TOPOLOGY, ERRORS_ARE_FATAL,
+                                            Errhandler, MPIError)
 from ompi_tpu_torch.core.group import UNDEFINED, Group
 from ompi_tpu_torch.core.info import Info
 from ompi_tpu_torch.core.request import Request, Status
+from ompi_tpu_torch.ft import inject as _inject
 from ompi_tpu_torch.pml.perrank import (ANY_SOURCE, ANY_TAG,
                                         PerRankEngine, RankRequest, Router,
                                         _Msg)
-from ompi_tpu_torch.runtime import spc
+from ompi_tpu_torch.runtime import ft, spc
 from ompi_tpu_torch.utils import hooks as _hooks_mod
 
 # what ran, by path: read by tests and the chip smoke; each bump is an
@@ -93,11 +103,6 @@ _WIRE_DIRECT_MAX_RANKS = 4
 
 _SLOT_ALIGN = 1 << 20
 _live_slots: "weakref.WeakSet" = weakref.WeakSet()
-
-
-def _not_in_slice(what: str, where: str):
-    raise MPIError(ERR_OTHER, f"{what} on a per-rank communicator waits "
-                              f"for {where}")
 
 
 class _HiddenChannel:
@@ -191,6 +196,7 @@ class _SharedSlots:
         self.buf: Optional[accelerator.IpcBuffer] = None
         self.maps: List[Optional[accelerator.IpcMapping]] = []
         self.parity = 0
+        self.dead: set = set()           # members whose mapping closed
         _live_slots.add(self)
 
     def ensure(self, nbytes: int) -> None:
@@ -218,16 +224,33 @@ class _SharedSlots:
 
     def view(self, i: int, parity: int, nbytes: int, dtype) -> torch.Tensor:
         """Member i's region ``parity``, first ``nbytes``, as flat
-        ``dtype``."""
+        ``dtype``. A dead member's slot is never read: the registry is
+        checked before the copy is issued (once its exporting process is
+        gone, reads through its IPC handle are undefined)."""
+        if i in self.dead or (i != self.comm.rank() and ft.is_failed(
+                self.comm.world_rank_of(i))):
+            raise MPIError(ERR_PROC_FAILED,
+                           f"device-tier slot of rank {i} belongs to a "
+                           f"failed process")
         t = self.buf.tensor if self.maps[i] is None else self.maps[i].tensor
         off = parity * self.cap
         return t[off:off + nbytes].view(dtype)
+
+    def drop_failed(self) -> None:
+        """Close this rank's mappings of failed members' slots without
+        touching them (no fence: the dead never arrive)."""
+        for i, m in enumerate(self.maps):
+            if m is not None and ft.is_failed(self.comm.world_rank_of(i)):
+                self.maps[i] = None
+                self.dead.add(i)
+                m.close()
 
     def close(self) -> None:
         for m in self.maps:
             if m is not None:
                 m.close()
         self.maps = []
+        self.dead = set()
         if self.buf is not None:
             self.buf.close()
             self.buf = None
@@ -297,6 +320,10 @@ class RankCommunicator:
         # stacked composer wraps a vtable: the same MCA vars
         from ompi_tpu_torch.coll.interpose_perrank import interpose
         interpose(self)
+        # revoke plane (MPIX_Comm_revoke): when the router's reliable
+        # broadcast revokes this cid, every pending operation on the comm
+        # completes with ERR_REVOKED
+        router.register_revoke_cb(self.cid, self._on_revoked)
 
     # ------------------------------------------------------------------
     @property
@@ -316,6 +343,11 @@ class RankCommunicator:
     def _check(self) -> None:
         if self._freed:
             raise MPIError(ERR_COMM, "communicator has been freed")
+        if self.router.is_revoked(self.cid):
+            # ULFM: every operation on a revoked comm (except the
+            # recovery surface — shrink/agree/get_failed/free, which
+            # bypass _check) raises ERR_REVOKED (comm_revoke.c)
+            raise MPIError(ERR_REVOKED, f"{self.name} has been revoked")
 
     def _validate_root(self, root: int) -> int:
         if not (0 <= root < self.size):
@@ -648,6 +680,8 @@ class RankCommunicator:
         pipelined ring, then reduce and bcast (compressed or plain)."""
         self._check()
         self._validate_op(op)
+        if _inject.active:               # named kill site of the FT
+            _inject.point("coll.allreduce")   # drill (ft/inject)
         spc.record("coll_allreduce", 1)
         if _hooks_mod._hooks:            # a tool is bound: fire the event
             _hooks_mod.fire("coll_allreduce", self,
@@ -765,6 +799,9 @@ class RankCommunicator:
         self._dissemination(self._tag())     # folded slices visible
         out = views[r].copy()
         _shmseg.count("folds")
+        from ompi_tpu_torch import telemetry as _telemetry_mod
+        if _telemetry_mod.active:
+            _telemetry_mod.SHMSEG.record(nbytes)
         return out.reshape(shape)
 
     # -- segment-pipelined host tier (pml/pipeline) ---------------------
@@ -1028,6 +1065,7 @@ class RankCommunicator:
         _itls.sync_depth = 1
         _itls.mon_depth = 1
         _itls.trace_depth = 1
+        _itls.tele_depth = 1
         while True:
             item = q.get()
             if item is None:
@@ -1406,31 +1444,113 @@ class RankCommunicator:
         self._need_topo()
         return self._neighbor_exchange(list(chunks))
 
-    # -- fault tolerance: the ULFM slice -------------------------------
+    # -- ULFM over real process death (mpiext/ftmpi semantics) ---------
+    # The failure registry is fed by the btl's EOF monitor, the heartbeat
+    # detector and peers' obituaries; these methods are the MPIX_Comm_*
+    # recovery surface of the per-rank world.
     def get_failed(self) -> List[int]:
-        """MPIX_Comm_get_failed: comm-local ranks whose link died."""
+        """MPIX_Comm_get_failed: comm-local ranks known dead."""
         return [r for r in range(self.size)
-                if self.group.world_ranks[r] in self.router.failed]
+                if ft.is_failed(self.group.world_ranks[r])]
 
     def revoke(self) -> None:
-        _not_in_slice("MPIX_Comm_revoke", "the ULFM slice (ROADMAP 17)")
+        """MPIX_Comm_revoke: non-collective — one caller poisons the
+        communicator everywhere. The router floods a ``revoke`` ctl frame
+        (every first receipt re-forwards, the revoked-set test ends it —
+        coll_base_revoke_local.c); locally and on every receiver the
+        pending operations complete with ERR_REVOKED and new ones refuse
+        in ``_check``. The recovery surface (shrink, agree, get_failed,
+        free) keeps working."""
+        self.router.revoke(self.cid)
+
+    def is_revoked(self) -> bool:
+        """MPIX_Comm_is_revoked (local, non-collective)."""
+        return self.router.is_revoked(self.cid)
+
+    def _on_revoked(self) -> None:
+        """Router revoke callback: flush every pending operation —
+        wildcards included (unlike a single peer death, a revoked comm
+        can never match anything again, req_ft.c's revocation
+        branch)."""
+        def err():
+            return MPIError(ERR_REVOKED, f"{self.name} has been revoked")
+        for eng in (self._pml, self._coll_pml,
+                    *list(self._aux_pmls.values())):
+            try:
+                eng._flush_all(err)
+            except Exception:            # noqa: BLE001
+                pass
 
     def agree(self, flag: int = 1, timeout: float = 20) -> int:
-        _not_in_slice("MPIX_Comm_agree", "the ULFM slice (ROADMAP 17)")
+        """MPIX_Comm_agree: fault-tolerant agreement — AND-folds the
+        integer ``flag`` over the surviving members and returns the
+        agreed value on all of them, completing even with failed (or
+        failing) participants. Runs on a revoked comm. The
+        early-returning protocol lives in coll/ftagree."""
+        from ompi_tpu_torch.coll import ftagree
+        value, _failed = ftagree.perrank_agree(self, int(flag),
+                                               timeout=timeout)
+        return value
 
     def shrink(self, timeout: float = 20) -> "RankCommunicator":
-        _not_in_slice("MPIX_Comm_shrink", "the ULFM slice (ROADMAP 17)")
+        """MPIX_Comm_shrink: survivors agree on the failed set through
+        coll/ftagree's early-returning agreement (a silent rank is itself
+        suspected into the set) and build the survivor communicator
+        through the normal construction. Collective among survivors;
+        works on a revoked comm. Retried when a survivor's stale failure
+        view elected a dead leader (detection is asynchronous; the failed
+        exchange itself surfaces the death, and the retry settles)."""
+        last: Optional[BaseException] = None
+        for _ in range(3):
+            try:
+                return self._shrink_once(timeout)
+            except (MPIError, OSError) as e:
+                # OSError: a send raced the detector onto a just-dead
+                # leader's broken socket
+                last = e
+                import time
+                time.sleep(0.2)          # let the detector settle
+        raise last
+
+    def _shrink_once(self, timeout: float) -> "RankCommunicator":
+        # no draw from _create_seq: ranks may take different numbers of
+        # retries, and divergent draws would desync every later cid. The
+        # child cid derives from the agreed failed set instead (the same
+        # on every survivor, distinct per failure epoch).
+        from ompi_tpu_torch.coll import ftagree
+        _value, final = ftagree.perrank_agree(self, 1, timeout=timeout)
+        survivors = [r for r in range(self.size) if r not in final]
+        g = Group([self.group.world_ranks[r] for r in survivors])
+        if self._slots is not None:
+            # the dead members' slots are never read again: close the
+            # mappings now, without a fence
+            self._slots.drop_failed()
+        child = self._child(g, ("shrink", self.cid, tuple(final)),
+                            f"{self.name}.shrink")
+        # the parent stays alive after a shrink, but its per-comm
+        # instruments describe the dead-rank era — retire them so later
+        # reads (trace_skew_c<cid>, tele_coll_*) can't report keys from
+        # before the failure epoch
+        from ompi_tpu_torch import telemetry as _telemetry
+        _telemetry.retire_comm(self.cid)
+        return child
 
     def free(self) -> None:
         # delete callbacks first: a failing one aborts the free with the
         # comm intact (MPI-3.1 6.7.2)
         from ompi_tpu_torch.core.communicator import fire_delete_attrs
         fire_delete_attrs(self)
+        self.router.unregister_revoke_cb(self.cid)
         self._coll_drain()               # pending deferred collectives
         if self._slots is not None:
-            # collective, like the device tier that allocated them: no
-            # peer may still be reading this rank's slot
-            self._fence()
+            if self.get_failed():
+                # a dead member never reaches a fence: close the
+                # mappings (the dead one's first, untouched) without one
+                self._slots.drop_failed()
+            else:
+                # collective, like the device tier that allocated them:
+                # no peer may still be reading this rank's slot
+                self._fence()
             self._slots.close()
             self._slots = None
         self._pml.close()
@@ -1439,6 +1559,10 @@ class RankCommunicator:
             eng.close()
         self._aux_pmls.clear()
         self._freed = True
+        # pvar session semantics: per-comm instruments (telemetry
+        # histograms, trace_skew_c<cid>) retire with the comm
+        from ompi_tpu_torch import telemetry as _telemetry
+        _telemetry.retire_comm(self.cid)
 
     # -- attributes / naming -------------------------------------------
     def set_attr(self, keyval: int, value: Any) -> None:

@@ -17,9 +17,14 @@ from typing import Any, Callable, Dict, List
 _lock = threading.Lock()
 _pvars: Dict[str, Dict[str, Any]] = {}
 
-# MPI_T pvar classes (mca_base_pvar.h's MCA_BASE_PVAR_CLASS_* set)
+# MPI_T pvar classes (mca_base_pvar.h's MCA_BASE_PVAR_CLASS_* set, plus
+# the telemetry plane's histogram class — a pvar whose read returns the
+# merged {count, sum, max, p50, p90, p99, buckets} snapshot of a log2
+# bucket histogram, telemetry/hist.py)
 CLASS_COUNTER = "counter"
 CLASS_LEVEL = "level"
+CLASS_HIGHWATERMARK = "highwatermark"
+CLASS_HISTOGRAM = "histogram"
 
 
 def _caller_site() -> str:
@@ -45,7 +50,9 @@ def pvar_register(name: str, read_fn: Callable[[], Any], *,
     counter); a DIFFERENT site claiming an existing name raises — two
     owners silently shadowing each other's counters is the bug class.
     ``comm`` tags a per-communicator pvar with its owner's cid (the
-    tracer's ``trace_skew_c<cid>``)."""
+    tracer's ``trace_skew_c<cid>``, the telemetry histograms), so
+    ``pvar_retire_comm`` drops them when that communicator is freed or
+    replaced by a shrink."""
     site = _caller_site()
     with _lock:
         v = _pvars.get(name)
@@ -63,6 +70,33 @@ def pvar_unregister(name: str) -> bool:
     name: retirement races communicator frees by design."""
     with _lock:
         return _pvars.pop(name, None) is not None
+
+
+def pvar_register_dict(prefix: str, stats: Dict[str, Any], *,
+                       help_prefix: str = "") -> None:
+    """One pvar per key of a live counter dict: reads reflect the dict's
+    current values, so hot paths keep plain ``dict[k] += 1``
+    increments. Re-registration rebinds the names to the newest dict."""
+    def make_reader(d, k):
+        return lambda: d.get(k, 0)
+
+    for key in list(stats):
+        pvar_register(f"{prefix}_{key}", make_reader(stats, key),
+                      help=(f"{help_prefix}{key}" if help_prefix
+                            else f"{prefix} counter {key}"))
+
+
+def pvar_retire_comm(cid: Any) -> List[str]:
+    """Retire every pvar tagged ``comm=cid`` (string-compared): the
+    per-comm pvar-session teardown of a communicator free or shrink, so
+    reads after it cannot report a dead communicator's keys. Returns the
+    retired names."""
+    scid = str(cid)
+    with _lock:
+        names = [n for n, v in _pvars.items() if v.get("comm") == scid]
+        for n in names:
+            del _pvars[n]
+    return sorted(names)
 
 
 def _install_spc_pvars() -> None:

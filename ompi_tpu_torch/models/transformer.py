@@ -377,43 +377,85 @@ class BucketedGradSync:
     allreduces (``coll/persistent``).
 
     Built once per (comm, gradient tree shape): each leaf gets a staging
-    tensor on the communicator's device (``comm.alloc``) and a persistent
-    allreduce plan (``comm.allreduce_init``), so every step is copy-in
-    -> one ``Startall`` (buckets fuse into ceil(total/bucket_bytes)
-    collectives when ``mpi_base_bucket`` is on; per-leaf collectives when
-    off) -> mean. Leaves are stacked ``(comm.size, ...)``: on the rank
-    mesh, a ``Mesh((dp,), ("dp",), device)``'s gradients. The JAX
-    package stages through host numpy buffers; on the card that would be
-    a D2H and an H2D copy per leaf per step, so the port stages on the
-    device and returns tensors on the comm's device."""
+    tensor on the communicator's device and a persistent allreduce plan
+    (``comm.allreduce_init``), so every step is copy-in -> one
+    ``Startall`` (buckets fuse into ceil(total/bucket_bytes) collectives
+    when ``mpi_base_bucket`` is on; per-leaf collectives when off) ->
+    mean. On the single-controller comm leaves are stacked
+    ``(comm.size, ...)``: on the rank mesh, a ``Mesh((dp,), ("dp",),
+    device)``'s gradients. On a per-rank comm each leaf is this rank's
+    local gradient: a numpy leaf stages in a host buffer (the JAX
+    package's way), a tensor leaf on the rank's device. The JAX package
+    stages every leaf through host numpy buffers; on the card that would
+    be a D2H and an H2D copy per leaf per step, so the port stages tensors
+    on the device and returns tensors on the comm's device."""
 
     def __init__(self, comm, grads_example):
+        leaves = tree_leaves(grads_example)
+        per_rank = getattr(comm, "is_per_rank", False)
+        if not per_rank and any(g.ndim < 1 or g.shape[0] != comm.size
+                                for g in leaves):
+            raise ValueError(f"BucketedGradSync: every gradient leaf must "
+                             f"be stacked over the comm's {comm.size} "
+                             f"ranks")
+        # each leaf's per-rank shape and dtype (a numpy dtype for a host
+        # leaf): what carries over a shrink
+        self._local = [(tuple(g.shape[0 if per_rank else 1:]),
+                        g.dtype if isinstance(g, np.ndarray)
+                        else torch.as_tensor(g).dtype) for g in leaves]
+        self._bind(comm)
+
+    def _bind(self, comm) -> None:
+        """Stage and plan every leaf on ``comm`` (plans are comm-bound)."""
         self.comm = comm
         self.n = comm.size
-        leaves = tree_leaves(grads_example)
-        if any(g.ndim < 1 or g.shape[0] != self.n for g in leaves):
-            raise ValueError(f"BucketedGradSync: every gradient leaf must "
-                             f"be stacked over the comm's {self.n} ranks")
-        self._stages = [comm.alloc(tuple(g.shape[1:]), g.dtype)
-                        for g in leaves]
+        self._stages = [self._zeros(shape, dtype)
+                        for shape, dtype in self._local]
         self._reqs = [comm.allreduce_init(s, _op.SUM) for s in self._stages]
-        self._scalar_req = None
+        self._scalar_req = None          # lazily rebuilt on the comm
+
+    def _zeros(self, shape, dtype):
+        """A staging buffer of one rank's ``shape``: stacked over the
+        ranks on the single-controller comm; this rank's own on a
+        per-rank comm, in host memory for a numpy leaf."""
+        if isinstance(dtype, np.dtype):
+            return np.zeros(shape, dtype)
+        if getattr(self.comm, "is_per_rank", False):
+            return torch.zeros(shape, dtype=dtype, device=self.comm.device)
+        return self.comm.alloc(shape, dtype)
 
     def __call__(self, grads):
         leaves = tree_leaves(grads)
         with torch.no_grad():
             for stage, g in zip(self._stages, leaves):
-                stage.copy_(g)
+                if isinstance(stage, np.ndarray):
+                    np.copyto(stage, np.asarray(g))
+                else:
+                    stage.copy_(torch.as_tensor(g))
         startall(self._reqs)
         out = iter([r.get() / self.n for r in self._reqs])
         return tree_map(lambda _: next(out), grads)
+
+    def shrink(self, comm=None) -> "BucketedGradSync":
+        """Elastic continuation: after a data-parallel peer dies
+        mid-training, rebind this synchronizer to the survivor
+        communicator and keep stepping. ``comm`` is the already-shrunk
+        comm (``MPIX_Comm_shrink``'s result); None shrinks ``self.comm``
+        here. The tree layout carries over; the staging tensors and
+        persistent plans rebuild on the new comm (on the single
+        controller they hold one row per survivor), and the mean divisor
+        rescales to the survivor count, so the survivors' gradients still
+        average to an unbiased estimate (a smaller effective batch, not a
+        corrupted one). Returns self."""
+        self._bind(self.comm.shrink() if comm is None else comm)
+        return self
 
     def mean_scalar(self, value):
         """Mean one scalar per rank (the loss: a stacked ``(n,)`` tensor,
         or one value every rank holds) over the comm — through the same
         persistent machinery, a lazily-built float64 one-element plan."""
         if self._scalar_req is None:
-            self._scalar_stage = self.comm.alloc((), torch.float64)
+            self._scalar_stage = self._zeros((), torch.float64)
             self._scalar_req = self.comm.allreduce_init(self._scalar_stage,
                                                         _op.SUM)
         with torch.no_grad():

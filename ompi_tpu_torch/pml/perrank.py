@@ -28,6 +28,13 @@ rendezvous (pml/pipeline); else the eager frame. Every protocol copies the
 payload out before ``send`` returns (into the frame, a send slot, a shared
 segment or the segment train), so a sender may overwrite its buffer as
 soon as ``send`` returns.
+
+ULFM over real process death: whatever learns of a death (an identified
+connection's EOF, the heartbeat detector, a peer's obituary) reports it
+into ``runtime/ft``'s registry; the router's listener fails every
+pending operation on the dead rank and re-broadcasts the obituary as an
+unsequenced ``ftdead`` ctl frame, and ``revoke`` floods a ``revoke``
+frame the same way (every first receipt re-forwards).
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.btl import shmseg as _shmseg
 from ompi_tpu_torch.btl.bml import BmlEndpoint
 from ompi_tpu_torch.btl.devxfer import DevPayload, DevXfer, maybe_resolve
@@ -49,6 +57,7 @@ from ompi_tpu_torch.core.errhandler import (ERR_PENDING, ERR_PROC_FAILED,
                                             ERR_RANK, ERR_TAG, MPIError)
 from ompi_tpu_torch.core.request import Request, Status
 from ompi_tpu_torch.pml import pipeline as _pipeline
+from ompi_tpu_torch.runtime import ft
 from ompi_tpu_torch.runtime import progress as _progress
 from ompi_tpu_torch.trace import core as _trace
 
@@ -63,11 +72,12 @@ WAIT_TIMEOUT = 600.0
 
 def _send(router: "Router", wdest: int, header: dict, raw) -> None:
     """Send, mapping a link that died under the send to
-    ``ERR_PROC_FAILED`` — never a raw socket error."""
+    ``ERR_PROC_FAILED`` — never a raw socket error. The death is
+    reported into the failure registry."""
     try:
         router.endpoint.send_frame(wdest, header, raw)
     except PeerDownError as e:
-        router.peer_lost(e.world_rank)
+        ft.fail_rank(e.world_rank, "connection down during send")
         raise MPIError(ERR_PROC_FAILED, f"peer world rank {e.world_rank} "
                                         f"failed during send") from e
 
@@ -90,7 +100,19 @@ class Router:
         self._lock = threading.Lock()
         self._closing = False
         self._departed: set = set()      # peers that said goodbye
-        self.failed: set = set()         # peers whose link died
+        # -- resilience plane -------------------------------------------
+        # revoked communicator CIDs + per-cid callbacks (the reliable
+        # revoke broadcast's local state, coll_base_revoke_local.c) and
+        # the optional heartbeat detector (ft/detector, attached by
+        # runtime/init after wire_up)
+        self._revoked: set = set()
+        self._revoke_cbs: Dict[Any, list] = {}
+        self.detector = None
+        # whatever ingress learns of a death (EOF monitor, heartbeat
+        # declaration, remote obituary) funnels through the registry;
+        # the listener does the local cleanup and re-broadcasts — the
+        # registry's first-report dedup terminates the flood
+        ft.add_listener(self._on_rank_failed)
         self.xfer = DevXfer(self)
         # segment-train reassembly of the pipelined rendezvous, fed by
         # rail reader threads below the matching layer: built before the
@@ -98,7 +120,7 @@ class Router:
         self.pipes = _pipeline.PipeStore()
         self.endpoint = BmlEndpoint(rank, nprocs, kv_set, kv_get,
                                     self._deliver,
-                                    on_peer_lost=self.peer_lost)
+                                    on_peer_lost=self._peer_lost)
 
     def wire_up(self) -> None:
         """Connect to every peer eagerly (add_procs): each pair then has
@@ -109,7 +131,7 @@ class Router:
                 try:
                     self.endpoint._connect(peer)
                 except OSError:
-                    pass                 # peer already gone
+                    pass                 # dead already; detector covers
 
     def begin_shutdown(self) -> None:
         """At finalize: tell every peer this is a departure, not a death,
@@ -122,24 +144,93 @@ class Router:
                 pass
         self._closing = True
 
-    def peer_lost(self, world_rank: int) -> None:
-        """An identified peer link died: fail every pending receive that
-        named it (``req_ft.c`` over a real dead process)."""
+    def _peer_lost(self, world_rank: int) -> None:
+        """An identified peer link died: the ULFM event. Report it into
+        the failure registry; the registry listener
+        (:meth:`_on_rank_failed`) does the local cleanup and the
+        obituary broadcast — same path whatever the ingress."""
         if self._closing or world_rank in self._departed:
+            return                       # graceful exit, not death
+        ft.fail_rank(world_rank, "peer connection lost")
+
+    def _on_rank_failed(self, world_rank: int, reason: str) -> None:
+        """Registry listener (fires once per failed rank): complete every
+        pending operation that could have matched the dead rank in error
+        (``req_ft.c`` over a real dead process), release what it held,
+        and fan the obituary out as a ``ftdead`` broadcast. Receivers
+        dedup through their own registries, so the flood terminates."""
+        if self._closing:
             return
-        with self._lock:
-            if world_rank in self.failed:
-                return
-            self.failed.add(world_rank)
-            engines = list(self._engines.values())
         # its unfinished segment trains never complete, and the slots
         # parked for it are never freed by it
         self.pipes.fail_peer(world_rank)
-        plane = getattr(self.endpoint, "shm_seg", None)
+        plane = getattr(getattr(self, "endpoint", None), "shm_seg", None)
         if plane is not None:
-            plane.peer_failed(world_rank)
+            try:
+                plane.peer_failed(world_rank)
+            except Exception:            # noqa: BLE001
+                pass
+        with self._lock:
+            engines = list(self._engines.values())
         for eng in engines:
-            eng._peer_failed(world_rank)
+            try:
+                eng._peer_failed(world_rank)
+            except Exception:            # noqa: BLE001
+                pass
+        self._broadcast_ctl({"ctl": "ftdead", "rank": world_rank,
+                             "peer": self.rank})
+
+    def _broadcast_ctl(self, header: dict) -> None:
+        """Best-effort fan-out of a ctl frame to every live peer over the
+        unsequenced tcp path (no ``_sq``, so a lost one leaves no
+        reorder-buffer hole; reliability comes from every learner
+        re-forwarding on first receipt)."""
+        failed = ft.failed_ranks()
+        for peer in range(self.nprocs):
+            if peer == self.rank or peer in failed:
+                continue
+            try:
+                self.endpoint.tcp.send_frame(peer, dict(header))
+            except Exception:            # noqa: BLE001 — a dying
+                pass                     # learner is its own obituary
+
+    # -- revoke plane (MPIX_Comm_revoke over the ctl wire) -------------
+    def revoke(self, rcid) -> None:
+        """Locally revoke ``rcid`` and start the reliable broadcast
+        (coll_base_revoke_local.c: first receipt re-forwards, the
+        revoked-set test terminates the flood)."""
+        self._on_revoke(rcid)
+
+    def is_revoked(self, rcid) -> bool:
+        return rcid in self._revoked
+
+    def register_revoke_cb(self, rcid, cb) -> None:
+        with self._lock:
+            self._revoke_cbs.setdefault(rcid, []).append(cb)
+
+    def unregister_revoke_cb(self, rcid) -> None:
+        with self._lock:
+            self._revoke_cbs.pop(rcid, None)
+
+    def _on_revoke(self, rcid) -> None:
+        with self._lock:
+            if rcid in self._revoked:
+                return                   # flood termination
+            self._revoked.add(rcid)
+            cbs = list(self._revoke_cbs.get(rcid, []))
+        if _tele.active:
+            # flight-recorder trigger: first receipt of a revocation is
+            # incident evidence worth freezing (rate-limited inside)
+            from ompi_tpu_torch.telemetry import flightrec as _flightrec
+            _flightrec.record("revoke", {"rcid": str(rcid),
+                                         "rank": self.rank})
+        self._broadcast_ctl({"ctl": "revoke", "rcid": rcid,
+                             "peer": self.rank})
+        for cb in cbs:
+            try:
+                cb()
+            except Exception:            # noqa: BLE001
+                pass
 
     def register(self, cid, engine: "PerRankEngine") -> None:
         with self._lock:
@@ -166,6 +257,43 @@ class Router:
     def _deliver(self, header: dict, raw) -> None:
         """Called from btl reader threads (and loopback sends)."""
         ctl = header.get("ctl")
+        if ctl == "hb":
+            d = self.detector
+            if d is not None:
+                d.on_heartbeat(header["peer"])
+            # telemetry RTT echo: the sender stamped "ht" only while its
+            # telemetry was on; reply in kind only while ours is on too —
+            # with the plane off neither side's frames change
+            if _tele.active and "ht" in header:
+                try:
+                    self.endpoint.tcp.send_frame(
+                        header["peer"],
+                        {"ctl": "hbr", "peer": self.rank,
+                         "ht": header["ht"]})
+                except Exception:        # noqa: BLE001 — best-effort
+                    pass
+            return
+        if ctl == "hbr":
+            if _tele.active:
+                hist = _tele.HB_RTT
+                if hist is not None:
+                    rtt = time.perf_counter() - float(header["ht"])
+                    hist.record(max(rtt, 0.0) * 1e6)
+            return
+        if ctl == "ftdead":
+            # remote obituary: feed the registry (dedups); our own
+            # listener re-forwards on first receipt. An obituary about
+            # ourselves is a false accusation — the accusers exclude us
+            # either way; don't poison our own registry.
+            r = header["rank"]
+            if not (self._closing or r == self.rank
+                    or r in self._departed):
+                ft.fail_rank(r, "obituary from rank %s"
+                             % header.get("peer"))
+            return
+        if ctl == "revoke":
+            self._on_revoke(header["rcid"])
+            return
         if ctl == "bye":
             with self._lock:
                 self._departed.add(header["peer"])
@@ -205,6 +333,13 @@ class Router:
 
     def close(self) -> None:
         self._closing = True
+        ft.remove_listener(self._on_rank_failed)
+        d, self.detector = self.detector, None
+        if d is not None:
+            try:
+                d.stop()
+            except Exception:            # noqa: BLE001
+                pass
         self.endpoint.close()
         self.xfer.close()
 
@@ -462,6 +597,20 @@ class PerRankEngine:
     # -- send side -----------------------------------------------------
     def send(self, data: Any, dest: int, tag: int = 0,
              synchronous: bool = False) -> Request:
+        # telemetry gate: one attribute read when off; the histogram
+        # times the full post-to-wire-handoff service (the degraded
+        # self-health signal reads its p99)
+        if _tele.active:
+            hist = _tele.PML_SEND
+            tok = hist.start()
+            try:
+                return self._send_traced(data, dest, tag, synchronous)
+            finally:
+                hist.observe(tok)
+        return self._send_traced(data, dest, tag, synchronous)
+
+    def _send_traced(self, data: Any, dest: int, tag: int = 0,
+                     synchronous: bool = False) -> Request:
         # tracing gate: one attribute read when off (the hooks event name
         # "pml_send"); the cid rides in args, so pt2pt spans stay out of
         # the collective sequence space the attribution groups on
@@ -484,7 +633,9 @@ class PerRankEngine:
             raise MPIError(ERR_TAG, f"send tag must be an int >= 0, "
                                     f"got {tag!r}")
         wdest = self.comm.world_rank_of(dest)
-        if wdest in self.router.failed:
+        if ft.is_failed(wdest):
+            # symmetric with the recv fail-fast: no silent buffering
+            # into a dead socket, no raw OSError later
             raise MPIError(ERR_PROC_FAILED,
                            f"send peer rank {dest} has failed")
         # protocol switch: large device tensors ride the IPC plane (a
@@ -529,6 +680,16 @@ class PerRankEngine:
         marshal the payload once with a cached per-(dtype, shape)
         descriptor and push one frame per destination. ``dests`` are
         comm-local ranks and exclude the caller."""
+        if _tele.active:
+            hist = _tele.PML_SEND
+            tok = hist.start()
+            try:
+                return self._send_small_traced(data, dests, tag)
+            finally:
+                hist.observe(tok)
+        return self._send_small_traced(data, dests, tag)
+
+    def _send_small_traced(self, data: Any, dests, tag: int) -> None:
         if _trace.active:
             tok = _trace.begin("pml_send", cid=None,
                                cc=str(self.comm.cid), tag=tag,
@@ -560,7 +721,7 @@ class PerRankEngine:
                   "desc": desc}
         for dest in dests:
             wdest = self.comm.world_rank_of(dest)
-            if wdest in self.router.failed:
+            if ft.is_failed(wdest):
                 raise MPIError(ERR_PROC_FAILED,
                                f"send peer rank {dest} has failed")
             t = self.traffic.setdefault((me, dest), [0, 0])
@@ -597,7 +758,7 @@ class PerRankEngine:
             raw = a.tobytes()
             header = {"cid": cid, "src": me, "tag": tag, "desc": d0}
             for dest, wdest, t in peers:
-                if wdest in router.failed:
+                if ft.is_failed(wdest):
                     raise MPIError(ERR_PROC_FAILED,
                                    f"send peer rank {dest} has failed")
                 t[0] += 1
@@ -629,9 +790,11 @@ class PerRankEngine:
             self._ack(msg)
             req._deliver(msg)
             return req
-        # a receive posted after its peer died can never match
+        # a receive posted after its peer died can never match (req_ft.c:
+        # fail fast instead of hanging); in-flight failures are flushed
+        # by _peer_failed
         if (source != ANY_SOURCE and 0 <= source < self.comm.size
-                and self.comm.world_rank_of(source) in self.router.failed):
+                and ft.is_failed(self.comm.world_rank_of(source))):
             self._peer_failed(self.comm.world_rank_of(source))
         return req
 
@@ -655,8 +818,44 @@ class PerRankEngine:
         for s in slots:
             s.fail(err)
 
+    def _flush_all(self, make_err) -> None:
+        """Revocation flush (MPIX_Comm_revoke): complete every pending
+        operation on this engine in error — wildcards included. Unlike a
+        single peer death, a revoked communicator can never match
+        anything again (req_ft.c's revocation branch)."""
+        with self._lock:
+            hit, self.posted = self.posted, []
+            slots = [s for s in self._combine.values()
+                     if any(v is None for v in s._vals)]
+        for (_, _, req) in hit:
+            req._fail(make_err())
+        for s in slots:
+            try:
+                s.fail(make_err())
+            except Exception:            # noqa: BLE001
+                pass
+
     def recv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
              timeout: Optional[float] = None) -> Tuple[Any, Status]:
+        # telemetry: the recv histogram's duration is blocked-waiting; it
+        # doubles as the health monitor's per-peer wait ingress (the
+        # matched source is only known at completion)
+        if _tele.active:
+            hist = _tele.PML_RECV
+            tok = hist.start()
+            try:
+                data, st = self._recv_traced(source, tag, timeout)
+            finally:
+                hist.observe(tok)
+            from ompi_tpu_torch.telemetry import health as _health
+            _health.note_wait(self.comm.world_rank_of(st.source),
+                              time.perf_counter() - tok)
+            return data, st
+        return self._recv_traced(source, tag, timeout)
+
+    def _recv_traced(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
+                     timeout: Optional[float] = None
+                     ) -> Tuple[Any, Status]:
         # the span covers post-to-completion: its duration is the time a
         # late sender costs this rank
         if _trace.active:

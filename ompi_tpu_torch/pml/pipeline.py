@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import accelerator
+from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.btl.tcp import decode_payload
 from ompi_tpu_torch.compress import wire as _cwire
 from ompi_tpu_torch.core.errhandler import ERR_PENDING, ERR_PROC_FAILED, \
@@ -448,7 +449,12 @@ def maybe_send_pipelined(engine, data: Any, dest: int, tag: int,
             # all exits: a staging or encode error must not leak the span
             if tok is not None:
                 _trace.end(tok, bytes=nraw)
-        prep_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        prep_s += dt
+        if _tele.active:
+            # telemetry: per-segment stage+encode service time — the
+            # same interval the pml.segment span covers
+            _tele.SEGMENT.record(dt * 1e6)
         ep.send_segment(wdest, seg_header, raw, make_done(i))
     if not done_evt.wait(WAIT_TIMEOUT):
         raise MPIError(ERR_PENDING, "pipelined send timed out draining "

@@ -134,11 +134,42 @@ class PtpRequest(Request):
         self.status.count = st.count
         self._complete = True
 
+    def _check_ft(self) -> None:
+        """Request-level fault tolerance (ompi/request/req_ft.c): a
+        pending receive whose communicator was revoked, or whose (named)
+        peer has failed, completes in error rather than deadlocking."""
+        comm = getattr(self._engine, "comm", None)
+        if comm is None or getattr(comm, "group", None) is None:
+            return
+        from ompi_tpu_torch.core.errhandler import (ERR_PROC_FAILED,
+                                                    ERR_REVOKED)
+        if getattr(comm, "_revoked", False):
+            raise MPIError(ERR_REVOKED,
+                           "pending receive on a revoked communicator")
+        from ompi_tpu_torch.runtime import ft
+        reg = getattr(comm, "_ft", ft)   # the comm's failure domain
+        src = self.status.source
+        if src == ANY_SOURCE:
+            unacked = [w for w in comm.group.world_ranks
+                       if reg.is_failed(w)
+                       and w not in comm._acked_failures]
+            if unacked:
+                raise MPIError(ERR_PROC_FAILED,
+                               f"wildcard receive with unacknowledged "
+                               f"failed world rank(s) {unacked}")
+        elif 0 <= src < comm.size and reg.is_failed(
+                comm.group.world_ranks[src]):
+            raise MPIError(ERR_PROC_FAILED,
+                           f"receive peer rank {src} has failed")
+
     def test(self):
+        if not self._complete:
+            self._check_ft()
         return (True, self.status) if self._complete else (False, None)
 
     def wait(self):
         if not self._complete:
+            self._check_ft()
             # Single controller: no other thread can produce the matching
             # send while we block — this is the deadlock MPI semantics
             # prescribe; surface it instead of hanging.

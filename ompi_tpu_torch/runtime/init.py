@@ -24,6 +24,13 @@ among them, and ``finalize`` closes them. Unless the user set
 ``coll_tuned_stage_min_bytes``, rank 0 runs the staging probe on its
 device at Init and publishes the result through the KV; every rank adopts
 the same value.
+
+The resilience and telemetry planes arm here too: the tracer and the
+telemetry plane before any communicator exists (the composers wrap only
+while they are on), and on the per-rank tier the ring heartbeat detector
+(``mpi_base_ft_hb_period`` > 0), the straggler health monitor and the
+flight recorder. Finalize skips the drain barrier and the fini fence
+once a rank has failed, and shuts telemetry down first.
 """
 from __future__ import annotations
 
@@ -104,6 +111,10 @@ def init(requested: int = THREAD_SINGLE,
     # interposer wrap only while it is on
     from ompi_tpu_torch import trace
     trace.maybe_enable_from_var()
+    # the same timing contract for the telemetry plane (histogram pvars,
+    # health monitor, flight recorder): armed before the composers run
+    from ompi_tpu_torch import telemetry
+    telemetry.maybe_enable_from_var()
     if var.var_get("mpi_base_per_rank", False):
         return _init_per_rank(requested)
     if devices is None:
@@ -224,6 +235,7 @@ def _init_per_rank(requested: int) -> int:
     # rank's endpoints are published; then wire every pair eagerly
     kv.fence("init", nprocs)
     router.wire_up()
+    _arm_resilience(router, rank, nprocs)
     _adopt_stage_probe(kv, router, rank, nprocs, device)
     INFO_ENV.set("command", os.environ.get("_", ""))
     INFO_ENV.set("maxprocs", str(nprocs))
@@ -233,6 +245,37 @@ def _init_per_rank(requested: int) -> int:
                   self=self_comm, router=router, kv=kv,
                   thread_level=min(requested, THREAD_MULTIPLE))
     return _state["thread_level"]
+
+
+def _arm_resilience(router, rank: int, nprocs: int) -> None:
+    """The per-rank resilience and telemetry wiring, after wire_up (the
+    first heartbeat tick finds identified connections, not connect
+    storms). The ring heartbeat detector is off unless
+    ``mpi_base_ft_hb_period`` > 0; its beats ride the unsequenced tcp
+    ctl path, so they take no ``_sq`` slot of the ordered data plane and
+    never queue behind data. With telemetry on, the health monitor
+    samples from the progress loop and the pml recv ingress, and the
+    flight recorder listens for proc failures."""
+    from ompi_tpu_torch import telemetry
+    from ompi_tpu_torch.ft.detector import Detector
+    from ompi_tpu_torch.runtime import ft
+
+    def send_hb(peer: int) -> None:
+        hb = {"ctl": "hb", "peer": router.rank}
+        if telemetry.active:
+            # RTT stamp, only while telemetry is on: the receiver echoes
+            # it back as "hbr"; with the plane off the frame is unchanged
+            hb["ht"] = time.perf_counter()
+        router.endpoint.tcp.send_frame(peer, hb)
+
+    det = Detector(rank, nprocs, send_hb, ft.default_registry())
+    det.departed = lambda r: r in router._departed
+    if det.start():
+        router.detector = det
+    if telemetry.active:
+        from ompi_tpu_torch.telemetry import flightrec, health
+        health.install(rank, nprocs)
+        flightrec.arm(rank)
 
 
 def _adopt_stage_probe(kv: "_Kv", router, rank: int, nprocs: int,
@@ -275,14 +318,25 @@ def _adopt_stage_probe(kv: "_Kv", router, rank: int, nprocs: int,
 def finalize() -> None:
     if not _state["initialized"] or _state["finalized"]:
         raise MPIError(ERR_OTHER, "MPI not initialized or already finalized")
-    # "all communication is complete at finalize": drain the device
-    _state["world"].barrier()
+    # "all communication is complete at finalize": drain the device.
+    # With a known-dead peer the drain barrier can never complete (a live
+    # peer may itself be blocked on the dead one), and a revoked world
+    # refuses it: skip it then.
+    from ompi_tpu_torch import telemetry
+    from ompi_tpu_torch.runtime import ft
+    w = _state["world"]
+    if not ft.any_failed() and not w.is_revoked():
+        w.barrier()
+    # telemetry teardown first: the health monitor's progress callback
+    # and the flight recorder's registry listener must not outlive the
+    # world they observe
+    telemetry.shutdown()
     router = _state["router"]
     if router is not None:
         # later EOFs are departures, not deaths; after the fini fence no
         # peer reads this rank's slots any more, so they are freed last
         router.begin_shutdown()
-        if not router.failed:        # a dead rank never reaches the fence
+        if not ft.any_failed():      # a dead rank never reaches the fence
             _state["kv"].fence("fini", router.nprocs)
         from ompi_tpu_torch.core import rankcomm
         rankcomm.close_device_tiers()
@@ -342,8 +396,13 @@ def _reset_for_tests() -> None:
     the router with its endpoints and devxfer slots, and the store
     client. The tracer is disabled and emptied, and the SPC counters,
     the monitoring table, the hooks' drop count and the skew watermarks
-    are zeroed."""
-    from ompi_tpu_torch import trace
+    are zeroed. The failure registry is emptied, the telemetry plane is
+    disarmed with its histograms dropped, and the injection plane's gate
+    is closed."""
+    from ompi_tpu_torch import telemetry, trace
+    from ompi_tpu_torch.ft import inject
+    from ompi_tpu_torch.runtime import ft
+    from ompi_tpu_torch.telemetry import flightrec
     from ompi_tpu_torch.coll import monitoring
     from ompi_tpu_torch.core import rankcomm
     from ompi_tpu_torch.runtime import spc
@@ -366,7 +425,11 @@ def _reset_for_tests() -> None:
     shmseg._reset_for_tests()
     _state.update(initialized=False, finalized=False, world=None, self=None,
                   router=None, kv=None)
+    ft._reset_for_tests()
+    telemetry._reset_for_tests()
+    flightrec._reset_for_tests()
     var._reset_for_tests()
+    inject.refresh()
     progress._reset_for_tests()
     persistent._reset_for_tests()
     compress._reset_for_tests()

@@ -11,8 +11,13 @@ process placement. The port of ``ompi_tpu/tools/mpirun.py``.
   role itself: it hosts the job's ``torch.distributed.TCPStore`` (the PMIx
   coordination service; every rank opens a client on it), fork/execs N
   rank processes on this host, waits for all, and returns the first
-  failure's exit code, stopping the other ranks at once. ``--timeout S``
-  stops the job after S seconds with exit code 124.
+  failure's exit code, stopping the other ranks at once. With
+  ``--enable-recovery`` (PRRTE's option of that name, the ULFM run mode)
+  a rank's death does not end the job: the survivors run on, and the
+  launcher returns the first failure's exit code once every rank has
+  exited. ``--timeout S`` stops the job after S seconds with exit code
+  124. After the job, the launcher sweeps the job's ``/dev/shm`` files,
+  a killed rank's included.
 
 ``--mca k v`` becomes ``OMPI_TPU_TORCH_MCA_<k>=v``, as the reference's
 ``--mca`` becomes ``OMPI_MCA_*``. Run a CPU job with ``--mca
@@ -67,6 +72,9 @@ def parse(argv):
     ap.add_argument("--timeout", type=float, default=0,
                     help="per-rank mode: stop the job after this many "
                          "seconds (0 = no limit)")
+    ap.add_argument("--enable-recovery", action="store_true",
+                    help="per-rank mode: a rank's death does not end the "
+                         "job; survivors run on (ULFM recovery)")
     ap.add_argument("program", nargs=argparse.REMAINDER,
                     help="program and its args")
     return ap.parse_args(argv)
@@ -90,11 +98,13 @@ def _rank_env(args, coord: str, n: int, r: int) -> dict:
     return env
 
 
-def _reap(procs, timeout: float) -> int:
+def _reap(procs, timeout: float, recovery: bool = False) -> int:
     """Wait for every rank; the first nonzero exit (or the timeout, 124)
-    ends the job."""
+    ends the job. With ``recovery`` the survivors of a failure run on:
+    the first nonzero exit is returned once every rank has exited."""
     deadline = time.monotonic() + timeout if timeout else None
     live = list(procs)
+    first = 0
     while live:
         for p in list(live):
             rc = p.poll()
@@ -102,11 +112,13 @@ def _reap(procs, timeout: float) -> int:
                 continue
             live.remove(p)
             if rc != 0:
-                return rc
+                if not recovery:
+                    return rc
+                first = first or rc
         if deadline is not None and time.monotonic() > deadline:
             return 124
         time.sleep(0.02)
-    return 0
+    return first
 
 
 def run_per_rank(args, prog) -> int:
@@ -120,7 +132,7 @@ def run_per_rank(args, prog) -> int:
     procs = [subprocess.Popen(prog, env=_rank_env(args, coord, n, r))
              for r in range(n)]
     try:
-        return _reap(procs, args.timeout)
+        return _reap(procs, args.timeout, args.enable_recovery)
     finally:
         for p in procs:
             if p.poll() is None:

@@ -700,27 +700,41 @@ WIRE_CASES = {
         p.wait()
         assert np.array_equal(p.get(), w.allreduce(x, MPI.SUM))
         """,
-    # the ULFM recovery entries still wait for their slice
-    "shrink": "CALL = w.shrink\n",
-    "revoke": "CALL = w.revoke\n",
+    # the ULFM recovery entries run: shrink with nobody failed gives a
+    # working comm of every member, revoke poisons the comm everywhere
+    "shrink": """
+        s = w.shrink()
+        assert s.size == 2 and s.rank() == r, (s.size, s.rank())
+        y = s.allreduce(np.full(4, float(r + 1)), MPI.SUM)
+        assert np.array_equal(y, np.full(4, 3.0)), y
+        s.free()
+        """,
+    "revoke": """
+        import time
+        if r == 0:
+            w.revoke()
+        deadline = time.monotonic() + 20
+        while not w.is_revoked():
+            assert time.monotonic() < deadline, "revoke did not arrive"
+            time.sleep(0.01)
+        try:
+            w.barrier()
+        except MPI.MPIError as e:
+            assert e.error_class == MPI.ERR_REVOKED, e
+        else:
+            raise SystemExit("a collective ran on a revoked comm")
+        """,
 }
 
 
 @pytest.mark.parametrize("case", sorted(WIRE_CASES))
 def test_compressed_host_hops_raise(tmp_path, case):
     """With compression on, the compressed allreduce and its persistent
-    plan run (they raised while the hops waited for their slice);
-    ``shrink`` and ``revoke`` still raise, naming the ULFM slice."""
+    plan run (they raised while the hops waited for their slice), and so
+    do the ULFM entries: ``revoke`` leaves ``is_revoked()`` true on every
+    rank, and ``shrink`` with nobody failed returns a working 2-rank
+    comm."""
     body = textwrap.dedent(WIRE_CASES[case])
-    if case in ("shrink", "revoke"):
-        body += textwrap.dedent("""
-            try:
-                CALL()
-            except MPI.MPIError as e:
-                assert "waits for" in str(e) and "ULFM" in str(e), e
-            else:
-                raise SystemExit("an out-of-slice entry ran")
-            """)
     path = write_prog(tmp_path, "wire", "MPI.Init()\n"
                       "w = MPI.get_comm_world()\n"
                       "r = w.rank()\n" + body +

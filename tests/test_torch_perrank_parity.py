@@ -407,7 +407,12 @@ class _Comm:
 
 @pytest.fixture
 def pair():
-    """Two routers in one process, joined by real tcp and sm planes."""
+    """Two routers in one process, joined by real tcp and sm planes. They
+    share the process's failure registry (``runtime/ft``), where closing
+    one router reads as its rank's death to the other: the registry is
+    emptied before and after."""
+    from ompi_tpu_torch.runtime import ft
+    ft._reset_for_tests()
     var._reset_for_tests()
     accelerator.select_for_devices([torch.device("cpu")])
     kv = DictKV()
@@ -424,6 +429,7 @@ def pair():
     yield engines
     for rt in routers:
         rt.close()
+    ft._reset_for_tests()
     accelerator.framework._reset_for_tests()
     var._reset_for_tests()
 
