@@ -198,6 +198,42 @@ Phases, one or more lines each:
                 ``python3 chip_smoke.py --perrank`` runs phases 1, 11, 12,
                 13 and 14's job alone; ``--resilience`` runs phases 1 and
                 14 alone.
+15. sessions  — on the 8-rank world before phase 14 fails a rank of it,
+                32 MB fp32 per rank: (a) two ``Session(devices=[cuda:0] *
+                8)`` with ``ring`` and ``recursive_doubling`` in their own
+                var scopes (the world keeps ``auto``): each session's
+                deferred iallreduce builds only its algorithm, its
+                allreduce = numpy, ``selected()`` names it, CIDs come from
+                its own space, a failure injected in one session's
+                registry stays there, finalize frees every comm; 8 B
+                allreduce host us on a session comm against the world in
+                turns. (b) ``Comm_spawn(child_main, 4, world)``: a 4-row
+                child on ``cuda:0``; the intercomm's bcast, allreduce,
+                allgather and alltoall against numpy with every output on
+                the card; ``merge`` to 12 rows; ports,
+                names, join and disconnect; the intercomm allreduce's
+                device ms. (c) han (``coll_han_split=4``) and xhc (``2,2``
+                and the auto ladder) on dups of the world against numpy and
+                against coll/torch's direct lowering (MAX and int32 bit for
+                bit, float SUM rtol 1e-5), a small han message going
+                flat; adapt's 1 MB segments at 32 MB against the blocking
+                calls bit for bit, the callback once; device ms beside
+                direct's (no gain is claimed). (d) acoll's empty detection
+                on the card, ``mem_alloc``, ``event_synchronize``, the
+                in-process IPC round trip, the device queries. In a fresh
+                process (``--fresh-check``), no ``Memcpy DtoH`` event
+                inside the intercomm, han and xhc calls (torch.profiler,
+                with a ``.cpu()`` control: this process's profiler stops
+                reporting memcpy records after phases 3 and 4), and the
+                8 B allreduce on a session comm against the world again.
+                Then,
+                after phase 14's job, (e) two 2-rank jobs bridged through
+                ``dpm_perrank`` (messages both ways from every rank, a CUDA
+                tensor arriving as numpy with the same bits) and a 3-rank
+                job running two sessions on CUDA tensors over the device
+                tier, all three at once, each under a 60 s limit.
+                ``python3 chip_smoke.py --sessions`` runs phases 1 and 15
+                alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -3765,6 +3801,736 @@ def phase_resilience_job(smi: str, world_s: float) -> None:
           f"took {world_s + time.perf_counter() - t0:.1f} s | {smi}")
 
 
+# -- phase 15 ----------------------------------------------------------
+SES_SEED = 1500
+SES_CHILD = 4                  # ranks of the spawned child world
+SES_JOB_TIMEOUT = 60           # seconds each per-rank job may take
+SES_JOB_PHASE_S = 90           # the per-rank part must end within this
+SES_SEG = 1 << 18              # adapt's segment: 1 MB of fp32 per rank
+SES_DIRECT = ("allreduce", "bcast", "reduce", "allgather")
+
+
+def _dtoh_events(fn) -> int:
+    """Device-to-host copies inside ``fn()``: the ``Memcpy DtoH`` events
+    ``torch.profiler`` records from the card."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and "DtoH" in e.key)
+
+
+def _dup_with(w, **vals):
+    """A dup of ``w`` selected while the MCA vars ``vals`` hold; the
+    global values come back after."""
+    saved = {k: var.var_get(k) for k in vals}
+    for k, v in vals.items():
+        var.var_set(k, v)
+    try:
+        return w.dup()
+    finally:
+        for k, v in saved.items():
+            var.var_set(k, v)
+
+
+def _composed(w) -> list:
+    """(name, comm) of phase 15's composition dups: han with low groups
+    of 4, xhc with levels 2,2 and xhc on the host ladder."""
+    xa = _dup_with(w, coll_xhc_priority=80)
+    return [("han split 4", _dup_with(w, coll_han_priority=80,
+                                      coll_han_split=4)),
+            ("xhc 2,2", _dup_with(w, coll_xhc_priority=80,
+                                  coll_xhc_levels="2,2")),
+            (f"xhc auto ({xa.c_coll['allreduce'].level_basis})", xa)]
+
+
+def _fresh_check(report: str) -> int:
+    """Phase 15's checks that need a process of their own
+    (``--fresh-check``, started by ``phase_sessions_world``). The DtoH
+    counts: in the script's own process torch.profiler stops reporting
+    memcpy records once phases 3 and 4 have run, so a zero there would
+    prove nothing. An 8-row world on cuda:0 runs the intercomm's four
+    collectives with a spawned 4-row child and han's and xhc's at 32 MB
+    fp32 per rank, each once to warm and once under the profiler; a 4 KB
+    ``.cpu()`` is the positive control. Then the 8 B allreduce on the
+    world and on a session comm with no override, in turns."""
+    from ompi_tpu_torch.runtime import session as S
+    dev = torch.device("cuda", 0)
+    MPI.Init(devices=[dev] * N_RANKS)
+    w = MPI.get_comm_world()
+    n, m = w.size, SES_CHILD
+    g = torch.Generator(device=dev).manual_seed(SES_SEED)
+    x = torch.randn((n, LOCAL_ELEMS), device=dev, generator=g)
+    cx = torch.randn((m, LOCAL_ELEMS), device=dev, generator=g)
+    inter = MPI.Comm_spawn(None, m, w)
+    q = LOCAL_ELEMS // m
+    la = x.view(n, m, q)
+    rb = cx.view(m, n, LOCAL_ELEMS // n)[:, :, :q].contiguous()
+    calls = {"intercomm bcast": lambda: inter.bcast(x[2], root=2),
+             "intercomm allreduce": lambda: inter.allreduce(x, cx, MPI.SUM),
+             "intercomm allgather": lambda: inter.allgather(x, cx),
+             "intercomm alltoall": lambda: inter.alltoall(la, rb)}
+    for name, c in _composed(w):
+        calls[f"{name} allreduce"] = (
+            lambda c=c: c.allreduce(x, MPI.SUM))
+        calls[f"{name} bcast"] = lambda c=c: c.bcast(x, root=5)
+        calls[f"{name} reduce"] = lambda c=c: c.reduce(x, MPI.SUM, root=6)
+        if name.startswith("han"):
+            calls[f"{name} allgather"] = lambda c=c: c.allgather(x)
+    counts = {}
+    for name, fn in calls.items():
+        fn()
+        counts[name] = _dtoh_events(fn)
+        torch.cuda.empty_cache()
+    t = torch.ones(1024, device=dev)
+    rep = {"counts": counts, "control": _dtoh_events(lambda: t.cpu())}
+    s0 = S.Session(devices=[dev] * n)
+    c0 = s0.comm_create_from_group(s0.group_from_pset("mpi://WORLD"))
+    small_w = w.alloc((2,), dtype=torch.float32, fill=1.0)
+    small_s = c0.alloc((2,), dtype=torch.float32, fill=1.0)
+    rep["us"] = [_us_per_call(lambda: w.allreduce(small_w, MPI.SUM)),
+                 _us_per_call(lambda: c0.allreduce(small_s, MPI.SUM)),
+                 _us_per_call(lambda: c0.allreduce(small_s, MPI.SUM)),
+                 _us_per_call(lambda: w.allreduce(small_w, MPI.SUM))]
+    s0.finalize()
+    with open(report, "w") as fh:
+        json.dump(rep, fh)
+    MPI.Finalize()
+    return 0
+
+
+def _ses_fresh(smi: str) -> list:
+    """Runs ``_fresh_check`` in a fresh process and holds its counts: 0 in
+    every call, at least 1 in the control."""
+    import tempfile
+    root = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = os.path.join(tmp, "dtoh.json")
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--fresh-check", report], capture_output=True,
+                             text=True, timeout=180, cwd=root)
+        if res.returncode != 0:
+            sys.stderr.write(res.stderr[-6000:])
+            check(False, f"the fresh-process check exited "
+                  f"{res.returncode}")
+        with open(report) as f:
+            rep = json.load(f)
+    check(rep["control"] >= 1, f"the profiler saw {rep['control']} DtoH "
+          f"events in a .cpu() copy: it cannot vouch for zero elsewhere")
+    bad = {k: v for k, v in rep["counts"].items() if v}
+    check(not bad, f"Memcpy DtoH events inside {bad}")
+    us = rep["us"]
+    return [f"0 Memcpy DtoH events (torch.profiler, a fresh process) in "
+            f"each of {len(rep['counts'])} calls at "
+            f"{LOCAL_ELEMS * 4 >> 20} MB per rank: "
+            f"{', '.join(rep['counts'])}; the control's .cpu() copy "
+            f"showed {rep['control']}",
+            f"the same fresh process, 8 B allreduce host us/call (2000 "
+            f"calls after 200, in turns world, session, session, world; no "
+            f"override): {us[0]:.2f}, {us[1]:.2f}, {us[2]:.2f}, "
+            f"{us[3]:.2f}; the scope wrapper costs "
+            f"{(us[1] + us[2] - us[0] - us[3]) / 2:.2f} us/call"]
+
+
+def _direct_scope():
+    """A var scope that forces coll/torch's direct lowering: the
+    comparison baseline, with the global store untouched."""
+    sc = var.VarScope()
+    for func in SES_DIRECT:
+        sc.set(f"coll_torch_{func}_algorithm", "direct")
+    return sc
+
+
+def _us_per_call(fn, calls: int = 2000, warmup: int = 200) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _ses_sessions(w, x, xh, smi: str) -> list:
+    """15(a): two sessions with their own algorithm in their own scope."""
+    from ompi_tpu_torch.runtime import ft
+    from ompi_tpu_torch.runtime import session as S
+    dev, n = w.device, w.size
+    alg = "coll_torch_allreduce_algorithm"
+    want = np.broadcast_to(xh.sum(0), xh.shape)
+    r0 = S.instance_refcount()
+    world_alg = w._coll("allreduce").selected("allreduce", x, MPI.SUM)
+    world_var = var.var_get(alg)
+    sessions = [(S.Session(devices=[dev] * n), "ring"),
+                (S.Session(devices=[dev] * n), "recursive_doubling")]
+    check(S.instance_refcount() == r0 + 2, "session refcount")
+    comms = []
+    for s, name in sessions:
+        s.var_set(alg, name)
+        c = s.comm_create_from_group(s.group_from_pset("mpi://WORLD"))
+        check(isinstance(c, S.SessionCommunicator) and c.cid == 0
+              and c.device == dev, f"session comm {c!r}")
+        # the deferred round first, on a fresh comm: the schedule it
+        # builds is the session's algorithm
+        req = c.iallreduce(x, MPI.SUM)
+        req.wait()
+        y = req.get()
+        check(y.device == dev, "session iallreduce device")
+        _close(y.cpu().numpy(), want, 1e-5, 1e-5, f"{name} iallreduce")
+        built = [k for k in c.c_coll["allreduce"].device._cache
+                 if k[0] == "allreduce"]
+        check(built and all(k[1] == name for k in built),
+              f"{name} session's deferred round built {built}")
+        y = c.allreduce(x, MPI.SUM)
+        _close(y.cpu().numpy(), want, 1e-5, 1e-5, f"{name} allreduce")
+        with var.scope(s.scope):
+            sel = c._coll("allreduce").selected("allreduce", x, MPI.SUM)
+        check(sel == name, f"session selected {sel}, wanted {name}")
+        d = c.dup()
+        check(isinstance(d, S.SessionCommunicator) and d.cid == 1,
+              f"a session dup drew cid {d.cid}")
+        comms.append((c, d))
+    check(var.var_get(alg) == world_var and w._coll("allreduce").selected(
+        "allreduce", x, MPI.SUM) == world_alg, "the world's pick moved")
+    (c1, _), (c2, _) = comms
+    s1 = sessions[0][0]
+    # a failure injected in session 1 stays there
+    c1.set_errhandler(MPI.ERRORS_RETURN)
+    s1.ft_registry.fail_rank(0, "injected in session 1")
+    try:
+        c1.allreduce(x, MPI.SUM)
+        check(False, "session 1's allreduce over its failed rank returned")
+    except MPI.MPIError as e:
+        check(e.error_class == MPI.ERR_PROC_FAILED, f"session 1: {e}")
+    check(not ft.is_failed(0), "the world registry saw session 1's failure")
+    _close(c2.allreduce(x, MPI.SUM).cpu().numpy(), want, 1e-5, 1e-5,
+           "session 2 after session 1's failure")
+    _close(w.allreduce(x, MPI.SUM).cpu().numpy(), want, 1e-5, 1e-5,
+           "world after session 1's failure")
+    # the wrapper's cost: a session with no override runs the world's
+    # algorithm, so only the scope differs
+    s0 = S.Session(devices=[dev] * n)
+    c0 = s0.comm_create_from_group(s0.group_from_pset("mpi://WORLD"))
+    small_w = w.alloc((2,), dtype=torch.float32, fill=1.0)
+    small_s = c0.alloc((2,), dtype=torch.float32, fill=1.0)
+    with var.scope(s0.scope):
+        check(c0._coll("allreduce").selected("allreduce", small_s, MPI.SUM)
+              == w._coll("allreduce").selected("allreduce", small_w,
+                                               MPI.SUM),
+              "the timed session comm runs another algorithm")
+    us = [_us_per_call(lambda: w.allreduce(small_w, MPI.SUM)),
+          _us_per_call(lambda: c0.allreduce(small_s, MPI.SUM)),
+          _us_per_call(lambda: c0.allreduce(small_s, MPI.SUM)),
+          _us_per_call(lambda: w.allreduce(small_w, MPI.SUM))]
+    s0.finalize()
+    for s, _ in sessions:
+        s.finalize()
+    check(all(c._freed and d._freed for c, d in comms),
+          "finalize left a session comm alive")
+    check(S.instance_refcount() == r0, "the refcount did not fall back")
+    return [
+        f"two Session(devices=[{dev}] * {n}): coll_torch_allreduce_algorithm "
+        f"ring and recursive_doubling in their scopes, the world's "
+        f"'{world_var}' (picks {world_alg}) unchanged; each session's "
+        f"deferred iallreduce built only its algorithm, its allreduce "
+        f"= numpy (rtol 1e-5, atol 1e-5) and selected() names it; CIDs "
+        f"0, 1 in each session's space; a failure injected in session "
+        f"1's registry raised there alone (session 2 and the world = "
+        f"numpy); finalize freed all 4 comms, refcount back to {r0}",
+        f"8 B allreduce host us/call (2000 calls after 200, in turns world, "
+        f"session, session, world; the session has no override, so both "
+        f"run the world's algorithm): {us[0]:.2f}, {us[1]:.2f}, "
+        f"{us[2]:.2f}, {us[3]:.2f}; the scope wrapper costs "
+        f"{(us[1] + us[2] - us[0] - us[3]) / 2:.2f} us/call"]
+
+
+def _ses_dpm(w, x, xh, smi: str) -> list:
+    """15(b): spawn, the intercomm collectives and the rendezvous."""
+    from ompi_tpu_torch.core import dpm
+    dev, n, m = w.device, w.size, SES_CHILD
+    ran = []
+
+    def child_main(child):
+        y = child.allreduce(child.alloc((4,), fill=2.0), MPI.SUM)
+        ran.append((child.size, y.device, y.cpu().tolist()))
+
+    inter = MPI.Comm_spawn(child_main, m, w)
+    child = inter.remote_comm
+    check(ran == [(m, dev, [[2.0 * m] * 4] * m)]
+          and child.devices == (dev,) * m,
+          f"spawned child: {ran}, {child.devices}")
+    check(MPI.Comm_get_parent(child).remote_size == n
+          and MPI.Comm_get_parent(w) is None, "Comm_get_parent")
+    g = torch.Generator(device=dev).manual_seed(SES_SEED + 1)
+    cx = torch.randn((m, LOCAL_ELEMS), device=dev, generator=g)
+    cxh = cx.cpu().numpy()
+    q = LOCAL_ELEMS // m
+    la = x.view(n, m, q)
+    rb = cx.view(m, n, LOCAL_ELEMS // n)[:, :, :q].contiguous()
+    # the intercomm collectives, each held against its expected value and
+    # profiled for device-to-host copies
+    calls = {
+        "bcast": lambda: inter.bcast(x[2], root=2),
+        "allreduce": lambda: inter.allreduce(x, cx, MPI.SUM),
+        "allgather": lambda: inter.allgather(x, cx),
+        "alltoall": lambda: inter.alltoall(la, rb),
+    }
+    out = calls["bcast"]()
+    check(out.device == dev and out.shape == (m, LOCAL_ELEMS)
+          and torch.equal(out, x[2].expand(m, -1)), "intercomm bcast")
+    lo, ro = calls["allreduce"]()
+    check(lo.device == ro.device == dev, "intercomm allreduce device")
+    _close(lo.cpu().numpy(), np.broadcast_to(cxh.sum(0), (n, LOCAL_ELEMS)),
+           1e-5, 1e-5, "intercomm allreduce local side")
+    _close(ro.cpu().numpy(), np.broadcast_to(xh.sum(0), (m, LOCAL_ELEMS)),
+           1e-5, 1e-5, "intercomm allreduce remote side")
+    del lo, ro
+    lo, ro = calls["allgather"]()
+    check(lo.device == ro.device == dev and lo.shape == (n, m, LOCAL_ELEMS)
+          and ro.shape == (m, n, LOCAL_ELEMS)
+          and all(torch.equal(lo[i], cx) for i in range(n))
+          and all(torch.equal(ro[j], x) for j in range(m)),
+          "intercomm allgather")
+    del lo, ro
+    lo, ro = calls["alltoall"]()
+    check(lo.device == ro.device == dev
+          and torch.equal(lo, rb.transpose(0, 1))
+          and torch.equal(ro, la.transpose(0, 1)), "intercomm alltoall")
+    del lo, ro
+    merged = inter.merge()
+    check(merged.size == n + m and merged.devices == (dev,) * (n + m),
+          f"merge: {merged.size} rows on {set(merged.devices)}")
+    allx = torch.cat([x, cx])
+    _close(merged.allreduce(allx, MPI.SUM).cpu().numpy(),
+           np.broadcast_to(np.concatenate([xh, cxh]).sum(0),
+                           (n + m, LOCAL_ELEMS)),
+           1e-5, 1e-5, "merged allreduce")
+    del allx
+    ms = device_ms(lambda: inter.allreduce(x, cx, MPI.SUM), iters=10,
+                   warmup=2)
+    moved = 2 * (n + m) * LOCAL_ELEMS * 4
+    # the rendezvous between the world's halves, the names, join
+    halves = w.split([0] * (n // 2) + [1] * (n - n // 2))
+    a, b = halves[0], halves[-1]
+    port = MPI.Open_port()
+    MPI.Publish_name("sessions-phase", port)
+    check(MPI.Lookup_name("sessions-phase") == port, "Lookup_name")
+    areq = MPI.Comm_iaccept(port, a)
+    check(not areq.test()[0], "iaccept completed alone")
+    ib = MPI.Comm_connect(port, b)
+    ia = areq.get()
+    check(areq.test()[0] and ia.remote_comm is b and ib.remote_comm is a,
+          "accept/connect pairing")
+    la2 = a.stack([x[i, :8] for i in range(a.size)])
+    rb2 = b.stack([x[i, :8] for i in range(a.size, n)])
+    lo, ro = ia.allreduce(la2, rb2, MPI.MAX)
+    check(torch.equal(lo[0], rb2.max(0).values)
+          and torch.equal(ro[0], la2.max(0).values), "halves' MAX")
+    MPI.Unpublish_name("sessions-phase")
+    MPI.Close_port(port)
+    j1 = MPI.Comm_join("phase-15", a)
+    jb = MPI.Comm_join("phase-15", b)
+    check(j1.test()[0] and j1.get().remote_comm is b and jb.remote_comm is a,
+          "Comm_join")
+    MPI.Comm_disconnect(child)
+    check(MPI.Comm_get_parent(child) is None and child._freed,
+          "Comm_disconnect")
+    MPI.Comm_disconnect(inter)
+    dpm._reset_for_tests()
+    return [
+        f"Comm_spawn(child_main, {m}, world): a {m}-row child on {dev} "
+        f"(its allreduce ran there); the intercomm's bcast, allreduce, "
+        f"allgather and alltoall between the {n} parent and {m} child "
+        f"rows at {LOCAL_ELEMS * 4 >> 20} MB per rank = numpy (sums rtol "
+        f"1e-5) or the inputs exactly, every output on {dev}; merge: "
+        f"{n + m} rows on {dev}, allreduce = numpy",
+        f"intercomm allreduce SUM: {ms:.3f} ms device (CUDA events, "
+        f"median of 10): {_hbm(moved, ms)} for the least in+out traffic",
+        "Open_port/Publish_name/Lookup_name, Comm_iaccept pending until "
+        "Comm_connect, the halves' intercomm MAX exact, Comm_join and "
+        "Comm_disconnect (get_parent None after)"]
+
+
+def _cmp_direct(what, got, direct, wanth, sums: bool) -> None:
+    """``got`` against coll/torch's direct lowering and numpy: float sums
+    rtol 1e-5 (atol 1e-5 near zero), everything else bit for bit."""
+    if sums:
+        _close(got.cpu().numpy(), direct.cpu().numpy(), 1e-5, 1e-5,
+               f"{what} vs direct")
+        _close(got.cpu().numpy(), wanth, 1e-5, 1e-5, f"{what} vs numpy")
+    else:
+        check(_bits(got, direct), f"{what} vs direct (bit for bit)")
+        check(np.array_equal(_host(got), wanth), f"{what} vs numpy")
+
+
+def _ses_compose(w, x, xh, smi: str) -> list:
+    """15(c): han, xhc and adapt on the card."""
+    from ompi_tpu_torch.coll import adapt, han, xhc
+    dev, n = w.device, w.size
+    g = torch.Generator(device=dev).manual_seed(SES_SEED + 2)
+    xi = torch.randint(-1000, 1000, (n, LOCAL_ELEMS), device=dev,
+                       dtype=torch.int32, generator=g)
+    xih = xi.cpu().numpy()
+    direct = _direct_scope()
+
+    def flat(fn):
+        with var.scope(direct):
+            return fn()
+
+    d_sum = flat(lambda: w.allreduce(x, MPI.SUM))
+    d_max = flat(lambda: w.allreduce(x, MPI.MAX))
+    d_int = flat(lambda: w.allreduce(xi, MPI.SUM))
+    d_ms = device_ms(lambda: flat(lambda: w.allreduce(x, MPI.SUM)),
+                     iters=10, warmup=2)
+    want_sum = np.broadcast_to(xh.sum(0), xh.shape)
+    want_max = np.broadcast_to(xh.max(0), xh.shape)
+    want_int = np.broadcast_to(xih.sum(0, dtype=np.int32), xih.shape)
+    moved = 2 * n * LOCAL_ELEMS * 4
+    lines = []
+
+    comps = _composed(w)
+    hc, xc, xa = (c for _, c in comps)
+    check(hc._coll_winners["allreduce"] == "han", "han not selected")
+    hm = hc.c_coll["allreduce"]
+    check(isinstance(hm, han.HanModule), "han module")
+    for c in (xc, xa):
+        check(c._coll_winners["allreduce"] == "xhc"
+              and isinstance(c.c_coll["allreduce"], xhc.XhcModule),
+              "xhc not selected")
+    for name, c in comps:
+        c.allreduce(x, MPI.SUM)               # builds han's tiers
+        _cmp_direct(f"{name} allreduce SUM", c.allreduce(x, MPI.SUM),
+                    d_sum, want_sum, True)
+        _cmp_direct(f"{name} allreduce MAX", c.allreduce(x, MPI.MAX),
+                    d_max, want_max, False)
+        _cmp_direct(f"{name} allreduce i32", c.allreduce(xi, MPI.SUM),
+                    d_int, want_int, False)
+        check(np.array_equal(_host(c.bcast(x, root=5)),
+                             np.broadcast_to(xh[5], xh.shape)),
+              f"{name} bcast")
+        _close(_host(c.reduce(x, MPI.SUM, root=6))[6], xh.sum(0), 1e-5,
+               1e-5, f"{name} reduce")
+        c.barrier()
+        if c is hc:
+            ag = hc.allgather(x)
+            check(ag.device == dev and ag.shape == (n, n, LOCAL_ELEMS)
+                  and all(torch.equal(ag[i], x) for i in range(n)),
+                  "han allgather")
+            del ag
+        ms = device_ms(lambda: c.allreduce(x, MPI.SUM), iters=10, warmup=2)
+        mod = c.c_coll["allreduce"]
+        shape = (f"low groups {mod.h.groups}" if c is hc
+                 else f"levels {mod.levels}")
+        lines.append(
+            f"{name}: {shape}; "
+            f"allreduce SUM/MAX/i32, bcast, reduce"
+            f"{', allgather' if c is hc else ''} and barrier = numpy, "
+            f"MAX and i32 = direct bit for bit, SUM = direct rtol 1e-5; "
+            f"allreduce SUM "
+            f"{ms:.3f} ms device against direct {d_ms:.3f} ms: "
+            f"{_hbm(moved, ms)}")
+    small = hc.alloc((4,), fill=1.0)
+    check(hm._strategy("allreduce", int(small.nbytes)) == "flat"
+          and torch.equal(hc.allreduce(small, MPI.SUM),
+                          torch.full_like(small, float(n))),
+          "han's small message did not go flat")
+    lines.append("han's 128 B allreduce went flat (the next component) "
+                 "and = numpy; no gain is claimed: one card has no tier "
+                 "to save")
+    for c in (hc, xc, xa):
+        c.free()
+    # adapt: 1 MB segments of the 32 MB rows, against the blocking calls
+    am = adapt.AdaptModule(w, SES_SEG)
+    fired = []
+    req = am.ibcast_adapt(x, root=3, on_complete=lambda r: fired.append(1))
+    req.wait()
+    req.wait()
+    check(len(req._segments) == LOCAL_ELEMS // SES_SEG and fired == [1],
+          f"adapt ibcast: {len(req._segments)} segments, callback "
+          f"{len(fired)} times")
+    check(_bits(req.get(), w.bcast(x, root=3)), "adapt ibcast vs bcast")
+    fired.clear()
+    with var.scope(direct):
+        req = am.ireduce_adapt(x, MPI.SUM, 0,
+                               on_complete=lambda r: fired.append(1))
+        req.wait()
+        check(fired == [1] and _bits(req.get(), w.allreduce(x, MPI.SUM)),
+              "adapt ireduce vs the blocking allreduce (direct, bit for "
+              "bit)")
+
+    def span(fn):
+        def run():
+            r = fn()
+            while not r.test()[0]:
+                pass
+        return device_ms(run, iters=5, warmup=1)
+
+    b_ms = device_ms(lambda: w.bcast(x, root=3), iters=10, warmup=2)
+    ab_ms = span(lambda: am.ibcast_adapt(x, root=3))
+    with var.scope(direct):
+        ar_ms = span(lambda: am.ireduce_adapt(x, MPI.SUM, 0))
+    lines.append(
+        f"adapt at {LOCAL_ELEMS * 4 >> 20} MB per rank in "
+        f"{LOCAL_ELEMS // SES_SEG} segments of {SES_SEG * 4 >> 20} MB: "
+        f"ibcast_adapt = bcast and ireduce_adapt = the direct allreduce "
+        f"bit for bit, each callback fired once; ibcast_adapt {ab_ms:.3f} "
+        f"ms span (CUDA events, with the host's dispatch of every "
+        f"segment) against bcast {b_ms:.3f} ms device; ireduce_adapt "
+        f"{ar_ms:.3f} ms span against direct allreduce {d_ms:.3f} ms: "
+        f"{_hbm(moved, ar_ms)}")
+    return lines
+
+
+def _ses_accel(w, x) -> list:
+    """15(d): acoll's detection and the accelerator surface."""
+    dev = w.device
+    detected = var.var_get("coll_acoll_detected")
+    seg = var.var_get("coll_torch_segsize")
+    src = var.var_source("coll_torch_segsize")
+    check(detected == "" and seg == 1 << 20 and src == "default",
+          f"acoll on {torch.cuda.get_device_name(dev)}: detected "
+          f"{detected!r}, coll_torch_segsize {seg} ({src})")
+    mod = accelerator.current_module()
+    z = mod.mem_alloc((w.size, 1024), torch.float32, device=dev)
+    check(z.device == dev and not bool(z.any()), "mem_alloc")
+    torch.cuda._sleep(20_000_000)
+    y = z + 1
+    mod.event_synchronize([y])
+    check(torch.cuda.current_stream(dev).query(), "event_synchronize "
+          "returned before the queued kernel ended")
+    h = mod.get_ipc_handle(x)
+    check(mod.open_ipc_handle(h).tensor is x, "ipc round trip")
+    mod.close_ipc_handle(h)
+    try:
+        mod.open_ipc_handle(h)
+        check(False, "a closed ipc handle opened")
+    except MPI.MPIError:
+        pass
+    info = mod.get_device_info()
+    attrs = mod.get_device_attributes(dev)
+    check(info == ("cuda", torch.cuda.device_count())
+          and attrs["name"] == torch.cuda.get_device_name(dev)
+          and attrs["sm_count"] > 0 and attrs["total_memory"] > 0,
+          f"device info {info}, attributes {attrs}")
+    check(mod.device_can_access_peer(dev, dev), "peer access to itself")
+    ms = attrs["memory_stats"] or {}
+    return [
+        f"coll_acoll_detected {detected!r} on "
+        f"{torch.cuda.get_device_name(dev)} (no table row: no hint "
+        f"installed); coll_torch_segsize {seg} from its {src}",
+        f"mem_alloc on {dev}; event_synchronize after a queued sleep "
+        f"kernel; get_ipc_handle -> open_ipc_handle (the same tensor) -> "
+        f"close_ipc_handle (reopen raises); get_device_info {info}; "
+        f"get_device_attributes: {attrs['name']}, {attrs['sm_count']} SMs, "
+        f"{attrs['total_memory'] / 2 ** 30:.1f} GiB, compute capability "
+        f"{attrs['compute_capability']}, allocated "
+        f"{ms.get('allocated_bytes.all.current', 0) / 2 ** 30:.2f} GiB; "
+        f"device_can_access_peer({dev}, {dev}) True"]
+
+
+def phase_sessions_world(w, smi: str) -> float:
+    """Phase 15(a)-(d) on the live 8-rank world, before phase 14 fails a
+    rank of it. Returns the seconds it took."""
+    t0 = time.perf_counter()
+    dev = w.device
+    g = torch.Generator(device=dev).manual_seed(SES_SEED)
+    x = torch.randn((w.size, LOCAL_ELEMS), device=dev, generator=g)
+    xh = x.cpu().numpy()
+    for part in (_ses_sessions(w, x, xh, smi), _ses_dpm(w, x, xh, smi),
+                 _ses_compose(w, x, xh, smi), _ses_accel(w, x),
+                 _ses_fresh(smi)):
+        for line in part:
+            phase("sessions", f"{line} | {smi}")
+    return time.perf_counter() - t0
+
+
+def _bridge_rank(role: str, port_file: str, report: str) -> int:
+    """A rank of one of phase 15(e)'s two 2-rank jobs: rendezvous with
+    the other job through dpm_perrank and exchange messages both ways,
+    non-roots included; one message is a CUDA tensor."""
+    from ompi_tpu_torch.core import dpm_perrank as dpm
+    MPI.Init()
+    w = MPI.get_comm_world()
+    r, n = w.rank(), w.size
+    dev = w.device
+    t0 = time.perf_counter()
+    if role == "accept":
+        port = dpm.open_port() if r == 0 else None
+        if r == 0:
+            with open(port_file + ".tmp", "w") as f:
+                f.write(port)
+            os.rename(port_file + ".tmp", port_file)
+        port = w.bcast(port, root=0)
+        ic = dpm.comm_accept(port, w, root=0, timeout=SES_JOB_TIMEOUT - 10)
+    else:
+        deadline = time.monotonic() + SES_JOB_TIMEOUT - 10
+        while not os.path.exists(port_file):
+            check(time.monotonic() < deadline, "no port file")
+            time.sleep(0.02)
+        port = open(port_file).read().strip()
+        ic = dpm.comm_connect(port, w, root=0)
+    rdv_ms = (time.perf_counter() - t0) * 1e3
+    check(ic.remote_size == n, f"remote size {ic.remote_size}")
+    mine = 100 if role == "accept" else 200
+    other = 300 - mine
+    ic.send(np.array([mine + r, r]), remote_rank=r, tag=7)
+    data, st = ic.recv(source=r, tag=7, timeout=30)
+    check(data[0] == other + r and st.source == r, f"{data}, {st.source}")
+    t = torch.arange(1 << 20, device=dev, dtype=torch.float32) + mine + r
+    t1 = time.perf_counter()
+    ic.send(t, remote_rank=r, tag=9)
+    got, _ = ic.recv(source=r, tag=9, timeout=30)
+    cross_ms = (time.perf_counter() - t1) * 1e3
+    want = (torch.arange(1 << 20, dtype=torch.float32) + other + r).numpy()
+    check(isinstance(got, np.ndarray) and _bits(got, want),
+          f"the CUDA tensor crossed as {type(got).__name__}")
+    if r == 0:
+        for rr in range(ic.remote_size):
+            ic.send({"from": role, "to": rr}, remote_rank=rr, tag=8)
+    obj, _ = ic.recv(source=0, tag=8, timeout=30)
+    check(obj["to"] == r and obj["from"] != role, f"{obj}")
+    ic.disconnect()
+    if role == "accept" and r == 0:
+        dpm.close_port(port)
+        with open(report, "w") as fh:
+            json.dump({"lines": [
+                f"two 2-rank jobs on {dev}: dpm_perrank rendezvous in "
+                f"{rdv_ms:.1f} ms (accept side, rank 0), messages both "
+                f"ways from every rank (root-relayed), a 4 MB CUDA tensor "
+                f"arrived as numpy with the same bits (send + recv "
+                f"{cross_ms:.1f} ms, host clock)"]}, fh)
+    MPI.Finalize()
+    print(f"OK bridge {role} rank={r}/{n}", flush=True)
+    return 0
+
+
+def _sessions_rank(report: str) -> int:
+    """A rank of phase 15(e)'s 3-rank sessions job (p23 on CUDA
+    tensors)."""
+    from ompi_tpu_torch.core.rankcomm import counters
+    from ompi_tpu_torch.runtime.session import Session
+    MPI.Init()
+    w = MPI.get_comm_world()
+    r, n = w.rank(), w.size
+    dev = w.device
+    s1, s2 = Session(), Session()
+    check(int(s1.get_pset_info("mpi://WORLD").get("size")) == n
+          and s1.get_nth_pset(1) == "mpi://SELF", "psets")
+    grp = tuple(range(n))
+    c1 = s1.comm_create_from_group(s1.group_from_pset("mpi://WORLD"),
+                                   tag="work")
+    c2 = s2.comm_create_from_group(s2.group_from_pset("mpi://WORLD"),
+                                   tag="work")
+    check(c1.cid == ("s", "work", grp, 0) and c2.cid == ("s", "work", grp, 1)
+          and c1.rank() == c2.rank() == r, f"cids {c1.cid}, {c2.cid}")
+    base = (torch.arange(LOCAL_ELEMS, device=dev) % 1024).float()
+    tri = n * (n - 1) / 2
+    before = counters["coll_device"]
+    t0 = time.perf_counter()
+    y1 = c1.allreduce(base + r, MPI.SUM)
+    y2 = c2.allreduce(base * 2 + r, MPI.SUM)
+    torch.cuda.synchronize()
+    two_ms = (time.perf_counter() - t0) * 1e3
+    check(counters["coll_device"] == before + 2, "the device tier missed")
+    check(torch.equal(y1, base * n + tri)
+          and torch.equal(y2, base * 2 * n + tri), "session allreduces")
+    # independent traffic on one tag: a CUDA tensor ring on each comm
+    for c, k in ((c1, 1.0), (c2, 2.0)):
+        c.send(base * k + r, (r + 1) % n, tag=3)
+        got, _ = c.recv((r - 1) % n, tag=3)
+        check(got.device == dev and torch.equal(got, base * k + (r - 1) % n),
+              "session ring")
+    c2d = c2.dup()
+    check(torch.equal(c2d.allreduce(base, MPI.SUM), base * n), "dup")
+    w.barrier()
+    s1.finalize()
+    check(c1._freed, "s1's comm survived its finalize")
+    check(torch.equal(c2.allreduce(base, MPI.SUM), base * n)
+          and torch.equal(w.allreduce(base, MPI.SUM), base * n),
+          "s2 and the world after s1's finalize")
+    s2.finalize()
+    check(c2._freed and c2d._freed, "s2's family survived")
+    w.barrier()
+    if r == 0:
+        with open(report, "w") as fh:
+            json.dump({"lines": [
+                f"{n}-rank job on {dev}: two sessions, tag 'work', CIDs "
+                f"{c1.cid} and {c2.cid}; their {LOCAL_ELEMS * 4 >> 20} MB "
+                f"CUDA allreduces took the device tier (2 launches, "
+                f"{two_ms:.1f} ms host clock for both) = exact sums; "
+                f"independent CUDA tensor rings on the same tag; session 1 "
+                f"finalized while session 2, its dup and the world went "
+                f"on"]}, fh)
+    MPI.Finalize()
+    print(f"OK sessions rank={r}/{n}", flush=True)
+    return 0
+
+
+def phase_sessions_job(smi: str, world_s: float) -> None:
+    """Phase 15(e): the two bridged 2-rank jobs and the 3-rank sessions
+    job, all three at once, each under its own limit."""
+    import signal
+    import tempfile
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    mpirun = os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py")
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        port_file = os.path.join(tmp, "port.txt")
+        jobs = []
+        for name, n, args in (
+                ("bridge accept", 2,
+                 ["--bridge-rank", "accept", port_file,
+                  os.path.join(tmp, "bridge.json")]),
+                ("bridge connect", 2,
+                 ["--bridge-rank", "connect", port_file,
+                  os.path.join(tmp, "unused.json")]),
+                ("sessions", 3,
+                 ["--sessions-rank", os.path.join(tmp, "sessions.json")])):
+            cmd = [sys.executable, mpirun, "--per-rank", "-n", str(n),
+                   "--timeout", str(SES_JOB_TIMEOUT), me] + args
+            jobs.append((name, n, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=root, start_new_session=True)))
+        outs = []
+        deadline = time.monotonic() + SES_JOB_TIMEOUT + 5
+        for name, n, p in jobs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                outs.append(("", f"{name}: killed at the phase's limit"))
+        for _name, _n, p in jobs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        for (name, n, p), (out, err) in zip(jobs, outs):
+            oks = out.count("OK ")
+            if p.returncode != 0 or oks != n:
+                sys.stderr.write(err[-6000:])
+                check(False, f"{name} job rc={p.returncode}, {oks} of {n} "
+                      f"ranks OK:\n{out[-3000:]}")
+        lines = []
+        for rep in ("bridge.json", "sessions.json"):
+            with open(os.path.join(tmp, rep)) as f:
+                lines += json.load(f)["lines"]
+    job_s = time.perf_counter() - t0
+    check(job_s < SES_JOB_PHASE_S, f"the per-rank part took {job_s:.1f} s")
+    for line in lines:
+        phase("sessions", f"{line} | {smi}")
+    phase("sessions", f"per-rank part {job_s:.1f} s (limit "
+          f"{SES_JOB_PHASE_S} s); phase 15 took {world_s + job_s:.1f} s "
+          f"| {smi}")
+
+
 def main() -> int:
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
@@ -3774,6 +4540,12 @@ def main() -> int:
         return _observe_rank(sys.argv[-1])
     if "--resilience-rank" in sys.argv:
         return _resilience_rank(sys.argv[-1])
+    if "--bridge-rank" in sys.argv:
+        return _bridge_rank(*sys.argv[-3:])
+    if "--sessions-rank" in sys.argv:
+        return _sessions_rank(sys.argv[-1])
+    if "--fresh-check" in sys.argv:
+        return _fresh_check(sys.argv[-1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -3784,6 +4556,14 @@ def main() -> int:
         MPI.Finalize()
         torch.cuda.empty_cache()
         phase_resilience_job(smi, res_s)
+        return 0
+    if "--sessions" in sys.argv:
+        smi, _ = phase_device()
+        MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+        ses_s = phase_sessions_world(MPI.get_comm_world(), smi)
+        MPI.Finalize()
+        torch.cuda.empty_cache()
+        phase_sessions_job(smi, ses_s)
         return 0
     if "--perrank" in sys.argv:
         smi, _ = phase_device()
@@ -3816,6 +4596,7 @@ def main() -> int:
     phase_ptp_topo_datatype(world, smi)
     _tuned_single(world, smi)
     world_s = phase_observe_world(world, smi)
+    ses_s = phase_sessions_world(world, smi)
     res_s = phase_resilience_world(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
@@ -3823,6 +4604,7 @@ def main() -> int:
     phase_dataplane(smi)
     phase_observe_job(smi, world_s)
     phase_resilience_job(smi, res_s)
+    phase_sessions_job(smi, ses_s)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

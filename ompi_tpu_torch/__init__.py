@@ -42,6 +42,15 @@ module's counterpart sits at the same path:
 - ``runtime.ft``, ``ft``, ``coll/ftagree``, ``mpiext`` — ULFM: the
                     failure registry, fault injection, the heartbeat
                     detector, agreement and the MPIX_* surface.
+- ``runtime.session``, ``core.intercomm``, ``core.dpm``,
+  ``core.dpm_perrank`` — MPI-4 Sessions (private var scope, CID space
+                    and failure registry), intercommunicators, spawn,
+                    ports and the cross-job bridge.
+- ``coll/han``, ``coll/xhc``, ``coll/adapt``, ``coll/acoll``,
+  ``utils.locality`` — the composition components: two-level and
+                    n-level hierarchies over the stacked rows, segmented
+                    event-driven ibcast/ireduce, and the device-kind
+                    tuning hints.
 
 It imports torch, numpy and the standard library — never JAX, and never
 ``ompi_tpu``.
@@ -53,7 +62,8 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     KEYVAL_INVALID, MAX_ERROR_STRING, MAX_PROCESSOR_NAME,
     SUCCESS, ERR_COMM, ERR_TYPE, ERR_OP, ERR_ARG, ERR_COUNT, ERR_BUFFER,
     ERR_RANK, ERR_ROOT, ERR_TRUNCATE, ERR_OTHER, ERR_PENDING, ERR_TOPOLOGY,
-    ERR_PROC_FAILED, ERR_REVOKED,
+    ERR_PROC_FAILED, ERR_REVOKED, ERR_SPAWN, ERR_PORT, ERR_SERVICE,
+    ERR_NAME,
     CONGRUENT, IDENT, SIMILAR, UNEQUAL,
     THREAD_SINGLE, THREAD_FUNNELED, THREAD_SERIALIZED, THREAD_MULTIPLE,
     COMM_TYPE_SHARED, COMM_TYPE_HWTHREAD, COMM_TYPE_NUMA,
@@ -80,6 +90,11 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     # ULFM resilience surface (mpiext/ftmpi)
     MPIX_Comm_agree, MPIX_Comm_get_failed, MPIX_Comm_is_revoked,
     MPIX_Comm_revoke, MPIX_Comm_shrink,
+    # sessions and dynamic process management (runtime/session, core/dpm)
+    Session, Intercomm, Intercomm_create, Open_port, Close_port,
+    Publish_name, Lookup_name, Unpublish_name, Comm_accept, Comm_connect,
+    Comm_iaccept, Comm_iconnect, Comm_spawn, Comm_spawn_multiple,
+    Comm_get_parent, Comm_join, Comm_disconnect,
     # request completion
     Wait, Start, Startall, Test, Waitall, Waitany, Waitsome, Testall,
     Testany, Testsome,

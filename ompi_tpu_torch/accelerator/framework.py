@@ -22,8 +22,18 @@ device allocation: on ``cuda`` they are real CUDA IPC handles (the
 storage's ``_share_cuda_`` through ``torch.multiprocessing``'s tensor
 reduction) with an interprocess ``torch.cuda.Event`` that orders the
 owner's writes before a peer's reads; on ``cpu`` they are files in
-``/dev/shm`` mapped by every peer. A failed export or open raises
+``/dev/shm`` mapped by every peer. ``get_ipc_handle(buf)`` exports an
+existing tensor within this process (the reference's opaque registry
+handle, for another subsystem or a spawned child world). Every handle
+is a record tagged by its kind — ``"cuda"``, ``"shm"`` or ``"local"`` —
+and ``open_ipc_handle`` maps any of them to an ``IpcMapping`` whose
+``tensor`` views the allocation. A failed export or open raises
 ``MPIError``: nothing falls back to host bytes.
+
+The rest of the surface: ``mem_alloc`` (:364), ``event_synchronize``,
+and the device queries ``get_device_info``, ``get_device_attributes``
+(``torch.cuda.get_device_properties`` and ``memory_stats``) and
+``device_can_access_peer`` (:598-657).
 """
 from __future__ import annotations
 
@@ -79,6 +89,10 @@ SHM_DIR = "/dev/shm" if os.path.isdir("/dev/shm") else \
     os.environ.get("TMPDIR", "/tmp")
 SEG_PREFIX = "otptseg"
 _seg_ids = itertools.count()
+
+# in-process IPC registry: handle number -> the exported tensor
+_local_ipc: dict = {}
+_local_ids = itertools.count(1)
 
 
 def tag_for(coord: str) -> str:
@@ -177,6 +191,9 @@ class IpcMapping:
                 _, name, nbytes = handle
                 self.tensor = _map_segment(os.path.join(SHM_DIR, name),
                                            nbytes, create=False)
+            elif kind == "local":
+                # an in-process export: the mapping is the tensor itself
+                self.tensor = _local_ipc[handle[1]]
             else:
                 raise ValueError(f"unknown handle kind {kind!r}")
         except Exception as e:           # noqa: BLE001 — any open fault
@@ -359,6 +376,69 @@ class CudaAccelComponent(Component):
     def open_ipc_handle(self, handle) -> IpcMapping:
         return IpcMapping(handle)
 
+    def get_ipc_handle(self, buf: torch.Tensor) -> tuple:
+        """Export ``buf`` within this process: the opaque registry
+        handle (``("local", n)``) that ``open_ipc_handle`` maps back to
+        the same tensor, with no copy, until ``close_ipc_handle``."""
+        h = ("local", next(_local_ids))
+        _local_ipc[h[1]] = buf
+        return h
+
+    def close_ipc_handle(self, handle) -> None:
+        if handle[0] == "local":
+            _local_ipc.pop(handle[1], None)
+
+    # -- alloc (accelerator.h:364) -------------------------------------
+    def mem_alloc(self, shape, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+        """A zeroed device allocation of ``shape``."""
+        from ompi_tpu_torch.core.datatype import torch_dtype
+        return torch.zeros(tuple(shape), dtype=torch_dtype(dtype),
+                           device=device or self._default_device())
+
+    def _default_device(self) -> torch.device:
+        return torch.device("cuda", torch.cuda.current_device())
+
+    def event_synchronize(self, bufs) -> None:
+        """Block until the work that produces ``bufs`` (a tensor or a
+        sequence of them) is done: each CUDA device they live on drains
+        its current stream."""
+        if isinstance(bufs, torch.Tensor):
+            bufs = [bufs]
+        devs = {b.device for b in bufs
+                if isinstance(b, torch.Tensor) and b.is_cuda}
+        for d in devs:
+            torch.cuda.current_stream(d).synchronize()
+
+    # -- device info (accelerator.h:598-657) ---------------------------
+    def get_device_info(self) -> Tuple[str, int]:
+        return ("cuda", torch.cuda.device_count())
+
+    def get_device_attributes(self, device) -> dict:
+        """``device_attrs`` plus, for a CUDA device, its properties: name,
+        SM count, total memory, compute capability, and the caching
+        allocator's ``memory_stats`` (None where there are none)."""
+        d = torch.device(device)
+        attrs = device_attrs(d)
+        attrs["memory_stats"] = None
+        if d.type == "cuda":
+            p = torch.cuda.get_device_properties(d)
+            attrs.update(name=p.name, sm_count=p.multi_processor_count,
+                         total_memory=p.total_memory,
+                         compute_capability=(p.major, p.minor))
+            attrs["memory_stats"] = torch.cuda.memory_stats(d) or None
+        return attrs
+
+    def device_can_access_peer(self, dev_a, dev_b) -> bool:
+        """The same device, or two CUDA devices with peer access."""
+        a, b = torch.device(dev_a), torch.device(dev_b)
+        if a == b or (a.type == b.type == "cpu"):
+            return True
+        if a.type == b.type == "cuda":
+            return bool(torch.cuda.can_device_access_peer(a.index or 0,
+                                                          b.index or 0))
+        return False
+
 
 class CpuAccelComponent(CudaAccelComponent):
     """The CPU standing in for the device (the counterpart of the JAX
@@ -400,6 +480,15 @@ class CpuAccelComponent(CudaAccelComponent):
 
     def create_event(self) -> Event:
         return Event(cuda=False)
+
+    def _default_device(self) -> torch.device:
+        return torch.device("cpu")
+
+    def event_synchronize(self, bufs) -> None:
+        """CPU work is complete when the call returns."""
+
+    def get_device_info(self) -> Tuple[str, int]:
+        return ("cpu", 1)
 
 
 _CUDA = accel_framework.register(CudaAccelComponent())
@@ -455,3 +544,4 @@ def to_host_async(buf: torch.Tensor, out: Optional[torch.Tensor] = None
 def _reset_for_tests():
     global _module
     _module = None
+    _local_ipc.clear()

@@ -25,9 +25,10 @@ from ompi_tpu_torch.core.datatype import (  # noqa: F401
     UINT16_T, UINT32_T, UINT64_T, UNSIGNED, UNSIGNED_LONG,
     from_numpy_dtype, from_torch_dtype)
 from ompi_tpu_torch.core.errhandler import (  # noqa: F401
-    ERR_ARG, ERR_BUFFER, ERR_COMM, ERR_COUNT, ERR_OP, ERR_OTHER, ERR_PENDING,
-    ERR_PROC_FAILED, ERR_RANK, ERR_REVOKED, ERR_ROOT, ERR_TOPOLOGY,
-    ERR_TRUNCATE, ERR_TYPE, ERRORS_ABORT,
+    ERR_ARG, ERR_BUFFER, ERR_COMM, ERR_COUNT, ERR_NAME, ERR_OP, ERR_OTHER,
+    ERR_PENDING, ERR_PORT, ERR_PROC_FAILED, ERR_RANK, ERR_REVOKED, ERR_ROOT,
+    ERR_SERVICE, ERR_SPAWN, ERR_TOPOLOGY, ERR_TRUNCATE, ERR_TYPE,
+    ERRORS_ABORT,
     ERRORS_ARE_FATAL,
     ERRORS_RETURN, Errhandler, MPIError, SUCCESS, error_string)
 from ompi_tpu_torch.core.group import (CONGRUENT, Group, IDENT,  # noqa: F401
@@ -203,6 +204,71 @@ from ompi_tpu_torch.mpiext.ftmpi import (  # noqa: E402,F401
     Comm_is_revoked as MPIX_Comm_is_revoked,
     Comm_revoke as MPIX_Comm_revoke,
     Comm_shrink as MPIX_Comm_shrink)
+
+
+# -- MPI-4 Sessions (runtime/session) -------------------------------------
+from ompi_tpu_torch.runtime.session import Session  # noqa: E402,F401
+
+# -- dynamic process management (ompi/dpm) --------------------------------
+from ompi_tpu_torch.core import dpm as _dpm  # noqa: E402
+from ompi_tpu_torch.core.intercomm import (  # noqa: E402,F401
+    Intercomm, intercomm_create as Intercomm_create)
+
+
+def Open_port(info=None) -> str:
+    return _dpm.open_port(info)
+
+
+def Close_port(port: str) -> None:
+    _dpm.close_port(port)
+
+
+def Publish_name(service: str, port: str, info=None) -> None:
+    _dpm.publish_name(service, port, info)
+
+
+def Lookup_name(service: str, info=None) -> str:
+    return _dpm.lookup_name(service, info)
+
+
+def Unpublish_name(service: str, info=None) -> None:
+    _dpm.unpublish_name(service, info)
+
+
+def Comm_accept(port: str, comm) -> "Intercomm":
+    return _dpm.accept(port, comm)
+
+
+def Comm_connect(port: str, comm) -> "Intercomm":
+    return _dpm.connect(port, comm)
+
+
+def Comm_iaccept(port: str, comm):
+    return _dpm.iaccept(port, comm)
+
+
+def Comm_iconnect(port: str, comm):
+    return _dpm.iconnect(port, comm)
+
+
+def Comm_spawn(fn, maxprocs: int, comm, **kw) -> "Intercomm":
+    return _dpm.spawn(fn, maxprocs, comm, **kw)
+
+
+def Comm_spawn_multiple(apps, comm, **kw) -> "Intercomm":
+    return _dpm.spawn_multiple(apps, comm, **kw)
+
+
+def Comm_get_parent(comm):
+    return _dpm.get_parent(comm)
+
+
+def Comm_join(fd, comm):
+    return _dpm.join(fd, comm)
+
+
+def Comm_disconnect(comm) -> None:
+    _dpm.disconnect(comm)
 
 
 # request completion (MPI_Wait/Test families) -----------------------------

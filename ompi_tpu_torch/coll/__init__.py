@@ -10,6 +10,13 @@ Components:
               progress engine (mirrors coll/libnbc).
 - ``compressed`` — quantized allreduce/allgather/reduce_scatter_block
               above ``torch``, selected while ``mpi_base_compress`` is on.
+- ``han``   — two-level composition over low/up sub-communicators
+              (priority 35; ``coll_han_split``).
+- ``xhc``   — n-level ladder over the stacked rows (priority 25;
+              ``coll_xhc_levels``).
+- ``adapt`` — segmented event-driven ``ibcast_adapt``/``ireduce_adapt``
+              over ``nbc`` schedules (extension entry points only).
+- ``acoll`` — device-kind tuning hints; never a module.
 
 ``decision`` holds the per-collective algorithm tables the ``torch``
 component selects its schedules from; ``tuned`` the dynamic-rules file

@@ -34,9 +34,10 @@ def _ensure_components() -> None:
     if _components_loaded:
         return
     # Importing registers each component with the framework.
-    from ompi_tpu_torch.coll import (basic, compressed,  # noqa: F401
-                                     ftagree, monitoring, nbc, self_,
-                                     sync, torch_, tuned)
+    from ompi_tpu_torch.coll import (acoll, adapt, basic,  # noqa: F401
+                                     compressed, ftagree, han,
+                                     monitoring, nbc, self_, sync,
+                                     torch_, tuned, xhc)
     _components_loaded = True
 
 

@@ -60,6 +60,11 @@ class ScheduleRequest(Request):
         self._finalize = finalize
         # the stream every round and the completion event go to
         self._stream = stream_of(module.comm.device)
+        # rounds run later from the progress engine; they observe the MCA
+        # var scopes of the creating context (a session collective's
+        # deferred round would otherwise read the global store and ignore
+        # the session's algorithm overrides)
+        self._scopes = var.current_scopes()
         module._ensure_progress_cb()
         module._active.append(self)
         if not self._rounds:
@@ -72,7 +77,8 @@ class ScheduleRequest(Request):
     def _seal(self) -> None:
         """After the last round: finalize, then mark the stream."""
         if self._finalize is not None:
-            self._state = self._finalize(self._state)
+            with var.scopes_active(self._scopes):
+                self._state = self._finalize(self._state)
         self._event = event_on(self._stream)
 
     def _progress(self) -> int:
@@ -82,7 +88,8 @@ class ScheduleRequest(Request):
             return 0
         if self._rounds:
             rnd = self._rounds.popleft()
-            with torch.cuda.stream(self._stream):
+            with torch.cuda.stream(self._stream), \
+                    var.scopes_active(self._scopes):
                 self._state = rnd(self._state)
                 if not self._rounds:
                     self._seal()

@@ -92,7 +92,7 @@ class Communicator:
         self.devices = tuple(torch.device(d) for d in devices)
         # where this communicator's stacked buffers live
         self.device = self.devices[0]
-        self.cid = _next_cid()
+        self.cid = self._alloc_cid()
         self.name = name or f"comm#{self.cid}"
         self.info = info.dup() if info else Info()
         self.errhandler = errhandler or (
@@ -103,6 +103,7 @@ class Communicator:
         self._revoked = False          # ULFM
         self._acked_failures: frozenset = frozenset()  # ULFM failure_ack
         # failure-knowledge domain: the process-wide default registry,
+        # or (MPI-4 Sessions) the owning session's private one —
         # inherited through parent so sub-communicators share it
         self._ft = parent._ft if parent is not None else (
             ft.default_registry())
@@ -113,6 +114,12 @@ class Communicator:
         self._subeager: Dict[tuple, Any] = {}
         from ompi_tpu_torch.coll.framework import comm_select_coll
         self.c_coll: Dict[str, Any] = comm_select_coll(self)
+
+    def _alloc_cid(self) -> int:
+        """CID allocation hook: the process-wide space by default; MPI-4
+        Sessions override it to draw from the instance's own space
+        (comm_cid.c allocates within the instance namespace)."""
+        return _next_cid()
 
     # ------------------------------------------------------------------
     @property

@@ -30,6 +30,10 @@ ERR_OTHER = 16
 ERR_INTERN = 17
 ERR_PENDING = 18
 ERR_IN_STATUS = 19
+ERR_SPAWN = 50        # dynamic process management
+ERR_PORT = 51
+ERR_SERVICE = 52
+ERR_NAME = 53
 ERR_REVOKED = 72      # ULFM: the communicator was revoked
 ERR_PROC_FAILED = 75  # ULFM: a peer process died
 
@@ -44,6 +48,8 @@ _CLASS_NAMES = {
     ERR_UNKNOWN: "MPI_ERR_UNKNOWN", ERR_TRUNCATE: "MPI_ERR_TRUNCATE",
     ERR_OTHER: "MPI_ERR_OTHER", ERR_INTERN: "MPI_ERR_INTERN",
     ERR_PENDING: "MPI_ERR_PENDING", ERR_IN_STATUS: "MPI_ERR_IN_STATUS",
+    ERR_SPAWN: "MPI_ERR_SPAWN", ERR_PORT: "MPI_ERR_PORT",
+    ERR_SERVICE: "MPI_ERR_SERVICE", ERR_NAME: "MPI_ERR_NAME",
     ERR_REVOKED: "MPIX_ERR_REVOKED",
     ERR_PROC_FAILED: "MPIX_ERR_PROC_FAILED",
 }

@@ -307,6 +307,13 @@ class RankCommunicator:
         self._pml = PerRankEngine(self, router)
         self._coll_pml = PerRankEngine(_CollChannel(self), router)
         self._aux_pmls: Dict[str, PerRankEngine] = {}   # hidden_engine
+        # ownership list (MPI-4 Sessions): a session-created comm carries
+        # the session's comm list, so derived comms (dup/split/cart/
+        # shrink) register too and finalize frees the whole family
+        owners = getattr(parent, "_owner_list", None)
+        if owners is not None:
+            self._owner_list = owners
+            owners.append(self)
         self._seq = itertools.count(1)          # collective sequence
         self._create_seq = itertools.count(1)   # comm-creation sequence
         self._small_fold: Dict[Any, Callable] = {}  # op.uid -> fold

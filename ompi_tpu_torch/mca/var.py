@@ -15,6 +15,8 @@ reading the other's settings. The param file is JSON at
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import json
 import os
 import sys
@@ -146,15 +148,87 @@ def _resolve(full: str, coerce, default):
 
 
 def var_get(full: str, default: Any = None) -> Any:
+    scopes = _scope_stack.get()
+    if scopes:                       # innermost active scope wins
+        for sc in reversed(scopes):
+            if full in sc.values:
+                return sc.values[full]
     with _lock:
         v = _registry.get(full)
         return v.value if v is not None else default
 
 
-def epoch() -> int:
-    """Validity token for var-derived memos: bumped on every registration
-    and every effective ``var_set``."""
-    return _epoch
+class VarScope:
+    """A private override layer for the var store — the per-instance
+    parameter state of MPI-4 Sessions (``ompi/instance/instance.c``:
+    each instance bootstraps its own MCA scope). Values set here are
+    visible only while the scope is active (``with scope(s): ...``) and
+    never bleed into the global store or other scopes."""
+
+    def __init__(self):
+        self.values: Dict[str, Any] = {}
+        self._epoch = 0              # folded into epoch()
+
+    def set(self, full: str, value: Any) -> None:
+        with _lock:
+            v = _registry.get(full)
+        if v is not None:
+            value = _COERCE[v.vtype](value)
+        self.values[full] = value
+        self._epoch += 1             # invalidate this scope's memo keys
+
+    def unset(self, full: str) -> None:
+        if self.values.pop(full, None) is not None:
+            self._epoch += 1
+
+
+_scope_stack: "contextvars.ContextVar[tuple]" = contextvars.ContextVar(
+    "ompi_tpu_torch_var_scopes", default=())
+
+
+def current_scopes() -> tuple:
+    """Snapshot of the active scope stack — for deferred work (the
+    rounds of a nonblocking schedule, run later by the progress engine)
+    that must observe the scopes of its creation context."""
+    return _scope_stack.get()
+
+
+@contextlib.contextmanager
+def scopes_active(stack: tuple):
+    """Re-establish a snapshot taken with :func:`current_scopes`."""
+    tok = _scope_stack.set(stack)
+    try:
+        yield
+    finally:
+        _scope_stack.reset(tok)
+
+
+@contextlib.contextmanager
+def scope(s: VarScope):
+    """Activate a VarScope for the dynamic extent (decision layers and
+    component selection read through it). Scope identity is folded into
+    ``epoch()`` rather than bumping the global counter: a world
+    communicator's memo entries stay hot while session and world
+    collectives interleave, and each scope's entries key on its own
+    (identity, epoch)."""
+    tok = _scope_stack.set(_scope_stack.get() + (s,))
+    try:
+        yield s
+    finally:
+        _scope_stack.reset(tok)
+
+
+def epoch():
+    """Validity token for var-derived memos: the global mutation counter
+    (bumped on every registration and every effective ``var_set``) alone
+    when no scope is active — a plain int, the hot path — else a tuple
+    folding in each active scope's (identity, epoch), so a session's
+    overrides key its own memo entries without invalidating the
+    world's. Compare with ``==``; never assume int."""
+    scopes = _scope_stack.get()
+    if not scopes:
+        return _epoch
+    return (_epoch,) + tuple((id(s), s._epoch) for s in scopes)
 
 
 def bump_epoch() -> None:
@@ -186,9 +260,13 @@ def var_source(full: str) -> Optional[str]:
 
 
 def var_overridden(full: str) -> bool:
-    """True when a non-default value is in effect for ``full`` (env, file
-    or ``var_set``): probe-earned defaults (the staged tier's switch
-    point, the bml's sm threshold) yield to it."""
+    """True when a non-default value is in effect for ``full`` — an
+    active session scope's override (which ``var_source`` cannot see),
+    or env, file or ``var_set``: probe-earned defaults (the staged
+    tier's switch point, the bml's sm threshold) yield to both."""
+    for sc in reversed(_scope_stack.get()):
+        if full in sc.values:
+            return True
     return var_source(full) not in (None, SOURCE_DEFAULT)
 
 
@@ -201,6 +279,18 @@ def var_dump() -> List[Dict[str, Any]]:
              "enumerator": v.enumerator, "site": v.site}
             for v in sorted(_registry.values(), key=lambda v: v.name)
         ]
+
+
+def var_list() -> List[Dict[str, Any]]:
+    """Registered vars with their metadata, symmetric to
+    ``pvar.pvar_list()``."""
+    return var_dump()
+
+
+def var_names() -> List[str]:
+    """Names only, symmetric to ``pvar.pvar_names()``."""
+    with _lock:
+        return sorted(_registry)
 
 
 def _reset_for_tests() -> None:

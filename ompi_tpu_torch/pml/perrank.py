@@ -42,7 +42,7 @@ import itertools
 import threading
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,6 +108,10 @@ class Router:
         self._revoked: set = set()
         self._revoke_cbs: Dict[Any, list] = {}
         self.detector = None
+        # one-sided handlers by id: frames carrying "rma" run their
+        # handler on the reader thread, with no matching (the bridge
+        # relay of core/dpm_perrank)
+        self._rma: Dict[Any, Callable[[dict, Any], None]] = {}
         # whatever ingress learns of a death (EOF monitor, heartbeat
         # declaration, remote obituary) funnels through the registry;
         # the listener does the local cleanup and re-broadcasts — the
@@ -243,6 +247,14 @@ class Router:
         with self._lock:
             self._engines.pop(cid, None)
 
+    def register_rma(self, wid, handler) -> None:
+        with self._lock:
+            self._rma[wid] = handler
+
+    def unregister_rma(self, wid) -> None:
+        with self._lock:
+            self._rma.pop(wid, None)
+
     def new_ack(self) -> Tuple[int, threading.Event]:
         aid = next(self._ack_ids)
         ev = threading.Event()
@@ -312,6 +324,12 @@ class Router:
             plane = getattr(self.endpoint, "shm_seg", None)
             if plane is not None:
                 plane.release(header["peer"], header["i"])
+            return
+        if "rma" in header:
+            with self._lock:
+                h = self._rma.get(header["wid"])
+            if h is not None:
+                h(header, raw)
             return
         if "pipeseg" in header:
             # a rail-striped segment of a pipelined train: reassembled by
@@ -801,7 +819,10 @@ class PerRankEngine:
     def _peer_failed(self, world_rank: int) -> None:
         """Complete pending named receives on the dead peer, and combining
         slots still waiting for it, in error. Wildcard receives stay
-        posted: a live sender may still match them."""
+        posted: a live sender may still match them. An intercomm engine
+        (``no_peer_map``) maps no local death to a remote rank."""
+        if getattr(self.comm, "no_peer_map", False):
+            return
         local = next((i for i in range(self.comm.size)
                       if self.comm.world_rank_of(i) == world_rank), None)
         if local is None:

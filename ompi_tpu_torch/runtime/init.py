@@ -69,6 +69,10 @@ _state = {
     "kv": None,
 }
 
+# the parent job's intercommunicator in a spawned per-rank world (the
+# MPI_Comm_spawn child side); None in a directly launched job
+_parent_intercomm = None
+
 
 def _register_base_vars() -> None:
     var.var_register("mpi", "base", "num_ranks", vtype="int", default=0,
@@ -244,6 +248,15 @@ def _init_per_rank(requested: int) -> int:
     _state.update(initialized=True, finalized=False, world=world,
                   self=self_comm, router=router, kv=kv,
                   thread_level=min(requested, THREAD_MULTIPLE))
+    # a spawned world dials back to its parent job through the dpm port
+    # plane (MPI_Comm_spawn's parent-nspace handshake, dpm.c:108-170);
+    # MPI_Comm_get_parent returns the resulting intercommunicator
+    parent_port = os.environ.get("OMPI_TPU_TORCH_PARENT_PORT")
+    if parent_port:
+        from ompi_tpu_torch.core import dpm_perrank
+        global _parent_intercomm
+        _parent_intercomm = dpm_perrank.comm_connect(parent_port, world,
+                                                     root=0)
     return _state["thread_level"]
 
 
@@ -343,6 +356,8 @@ def finalize() -> None:
         router.close()
         if router.device.type == "cuda":
             torch.cuda.ipc_collect()
+    global _parent_intercomm
+    _parent_intercomm = None
     _state.update(finalized=True, world=None, self=None, router=None,
                   kv=None)
 
@@ -398,8 +413,13 @@ def _reset_for_tests() -> None:
     the monitoring table, the hooks' drop count and the skew watermarks
     are zeroed. The failure registry is emptied, the telemetry plane is
     disarmed with its histograms dropped, and the injection plane's gate
-    is closed."""
+    is closed. The sessions' refcount and per-rank create ordinals, the
+    DPM registry and the open per-rank ports are emptied."""
+    global _parent_intercomm
     from ompi_tpu_torch import telemetry, trace
+    from ompi_tpu_torch.coll import acoll
+    from ompi_tpu_torch.core import dpm, dpm_perrank
+    from ompi_tpu_torch.runtime import session
     from ompi_tpu_torch.ft import inject
     from ompi_tpu_torch.runtime import ft
     from ompi_tpu_torch.telemetry import flightrec
@@ -425,6 +445,11 @@ def _reset_for_tests() -> None:
     shmseg._reset_for_tests()
     _state.update(initialized=False, finalized=False, world=None, self=None,
                   router=None, kv=None)
+    _parent_intercomm = None
+    session._reset_for_tests()
+    acoll._reset_for_tests()
+    dpm._reset_for_tests()
+    dpm_perrank._reset_for_tests()
     ft._reset_for_tests()
     telemetry._reset_for_tests()
     flightrec._reset_for_tests()

@@ -1,1 +1,2 @@
-"""Utilities shared by the port's planes (profiling hooks)."""
+"""Utilities shared by the port's planes (profiling hooks, host
+locality)."""

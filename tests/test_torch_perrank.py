@@ -558,6 +558,68 @@ PROGRAMS = {
         MPI.Finalize()
         print(f"OK p28_devxfer rank={r}/{n} {xfer.stats}", flush=True)
         """),
+    "p23_sessions": (3, """
+        from ompi_tpu_torch.core.rankcomm import counters
+        from ompi_tpu_torch.runtime.session import Session
+        MPI.Init()
+        world = MPI.get_comm_world()
+        r, n = world.rank(), world.size
+        s1 = Session()
+        s2 = Session()
+        # psets enumerate processes, not devices
+        names = [s1.get_nth_pset(i) for i in range(s1.get_num_psets())]
+        assert "mpi://WORLD" in names and "mpi://SELF" in names
+        assert int(s1.get_pset_info("mpi://WORLD").get("size")) == n
+        # comms of both sessions coexist; their traffic cannot cross
+        # (own CIDs) even with identical tags
+        c1 = s1.comm_create_from_group(s1.group_from_pset("mpi://WORLD"),
+                                       tag="work")
+        c2 = s2.comm_create_from_group(s2.group_from_pset("mpi://WORLD"),
+                                       tag="work")
+        assert c1.rank() == r and c1.size == n
+        assert c2.rank() == r and c2.size == n
+        assert c1.cid == ("s", "work", (0, 1, 2), 0), c1.cid
+        assert c2.cid == ("s", "work", (0, 1, 2), 1), c2.cid
+        want = n * (n - 1) / 2
+        assert float(np.asarray(c1.allreduce(np.float64(r), MPI.SUM))) \
+            == want
+        assert float(np.asarray(c2.allreduce(np.float64(r * 10),
+                                             MPI.SUM))) == want * 10
+        # tensors take the device tier on the session comms; its slots
+        # belong to the tuple-CID comm
+        before = counters["coll_device"]
+        t1 = c1.allreduce(torch.full((1 << 14,), float(r)), MPI.SUM)
+        t2 = c2.allreduce(torch.full((1 << 14,), float(2 * r)), MPI.SUM)
+        assert counters["coll_device"] == before + 2, counters
+        assert float(t1.min()) == float(t1.max()) == want
+        assert float(t2.min()) == float(t2.max()) == 2 * want
+        # pt2pt on a session comm rides its own channel
+        if r == 0:
+            c1.send(np.array([42.0]), 1, tag=3)
+        elif r == 1:
+            data, st = c1.recv(0, tag=3)
+            assert float(data[0]) == 42.0 and st.source == 0
+        cs = s1.comm_create_from_group(s1.group_from_pset("mpi://SELF"),
+                                       tag="self")
+        assert cs.size == 1 and cs.rank() == 0
+        # derived comms join the session's ownership list
+        c2d = c2.dup()
+        assert float(np.asarray(c2d.allreduce(np.float64(1.0), MPI.SUM))) \
+            == n
+        # finalize one session; the other and the world keep working
+        world.barrier()
+        s1.finalize()
+        assert c1._freed and cs._freed
+        assert float(np.asarray(c2.allreduce(np.float64(1.0), MPI.SUM))) \
+            == n
+        assert float(np.asarray(world.allreduce(np.float64(2.0),
+                                                MPI.SUM))) == 2 * n
+        s2.finalize()
+        assert c2d._freed and c2._freed      # the family was freed
+        world.barrier()
+        MPI.Finalize()
+        print(f"OK p23_sessions rank={r}/{n}", flush=True)
+        """),
 }
 
 ENVS = {
@@ -575,6 +637,99 @@ def test_perrank_program(tmp_path, name):
                            env=ENVS.get(name))
     assert rc == 0, f"rc={rc}\n--- out\n{out}\n--- err\n{err[-4000:]}"
     assert out.count(f"OK {name}") == n, out
+
+
+P18_CONNECT = """
+    import time
+    from ompi_tpu_torch.core import dpm_perrank as dpm
+    role, port_file = sys.argv[1], sys.argv[2]
+    MPI.Init()
+    world = MPI.get_comm_world()
+    r, n = world.rank(), world.size
+    if role == "accept":
+        if r == 0:
+            port = dpm.open_port()
+            with open(port_file + ".tmp", "w") as f:
+                f.write(port)
+            os.rename(port_file + ".tmp", port_file)   # atomic publish
+            port = world.bcast(port, root=0)
+        else:
+            port = world.bcast(None, root=0)
+        ic = dpm.comm_accept(port, world, root=0, timeout=40)
+    else:
+        deadline = time.monotonic() + 40
+        while not os.path.exists(port_file):
+            if time.monotonic() > deadline:
+                raise SystemExit("port file never appeared")
+            time.sleep(0.05)
+        port = open(port_file).read().strip()
+        ic = dpm.comm_connect(port, world, root=0, timeout=40)
+    assert ic.remote_size == n, ic.remote_size
+    # every local rank messages its same-numbered remote peer, both ways,
+    # non-roots included (the root relay both ways)
+    token = 100 if role == "accept" else 200
+    ic.send(np.array([token + r, r]), remote_rank=r, tag=7)
+    data, st = ic.recv(source=r, tag=7, timeout=30)
+    expect = (200 if role == "accept" else 100) + r
+    assert data[0] == expect and st.source == r, (data, st.source)
+    # a tensor crosses as numpy with the same bits
+    t = torch.arange(5, dtype=torch.float32) + token + r
+    ic.send(t, remote_rank=r, tag=9)
+    got, _ = ic.recv(source=r, tag=9, timeout=30)
+    other = (200 if role == "accept" else 100) + r
+    assert isinstance(got, (np.ndarray, torch.Tensor)), type(got)
+    np.testing.assert_array_equal(np.asarray(got),
+                                  np.arange(5, dtype=np.float32) + other)
+    # local rank 0 also messages every remote rank
+    if r == 0:
+        for rr in range(ic.remote_size):
+            ic.send({"from": role, "to": rr}, remote_rank=rr, tag=8)
+    obj, st8 = ic.recv(source=0, tag=8, timeout=30)
+    assert obj["to"] == r and obj["from"] != role, obj
+    ic.disconnect()
+    if role == "accept" and r == 0:
+        dpm.close_port(port)
+    MPI.Finalize()
+    print(f"OK p18_connect {role} rank={r}/{n}", flush=True)
+    """
+
+
+def test_p18_cross_job_connect(tmp_path):
+    """Two separately launched 2-rank jobs rendezvous through
+    ``dpm_perrank.open_port``/``comm_accept``/``comm_connect`` and
+    exchange messages both ways over the root-relayed bridge, non-roots
+    included (the reference's p18, as ``tests/test_perrank.py`` runs it).
+    Each job has its own launcher limit and process-group kill."""
+    path = write_prog(tmp_path, "p18_connect", P18_CONNECT)
+    port_file = str(tmp_path / "port.txt")
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith("OMPI_TPU_TORCH_")}
+    procs = []
+    for role in ("accept", "connect"):
+        cmd = [sys.executable, MPIRUN, "--per-rank", "-n", "2",
+               "--timeout", str(JOB_TIMEOUT), "--mca", "mpi_base_device",
+               "cpu", str(path), role, port_file]
+        procs.append(subprocess.Popen(cmd, env=base, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True,
+                                      cwd=_REPO, start_new_session=True))
+    outs = []
+    deadline = time.monotonic() + KILL_AFTER
+    for proc in procs:
+        try:
+            outs.append(proc.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            outs.append(("", "killed at the test's limit"))
+    for proc in procs:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    for proc, (out, err), role in zip(procs, outs, ("accept", "connect")):
+        assert proc.returncode == 0, \
+            f"{role} rc={proc.returncode}\n{out}\n{err[-4000:]}"
+        assert out.count(f"OK p18_connect {role}") == 2, out
 
 
 LOC_DEVICE = """
