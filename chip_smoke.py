@@ -234,6 +234,33 @@ Phases, one or more lines each:
                 tier, all three at once, each under a 60 s limit.
                 ``python3 chip_smoke.py --sessions`` runs phases 1 and 15
                 alone.
+16. onesided  — on the 8-rank world before phase 14 fails a rank of it:
+                (a) the native host library (g++ of ``native/*.cpp``,
+                built in phase 2 beside nvcc): every entry point the paths
+                call, counted through a wrapper swapped in for
+                ``native.get_lib``; the per-rank host fold (SUM, MAX) on 8
+                numpy rows of 32 MB fp32, coll/basic's BAND/BXOR/LAND fold
+                on int32, reduce_local over 10 dtypes x 10 ops with NaNs,
+                a vector and an indexed type packed and unpacked from a
+                (4096, 2048) host matrix, each bit for bit against its
+                numpy route with host ms beside it; the 8 x 32 MB ring and
+                256 wildcard matches with the native matching core and the
+                Python one, in the same order. (b) ``Win`` on ``cuda:0``, 8
+                x 32 MB fp32: put ring, get, accumulate SUM/MAX/REPLACE/
+                NO_OP (and on uint32), get_accumulate, fetch_and_op,
+                compare_and_swap, rput/raccumulate, PSCW, lock, attach,
+                against numpy, every row on the card; device ms of a 32 MB
+                put and accumulate from a CUDA and a numpy origin beside
+                their bounds. (c) after phase 15's jobs, all at once: p43
+                on osc/shm (with a telemetry dump's ``osc`` section and a
+                flight record's ``osc_epochs``) and on osc/pt2pt, 4 ranks
+                at 32 MB per window from CUDA origins; p13 on 3 ranks; p44
+                (rank 2 SIGKILLed in a fence epoch, rc 247, no ``otpt*``
+                file left); and in a fresh process (``--osc-fresh-check``)
+                0 ``Memcpy DtoH`` in put and accumulate from a CUDA origin,
+                with a ``.cpu()`` control. The phase must end within 90 s.
+                ``python3 chip_smoke.py --onesided`` runs phases 1 and 16
+                alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -364,11 +391,23 @@ def _ptxas_summary(log: str) -> list:
 
 
 def phase_build() -> None:
+    """Every CUDA kernel (one nvcc per source) and, beside them on a
+    thread, the native host library (g++ of native/*.cpp)."""
+    import threading
+    from ompi_tpu_torch import native
+    from ompi_tpu_torch.native import loader
     t0 = time.perf_counter()
+    host = threading.Thread(target=native.get_lib)
+    host.start()
     built = _build.build_all(verbose=True)
+    host.join()
     for name, rec in built.items():
         phase("build", f"{name}: {rec['seconds']:.2f} s "
               f"{' | '.join(_ptxas_summary(rec['log']))}")
+    check(native.native_available(), f"the native library did not build: "
+          f"{native.build_error()}")
+    phase("build", f"native host library {loader.lib_path().name}: "
+          f"{loader.build_seconds():.2f} s (g++ -O3, native/*.cpp)")
     phase("build", f"all kernels built in {time.perf_counter() - t0:.2f} s")
 
 
@@ -4531,6 +4570,674 @@ def phase_sessions_job(smi: str, world_s: float) -> None:
           f"| {smi}")
 
 
+# -- phase 16 ----------------------------------------------------------
+OSC_SEED = 1600
+OSC_ROWS = 8                   # host numpy rows per fold, 32 MB fp32 each
+OSC_SMALL = 1 << 20            # uint32 window, dynamic regions (elements)
+OSC_JOB_TIMEOUT = 60           # seconds each per-rank job may take
+OSC_JOB_PHASE_S = 90           # phase 16 must end within this
+OSC_ENTRY = ("ompi_tpu_reduce_local", "ompi_tpu_pack_runs_rows",
+             "ompi_tpu_unpack_runs_rows", "ompi_tpu_match_send",
+             "ompi_tpu_match_take", "ompi_tpu_match_post")
+OSC_HB = (("mpi_base_ft_hb_period", 0.1), ("mpi_base_ft_hb_timeout", 0.8),
+          ("mpi_base_ft_hb_miss", 3))
+
+
+class _CountingLib:
+    """The port's native library with a count per entry point called
+    through it. Phase 16 swaps it in for ``native.get_lib`` in this
+    process (as ``tests/test_native_runtime.py`` patches ``get_lib``):
+    the package itself keeps no counter."""
+
+    def __init__(self, lib):
+        self._lib = lib
+        self.counts = dict.fromkeys(OSC_ENTRY, 0)
+
+    def __getattr__(self, name):
+        f = getattr(self._lib, name)
+        if name not in self.counts:
+            return f
+
+        def counted(*args):
+            self.counts[name] += 1
+            return f(*args)
+        return counted
+
+
+def _osc_native_checks(w) -> list:
+    """16(a): the native host library on the paths that call it."""
+    import functools
+    from ompi_tpu_torch import native as N
+    from ompi_tpu_torch.coll import basic
+    from ompi_tpu_torch.core import op as op_mod
+    from ompi_tpu_torch.core import rankcomm
+    from ompi_tpu_torch.native import loader
+    check(N.native_available(), f"the native library did not build: "
+          f"{N.build_error()}")
+    path = loader.lib_path()
+    check(path.parent == loader.BUILD_DIR and path.exists(),
+          f"native library at {path}")
+    lines = [f"native library {path.name} in {loader.BUILD_DIR.name}/ "
+             f"(g++ -O3 of native/*.cpp), built in "
+             f"{loader.build_seconds():.2f} s in this process, ABI "
+             f"{N.get_lib().ompi_tpu_native_abi()}"]
+    lib = _CountingLib(N.get_lib())
+    real = N.get_lib
+    N.get_lib = lambda: lib
+    try:
+        rng = np.random.default_rng(OSC_SEED)
+        rows = rng.standard_normal((OSC_ROWS, LOCAL_ELEMS), dtype=np.float32)
+        times = []
+        for op in (MPI.SUM, MPI.MAX):
+            npfn = op_mod.NP_COMBINERS[op.name]
+            nat = lambda op=op: functools.reduce(
+                lambda a, b: rankcomm._apply(op, a, b), rows)
+            ref = lambda npfn=npfn: functools.reduce(npfn, rows)
+            check(_bits(nat(), ref()), f"rankcomm._apply {op.name}: native "
+                  f"against numpy")
+            times.append((f"host fold {op.name}", host_ms(nat, 3),
+                          host_ms(ref, 3)))
+        del rows
+        ints = rng.integers(-2 ** 31, 2 ** 31 - 1, (OSC_ROWS, LOCAL_ELEMS),
+                            dtype=np.int32)
+        for op in (MPI.BAND, MPI.BXOR, MPI.LAND):
+            npfn = op_mod.NP_COMBINERS[op.name]
+            nat = lambda op=op: basic._np_fold(op, ints)
+            ref = lambda npfn=npfn: functools.reduce(npfn, ints)
+            check(_bits(nat(), ref()), f"coll/basic {op.name} on int32")
+            times.append((f"basic {op.name} int32", host_ms(nat, 3),
+                          host_ms(ref, 3)))
+        del ints
+        # reduce_local: 10 dtypes x 10 ops, NaNs in the float operands
+        ops = ("SUM", "PROD", "MAX", "MIN", "BAND", "BOR", "BXOR", "LAND",
+               "LOR", "LXOR")
+        dts = (np.int8, np.int16, np.int32, np.int64, np.uint8, np.uint16,
+               np.uint32, np.uint64, np.float32, np.float64)
+        native_cases = 0
+        for dt in dts:
+            if np.dtype(dt).kind == "f":
+                a = rng.standard_normal(OSC_SMALL).astype(dt)
+                b = rng.standard_normal(OSC_SMALL).astype(dt)
+                a[::7], b[3::11] = np.nan, np.nan
+            else:
+                info = np.iinfo(dt)
+                a = rng.integers(info.min, info.max, OSC_SMALL, dtype=dt,
+                                 endpoint=True)
+                b = rng.integers(info.min, info.max, OSC_SMALL, dtype=dt,
+                                 endpoint=True)
+            for name in ops:
+                if np.dtype(dt).kind == "f" and name.startswith("B"):
+                    continue             # no bitwise op on floats
+                op = getattr(MPI, name)
+                before = lib.counts["ompi_tpu_reduce_local"]
+                got = op_mod.reduce_local(a, b, op)
+                want = op_mod.np_combiner(op)(a, b)
+                native_cases += lib.counts["ompi_tpu_reduce_local"] > before
+                check(_bits(got, want), f"reduce_local {name} on "
+                      f"{np.dtype(dt).name}")
+        check(native_cases == len(dts) * len(ops) - 6,
+              f"{native_cases} reduce_local cases took the C++ table")
+        lines.append(f"reduce_local: {len(dts)} dtypes x {len(ops)} ops at "
+                     f"{OSC_SMALL} elements (NaNs in the float operands; "
+                     f"no bitwise op on the 2 float dtypes): all "
+                     f"{native_cases} through the C++ table, bit for bit "
+                     f"= the numpy route")
+        # the convertor on a (4096, 2048) host matrix
+        L = MAT[0] * MAT[1]
+        m = rng.standard_normal(L, dtype=np.float32)
+        types = {"vector(4096, 1024, 2048)":
+                 MPI.FLOAT.create_vector(MAT[0], 1024, MAT[1]).commit(),
+                 "indexed (4096 blocks of 1..1024)":
+                 MPI.FLOAT.create_indexed(
+                     list(rng.integers(1, 1025, MAT[0])),
+                     list(np.arange(MAT[0]) * MAT[1])).commit()}
+        for name, t in types.items():
+            idx = t.flat_indices(1)
+            p = convertor.pack(m, t, 1)
+            check(_bits(p, m[idx]), f"{name}: native pack")
+            u = convertor.unpack(np.zeros_like(m), p, t, 1)
+            fancy = np.zeros_like(m)
+            fancy[idx] = m[idx]
+            check(_bits(u, fancy), f"{name}: native unpack")
+            out = np.zeros_like(m)
+            times.append((f"pack {name}", host_ms(
+                lambda t=t: convertor.pack(m, t, 1), 5),
+                host_ms(lambda idx=idx: np.ascontiguousarray(m[idx]), 5)))
+            times.append((f"unpack {name}", host_ms(
+                lambda t=t, p=p: convertor.unpack(out, p, t, 1), 5),
+                host_ms(lambda idx=idx, p=p: out.__setitem__(idx, p), 5)))
+        # matching: the 8 x 32 MB ring and 256 wildcards, native on and off
+        g = torch.Generator(device="cuda").manual_seed(OSC_SEED)
+        x = torch.randn((w.size, LOCAL_ELEMS), device="cuda", generator=g)
+        xh = x.cpu().numpy()
+        engines = {}
+        for label, off in (("python", "1"), ("native", None)):
+            if off:
+                os.environ["OMPI_TPU_TORCH_DISABLE_NATIVE_MATCH"] = off
+            try:
+                d = w.dup()
+                d.send(x[0, :2], src=0, dest=1, tag=0)   # makes the engine
+                d.recv(0, 0, dst=1)
+            finally:
+                os.environ.pop("OMPI_TPU_TORCH_DISABLE_NATIVE_MATCH", None)
+            check((d._pml._lib is not None) == (label == "native"),
+                  f"{label} matching engine")
+            engines[label] = d
+        seen = {}
+        for label, d in engines.items():
+            order = []
+            for sends_first in (False, True):
+                got, sts = _ring(d, x, 1, sends_first)
+                check(all(_bits(o, xh[(r - 1) % w.size])
+                          for r, o in enumerate(got)),
+                      f"{label} ring (sends first {sends_first})")
+                order += [(s.source, s.tag) for s in sts]
+            small = torch.ones(2, device="cuda")
+            for i in range(256):
+                d.send(small * i, src=(i * 3) % w.size, dest=0, tag=i % 7)
+            us = []
+            for _ in range(256):
+                t0 = time.perf_counter()
+                data, st = d.recv(MPI.ANY_SOURCE, MPI.ANY_TAG, dst=0)
+                us.append((time.perf_counter() - t0) * 1e6)
+                order.append((st.source, st.tag, float(data[0])))
+            seen[label] = order
+            ring_ms = device_ms(lambda d=d: _ring(d, x, 3, False), iters=5,
+                                warmup=1)
+            times.append((f"{label} matching: ring ms / wildcard us",
+                          ring_ms, statistics.median(us)))
+        check(seen["python"] == seen["native"], "matching order differs "
+              "between the native and the Python engine")
+        for d in engines.values():
+            d.free()
+        del x
+    finally:
+        N.get_lib = real
+    counts = lib.counts
+    check(all(counts.values()), f"a native entry point was never called: "
+          f"{counts}")
+    lines.append("native calls made through the library in this phase: "
+                 + ", ".join(f"{k[9:]} {v}" for k, v in counts.items()))
+    lines.append("ring order, statuses and 256 wildcard matches: the "
+                 "native engine = the Python engine")
+    for what, a, b in times:
+        lines.append(f"{what}: native {a:.3f}, numpy/python {b:.3f} "
+                     f"(host ms, median)" if "matching" not in what else
+                     f"{what}: {a:.4f} ms (device), {b:.2f} us (host, "
+                     f"median of 256)")
+    return lines
+
+
+def _osc_win_checks(w) -> list:
+    """16(b): the single-controller Win on cuda:0, 8 x 32 MB fp32."""
+    dev = torch.device("cuda", 0)
+    n = w.size
+    g = torch.Generator(device=dev).manual_seed(OSC_SEED + 1)
+    x = torch.randn((n, LOCAL_ELEMS), device=dev, generator=g)
+    xh = x.cpu().numpy()
+    win = MPI.Win.allocate(w, LOCAL_ELEMS, np.float32)
+    on_card = lambda wn: (wn.buffer.device == dev
+                          and wn.buffer.shape[0] == n)
+    check(on_card(win), f"window on {win.buffer.device}")
+    win.fence()
+    for r in range(n):
+        win.put(x[r], (r + 1) % n)
+    win.fence()
+    check(all(torch.equal(win.buffer[(r + 1) % n], x[r]) for r in range(n)),
+          "fenced put ring")
+    check(_bits(win.get(3, 5, 1000), xh[2, 5:1005]), "get")
+    row = xh[3].copy()                     # row 4 holds x[3]
+    for name, inc, fn in (("SUM", 5, np.add), ("MAX", 6, np.maximum),
+                          ("REPLACE", 7, lambda a, b: b),
+                          ("NO_OP", 0, lambda a, b: a)):
+        win.accumulate(x[inc], 4, getattr(MPI, name))
+        want = fn(row, xh[inc])
+        got = win.get(4)
+        if name == "SUM":
+            _close(got, want, 1e-5, 0.0, "accumulate SUM")
+        else:
+            check(_bits(got, want), f"accumulate {name}")
+        row = got
+    # uint32: the signed twin through Op.__call__, exact
+    rng = np.random.default_rng(OSC_SEED)
+    u = rng.integers(0, 2 ** 32 - 1, (3, OSC_SMALL), dtype=np.uint32,
+                     endpoint=True)
+    uw = MPI.Win.allocate(w, OSC_SMALL, np.uint32)
+    check(on_card(uw) and uw.buffer.dtype == torch.uint32, "uint32 window")
+    uw.put(u[0], 1)
+    cur = u[0]
+    ud = torch.from_numpy(u).to(dev)
+    for name, k, fn in (("SUM", 1, np.add), ("MAX", 2, np.maximum),
+                        ("REPLACE", 1, lambda a, b: b),
+                        ("NO_OP", 2, lambda a, b: a)):
+        uw.accumulate(ud[k], 1, getattr(MPI, name))
+        cur = fn(cur, u[k])
+        check(_bits(uw.get(1), cur), f"uint32 accumulate {name}")
+    # get_accumulate, fetch_and_op, compare_and_swap
+    before = win.get(2, 7, OSC_SMALL)
+    old = win.get_accumulate(x[1, :OSC_SMALL], 2, MPI.SUM, target_disp=7)
+    check(_bits(old, before), "get_accumulate's fetch")
+    _close(win.get(2, 7, OSC_SMALL), before + xh[1, :OSC_SMALL], 1e-5, 0.0,
+           "get_accumulate SUM")
+    v0 = win.get(6, 11, 1)[0]
+    check(win.fetch_and_op(3.0, 6, MPI.SUM, target_disp=11) == v0
+          and win.get(6, 11, 1)[0] == np.float32(v0 + np.float32(3.0)),
+          "fetch_and_op")
+    v1 = win.get(6, 11, 1)[0]
+    check(win.compare_and_swap(42.0, v1, 6, 11) == v1
+          and win.get(6, 11, 1)[0] == 42.0, "compare_and_swap (swap)")
+    check(win.compare_and_swap(7.0, 1.5, 6, 11) == 42.0
+          and win.get(6, 11, 1)[0] == 42.0, "compare_and_swap (no swap)")
+    # requests, PSCW, lock/unlock
+    req = win.rput(x[2], 0)
+    racc = win.raccumulate(x[3], 0, MPI.MAX)
+    check(req._event is not None, "rput did not complete on an event")
+    req.wait()
+    racc.wait()
+    check(_bits(win.get(0), np.maximum(xh[2], xh[3])), "rput + raccumulate")
+    grp = w.group
+    win.post(grp)
+    win.start(grp)
+    win.put(x[4], 1)
+    win.complete()
+    win.wait()
+    check(win.test() and _bits(win.get(1), xh[4]), "PSCW")
+    win.lock(5)
+    win.accumulate(x[5], 5, MPI.REPLACE)
+    win.unlock(5)
+    check(_bits(win.get(5), xh[5]), "lock / unlock")
+    dyn = MPI.Win.create_dynamic(w, np.float32)
+    b0 = dyn.attach(OSC_SMALL)
+    dyn.put(x[0, :OSC_SMALL], 5, b0)
+    b1 = dyn.attach(OSC_SMALL)
+    dyn.put(x[1, :OSC_SMALL], 5, b1)
+    check(b0 == 0 and b1 == OSC_SMALL and on_card(dyn)
+          and _bits(dyn.get(5), np.concatenate([xh[0, :OSC_SMALL],
+                                                xh[1, :OSC_SMALL]])),
+          "attach")
+    check(on_card(win) and on_card(uw), "a window row left cuda:0")
+    # device ms: 32 MB from a CUDA origin and from a numpy origin
+    nb = LOCAL_ELEMS * 4
+    put_b, acc_b = 2 * nb / HBM_BYTES_PER_S * 1e3, 3 * nb / HBM_BYTES_PER_S \
+        * 1e3
+    ms = {"put cuda": device_ms(lambda: win.put(x[1], 2)),
+          "acc cuda": device_ms(lambda: win.accumulate(x[1], 2, MPI.SUM)),
+          "put numpy": device_ms(lambda: win.put(xh[1], 2), iters=10),
+          "acc numpy": device_ms(lambda: win.accumulate(xh[1], 2, MPI.SUM),
+                                 iters=10)}
+    for wn in (win, uw, dyn):
+        wn.free()
+    del x, ud
+    torch.cuda.empty_cache()
+    return [
+        "Win on cuda:0, 8 x 32 MB fp32 (256 MB stacked, every row on "
+        "cuda:0 after every call): fenced put ring, get, accumulate SUM "
+        "(rtol 1e-5) / MAX / REPLACE / NO_OP, uint32 SUM / MAX / REPLACE / "
+        "NO_OP exact, get_accumulate, fetch_and_op, compare_and_swap "
+        "(swap and no swap), rput + raccumulate on a CUDA event, PSCW, "
+        "lock / unlock, attach: all = numpy",
+        f"32 MB put from a CUDA origin {ms['put cuda']:.4f} ms (bound "
+        f"{put_b:.4f} ms, 64 MiB over 3.35 TB/s: {put_b / ms['put cuda']:.1%}"
+        f" of HBM); accumulate SUM {ms['acc cuda']:.4f} ms (bound "
+        f"{acc_b:.4f} ms, 96 MiB: {acc_b / ms['acc cuda']:.1%}); from a numpy "
+        f"origin (one pageable host-to-device copy): put "
+        f"{ms['put numpy']:.4f} ms, accumulate {ms['acc numpy']:.4f} ms "
+        f"(device ms, CUDA events, median)"]
+
+
+def phase_onesided_world(w, smi: str) -> float:
+    """Phase 16(a) and (b) on the live 8-rank world on cuda:0."""
+    t0 = time.perf_counter()
+    for line in _osc_native_checks(w) + _osc_win_checks(w):
+        phase("onesided", f"{line} | {smi}")
+    return time.perf_counter() - t0
+
+
+def _osc_fresh_check(report: str) -> int:
+    """16(b)'s DtoH count in a process of its own (``--osc-fresh-check``;
+    see ``_fresh_check``): a 32 MB put and accumulate from a CUDA origin
+    on the 8-row world's window, each warmed once, then counted under
+    the profiler, with a ``.cpu()`` control."""
+    dev = torch.device("cuda", 0)
+    MPI.Init(devices=[dev] * N_RANKS)
+    w = MPI.get_comm_world()
+    win = MPI.Win.allocate(w, LOCAL_ELEMS, np.float32)
+    x = torch.randn((2, LOCAL_ELEMS), device=dev)
+    calls = {"put": lambda: win.put(x[0], 3),
+             "accumulate SUM": lambda: win.accumulate(x[1], 3, MPI.SUM),
+             "accumulate MAX": lambda: win.accumulate(x[1], 4, MPI.MAX),
+             "rput": lambda: win.rput(x[0], 5).wait(),
+             "raccumulate": lambda: win.raccumulate(x[1], 5, MPI.SUM)
+             .wait()}
+    counts = {}
+    for name, fn in calls.items():
+        fn()
+        counts[name] = _dtoh_events(fn)
+    t = torch.ones(1024, device=dev)
+    with open(report, "w") as fh:
+        json.dump({"counts": counts,
+                   "control": _dtoh_events(lambda: t.cpu())}, fh)
+    win.free()
+    MPI.Finalize()
+    return 0
+
+
+def _osc_p43(w, comp: str, out_dir: str) -> list:
+    """The port's p43 drill at 32 MB per window, CUDA origins; rank 0's
+    lines (host ms per op) and, on shm, its telemetry dump and flight
+    record."""
+    from ompi_tpu_torch import telemetry
+    from ompi_tpu_torch.api import mpi as api
+    from ompi_tpu_torch.telemetry import flightrec
+    r, n = w.rank(), w.size
+    nxt, prv = (r + 1) % n, (r - 1) % n
+    full = np.random.default_rng(OSC_SEED + 43).standard_normal(
+        (n, LOCAL_ELEMS), dtype=np.float32)
+    origin = torch.from_numpy(full).to(w.device)
+    p0 = pvar.pvar_read("osc_puts")
+    win = api.Win_allocate(w, LOCAL_ELEMS, np.float32, name="p43",
+                           force=comp)
+    check(win.component == comp, win.component)
+    win.local[:] = 0.0
+    win.fence()
+    win.put(origin[r], nxt)
+    win.fence()
+    check(np.array_equal(win.local, full[prv]), "put ring")
+    lines = []
+    if comp == "shm" and r == 0:
+        path = flightrec.record("osc_check", {"rank": r})
+        with open(path) as f:
+            epochs = json.load(f)["osc_epochs"]
+        check(epochs and epochs[0]["fenced"], f"osc_epochs {epochs}")
+        lines.append(f"flight record {os.path.basename(path)}: osc_epochs "
+                     f"{epochs}")
+    win.fence()
+    view = win.get((r + 2) % n, 0, LOCAL_ELEMS)
+    got = np.asarray(view).copy()
+    win.fence()
+    check(np.array_equal(got, full[(r + 1) % n]), "get ring")
+    if comp == "shm":
+        check(not np.asarray(view).flags.owndata, "shm get copied")
+    del view
+    win.fence()
+    win.local[:] = 0.0
+    win.fence()
+    win.accumulate(origin[r], 0, op="sum")
+    win.accumulate(origin[r].abs(), 1, op="max")
+    win.fence()
+    if r == 0:
+        check(np.allclose(win.local, full.sum(axis=0, dtype=np.float32),
+                          rtol=1e-4, atol=1e-4), "sum fan-in")
+    if r == 1:
+        check(np.array_equal(win.local, np.abs(full).max(axis=0)),
+              "max fan-in")
+    w.barrier()                          # the checks read before the
+    win.lock(nxt)                        # passive puts land
+    win.put(origin[r] * 2.0, nxt)
+    win.flush(nxt)
+    win.unlock(nxt)
+    w.barrier()
+    check(np.array_equal(win.local, full[prv] * 2.0), "passive put")
+    check(pvar.pvar_read("osc_puts") - p0 >= 2, "osc_puts")
+    # host ms per op at 32 MB (medians of 3, inside one fence epoch)
+    win.fence()
+    ms = {}
+    for kind, fn in (("put", lambda: win.put(origin[r], nxt)),
+                     ("get", lambda: win.get(nxt, 0, LOCAL_ELEMS)),
+                     ("acc", lambda: win.accumulate(origin[r].abs(), nxt,
+                                                    op="max"))):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms[kind] = statistics.median(ts)
+    win.fence()
+    if comp == "shm" and r == 0:
+        path = os.path.join(out_dir, "telemetry_0.json")
+        telemetry.dump(path, rank=0)
+        with open(path) as f:
+            osc = json.load(f).get("osc", {})
+        check(osc.get("puts", 0) >= 5 and osc.get("fences", 0) >= 8,
+              f"telemetry dump osc section {osc}")
+        lines.append(f"telemetry dump: osc section puts {osc['puts']}, gets "
+                     f"{osc['gets']}, accs {osc['accs']}, fences "
+                     f"{osc['fences']}, windows_shm {osc['windows_shm']}")
+    w.barrier()
+    win.free()
+    lines.insert(0, f"p43 {comp}, 4 ranks, 32 MB per window, CUDA origins "
+                 f"staged with .cpu(): put/get ring, sum/max fan-in, "
+                 f"passive put = numpy on every rank; rank 0 host ms per "
+                 f"32 MB op: put {ms['put']:.2f}, get {ms['get']:.2f}, "
+                 f"accumulate {ms['acc']:.2f} (median of 3)")
+    return lines
+
+
+def _osc_p13(w) -> list:
+    """The port's p13 on 3 ranks (one CUDA origin in the first put)."""
+    from ompi_tpu_torch.osc.perrank import LOCK_EXCLUSIVE, RankWindow
+    r, n = w.rank(), w.size
+    win = RankWindow(w, 16, np.float32)
+    win.fence()
+    win.put(torch.tensor([float(r + 1)], device=w.device), target=0, disp=r)
+    win.fence()
+    if r == 0:
+        check(np.allclose(win.local[:n], np.arange(1, n + 1)), "p13 put")
+    win.fence()
+    win.accumulate([1.0], target=n - 1, disp=8, op="sum")
+    win.fence()
+    if r == n - 1:
+        check(win.local[8] == float(n), "p13 accumulate")
+    check(np.allclose(win.get(target=0, disp=0, count=n),
+                      np.arange(1, n + 1)), "p13 get")
+    old = win.fetch_and_op(1.0, target=0, disp=12, op="sum")
+    check(0.0 <= old < n, "p13 fetch_and_op")
+    win.fence()
+    prev = win.compare_and_swap(0.0, float(r + 1), target=0, disp=15)
+    check(w.allreduce(1 if prev == 0.0 else 0, MPI.SUM) == 1, "p13 CAS")
+    win.fence()
+    for _ in range(3):
+        win.lock(1, LOCK_EXCLUSIVE)
+        cur = win.get(target=1, disp=3, count=1)[0]
+        win.put([cur + 1.0], target=1, disp=3)
+        win.unlock(1)
+    w.barrier()
+    if r == 1:
+        check(win.local[3] == float(3 * n), "p13 passive counter")
+    win.free()
+    w4 = RankWindow(w, 4, np.float64)
+    w4.fence()
+    right = (r + 1) % n
+    w4.rput(np.array([10.0 + r, 20.0 + r]), right, disp=1).wait()
+    ra = w4.raccumulate(np.array([0.25, 0.25]), right, disp=1, op="sum")
+    ra.wait()
+    g = w4.rget(right, disp=1, count=2)
+    check(g.get()[0] == 10.25 + r, "p13 request RMA")
+    w4.fence()
+    w4.free()
+    return ["p13, 3 ranks: put (a CUDA origin), accumulate, get, "
+            "fetch_and_op, compare_and_swap (one winner), passive "
+            "counter, rput / raccumulate / rget: every rank OK"]
+
+
+def _osc_p44(w) -> list:
+    """The port's p44: rank 2 SIGKILLs itself inside an exposure epoch;
+    the survivors get ERR_PROC_FAILED from fence and from a put to it,
+    revoke, free, shrink and allocate again."""
+    import signal
+    from ompi_tpu_torch.api import mpi as api
+    r, n = w.rank(), w.size
+    victim = 2
+    nxt, prv = (r + 1) % n, (r - 1) % n
+    api.Comm_set_errhandler(w, MPI.ERRORS_RETURN)
+    w.barrier()
+    full = np.random.default_rng(OSC_SEED + 44).standard_normal(
+        (n, 1 << 14), dtype=np.float32)
+    win = api.Win_allocate(w, 1 << 14, np.float32, name="p44", force="shm")
+    win.local[:] = 0.0
+    win.fence()
+    win.put(torch.from_numpy(full[r]).to(w.device), nxt)
+    win.fence()
+    check(np.array_equal(win.local, full[prv]), "p44 healthy ring")
+    if r == victim:
+        os.kill(os.getpid(), signal.SIGKILL)
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + 15
+    while w.get_failed() != [victim]:
+        check(time.monotonic() < deadline, f"p44 failed {w.get_failed()}")
+        time.sleep(0.02)
+    detect_ms = (time.perf_counter() - t0) * 1e3
+    for what, fn in (("fence", win.fence),
+                     ("put", lambda: win.put(full[r], victim))):
+        try:
+            fn()
+            check(False, f"p44 {what} over a dead rank did not error")
+        except MPI.MPIError as e:
+            check(e.error_class == MPI.ERR_PROC_FAILED, f"p44 {what}: {e}")
+    check(pvar.pvar_read("osc_ft_failed_epochs") >= 1, "p44 torn epoch")
+    if r == 0:
+        MPI.MPIX_Comm_revoke(w)
+    deadline = time.monotonic() + 10
+    while not MPI.MPIX_Comm_is_revoked(w):
+        check(time.monotonic() < deadline, "p44 revoke")
+        time.sleep(0.02)
+    try:
+        win.free()
+    except MPI.MPIError:
+        pass
+    s = MPI.MPIX_Comm_shrink(w)
+    n2, sr = s.size, s.rank()
+    check(n2 == n - 1 and sr == {0: 0, 1: 1, 3: 2}[r], "p44 shrink")
+    full2 = np.random.default_rng(OSC_SEED + 45).standard_normal(
+        (n2, 1 << 14), dtype=np.float32)
+    win2 = api.Win_allocate(s, 1 << 14, np.float32, name="p44b",
+                            force="shm")
+    win2.local[:] = 0.0
+    win2.fence()
+    win2.put(full2[sr], (sr + 1) % n2)
+    win2.fence()
+    check(np.array_equal(win2.local, full2[(sr - 1) % n2]), "p44 ring")
+    win2.free()
+    s.barrier()
+    s.free()
+    return [f"p44, 4 ranks: rank 2 SIGKILLed in a fence epoch; rank 0 saw "
+            f"it failed after {detect_ms:.1f} ms, then ERR_PROC_FAILED "
+            f"from fence and from a put to it, revoke, free, shrink to 3 "
+            f"and a fenced ring on a new window"]
+
+
+def _osc_rank(kind: str, report: str) -> int:
+    """The rank program of phase 16(c) (``--osc-rank KIND REPORT``, run
+    by mpirun --per-rank on cuda:0); rank 0 writes its lines."""
+    from ompi_tpu_torch.accelerator import job_tag
+    MPI.Init()
+    w = MPI.get_comm_world()
+    check(w.device.type == "cuda", f"rank on {w.device}")
+    out_dir = os.path.dirname(report)
+    if kind.startswith("p43"):
+        lines = _osc_p43(w, kind[4:], out_dir)
+    elif kind == "p13":
+        lines = _osc_p13(w)
+    else:
+        lines = _osc_p44(w)
+    if w.rank() == 0:
+        with open(report, "w") as fh:
+            json.dump({"tag": job_tag(), "lines": lines}, fh)
+    r = w.rank()
+    MPI.Finalize()
+    print(f"OK osc {kind} rank={r}", flush=True)
+    return 0
+
+
+def phase_onesided_job(smi: str, world_s: float) -> None:
+    """Phase 16(c): the p43 drill on shm and on pt2pt, p13 and p44 as
+    per-rank jobs on cuda:0, and 16(b)'s fresh-process DtoH count, all
+    started at once."""
+    import glob
+    import signal
+    import tempfile
+    from ompi_tpu_torch.accelerator import SHM_DIR
+    from ompi_tpu_torch.osc.shm import WIN_PREFIX
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    mpirun = os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py")
+    me = os.path.abspath(__file__)
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = []
+        for kind, n, mca, want_rc in (
+                ("p43 shm", 4, (("mpi_base_telemetry", 1),
+                                ("mpi_base_telemetry_flightrec_dir", tmp)),
+                 0),
+                ("p43 pt2pt", 4, (), 0), ("p13", 3, (), 0),
+                ("p44", 4, OSC_HB, 256 - signal.SIGKILL)):
+            rep = os.path.join(tmp, kind.replace(" ", "_") + ".json")
+            cmd = [sys.executable, mpirun, "--per-rank", "-n", str(n),
+                   "--timeout", str(OSC_JOB_TIMEOUT)]
+            if kind == "p44":
+                cmd.append("--enable-recovery")
+            for k, v in mca:
+                cmd += ["--mca", k, str(v)]
+            cmd += [me, "--osc-rank", kind.replace(" ", "_"), rep]
+            jobs.append((kind, n - (kind == "p44"), want_rc, rep,
+                         subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.PIPE, text=True,
+                                          cwd=root, start_new_session=True)))
+        fresh = os.path.join(tmp, "dtoh.json")
+        jobs.append(("fresh DtoH check", 0, 0, fresh, subprocess.Popen(
+            [sys.executable, me, "--osc-fresh-check", fresh],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root, start_new_session=True)))
+        outs = []
+        deadline = time.monotonic() + OSC_JOB_TIMEOUT + 5
+        for kind, _n, _rc, _rep, p in jobs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                outs.append(("", f"{kind}: killed at the phase's limit"))
+        for *_x, p in jobs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        lines, tags = [], []
+        for (kind, n, want_rc, rep, p), (out, err) in zip(jobs, outs):
+            oks = out.count("OK osc")
+            if p.returncode != want_rc or oks != n:
+                sys.stderr.write(err[-6000:])
+                check(False, f"{kind}: rc={p.returncode} (want {want_rc}), "
+                      f"{oks} of {n} ranks OK:\n{out[-3000:]}")
+            with open(rep) as f:
+                res = json.load(f)
+            if n:
+                lines += res["lines"]
+                tags.append(res["tag"])
+            else:
+                check(res["control"] >= 1, f"the profiler saw "
+                      f"{res['control']} DtoH events in a .cpu() copy")
+                bad = {k: v for k, v in res["counts"].items() if v}
+                check(not bad, f"Memcpy DtoH events inside Win {bad}")
+                lines.append(f"0 Memcpy DtoH events (torch.profiler, a fresh "
+                             f"process) in each of "
+                             f"{', '.join(res['counts'])} from a CUDA origin "
+                             f"at 32 MB; the control's .cpu() showed "
+                             f"{res['control']}")
+    left = [f for t in tags
+            for f in glob.glob(os.path.join(SHM_DIR, f"otpt*_{t}_*"))]
+    check(all(tags) and not left, f"files left: {left}")
+    job_s = time.perf_counter() - t0
+    for line in lines:
+        phase("onesided", f"{line} | {smi}")
+    check(world_s + job_s < OSC_JOB_PHASE_S, f"phase 16 took "
+          f"{world_s + job_s:.1f} s")
+    phase("onesided", f"per-rank jobs rc 0, 0, 0 and {256 - signal.SIGKILL} "
+          f"(p44's victim, killed by SIGKILL); no {WIN_PREFIX}_ or other "
+          f"otpt*_ file of the four jobs left under {SHM_DIR}; per-rank part "
+          f"{job_s:.1f} s; phase 16 took {world_s + job_s:.1f} s (limit "
+          f"{OSC_JOB_PHASE_S} s) | {smi}")
+
+
 def main() -> int:
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
@@ -4546,6 +5253,10 @@ def main() -> int:
         return _sessions_rank(sys.argv[-1])
     if "--fresh-check" in sys.argv:
         return _fresh_check(sys.argv[-1])
+    if "--osc-rank" in sys.argv:
+        return _osc_rank(sys.argv[-2].replace("_", " "), sys.argv[-1])
+    if "--osc-fresh-check" in sys.argv:
+        return _osc_fresh_check(sys.argv[-1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -4564,6 +5275,14 @@ def main() -> int:
         MPI.Finalize()
         torch.cuda.empty_cache()
         phase_sessions_job(smi, ses_s)
+        return 0
+    if "--onesided" in sys.argv:
+        smi, _ = phase_device()
+        MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+        osc_s = phase_onesided_world(MPI.get_comm_world(), smi)
+        MPI.Finalize()
+        torch.cuda.empty_cache()
+        phase_onesided_job(smi, osc_s)
         return 0
     if "--perrank" in sys.argv:
         smi, _ = phase_device()
@@ -4597,6 +5316,7 @@ def main() -> int:
     _tuned_single(world, smi)
     world_s = phase_observe_world(world, smi)
     ses_s = phase_sessions_world(world, smi)
+    osc_s = phase_onesided_world(world, smi)
     res_s = phase_resilience_world(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
@@ -4605,6 +5325,7 @@ def main() -> int:
     phase_observe_job(smi, world_s)
     phase_resilience_job(smi, res_s)
     phase_sessions_job(smi, ses_s)
+    phase_onesided_job(smi, osc_s)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

@@ -46,6 +46,13 @@ module's counterpart sits at the same path:
   ``core.dpm_perrank`` — MPI-4 Sessions (private var scope, CID space
                     and failure registry), intercommunicators, spawn,
                     ports and the cross-job bridge.
+- ``native``      — the repository's C++ host library (``native/*.cpp``,
+                    built with g++ on first use): pack/unpack, host
+                    reduction kernels, the stacked matching core, the
+                    buddy heap and lock-free containers.
+- ``osc``         — one-sided RMA: the stacked ``Win`` (rows updated in
+                    place on the card) and the per-rank ``RmaWindow``
+                    over /dev/shm segments or the active-message plane.
 - ``coll/han``, ``coll/xhc``, ``coll/adapt``, ``coll/acoll``,
   ``utils.locality`` — the composition components: two-level and
                     n-level hierarchies over the stacked rows, segmented
@@ -63,7 +70,7 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     SUCCESS, ERR_COMM, ERR_TYPE, ERR_OP, ERR_ARG, ERR_COUNT, ERR_BUFFER,
     ERR_RANK, ERR_ROOT, ERR_TRUNCATE, ERR_OTHER, ERR_PENDING, ERR_TOPOLOGY,
     ERR_PROC_FAILED, ERR_REVOKED, ERR_SPAWN, ERR_PORT, ERR_SERVICE,
-    ERR_NAME,
+    ERR_NAME, ERR_WIN, ERR_BASE, ERR_LOCKTYPE, ERR_RMA_CONFLICT, ERR_RMA_SYNC,
     CONGRUENT, IDENT, SIMILAR, UNEQUAL,
     THREAD_SINGLE, THREAD_FUNNELED, THREAD_SERIALIZED, THREAD_MULTIPLE,
     COMM_TYPE_SHARED, COMM_TYPE_HWTHREAD, COMM_TYPE_NUMA,
@@ -74,9 +81,10 @@ from ompi_tpu_torch.api.mpi import (  # noqa: F401
     FLOAT_INT, DOUBLE_INT, LONG_INT, SHORT_INT, TWOINT,
     Datatype,
     # ops
-    SUM, PROD, MAX, MIN, LAND, LOR, LXOR, BAND, BOR, BXOR, MAXLOC, MINLOC, Op,
+    SUM, PROD, MAX, MIN, LAND, LOR, LXOR, BAND, BOR, BXOR, MAXLOC, MINLOC,
+    REPLACE, NO_OP, Op,
     # objects
-    Communicator, Group, Errhandler, Info, Request, Status, Grequest,
+    Communicator, Group, Errhandler, Info, Request, Status, Grequest, Win,
     ERRORS_ARE_FATAL, ERRORS_RETURN, ERRORS_ABORT,
     MPIError,
     # lifecycle

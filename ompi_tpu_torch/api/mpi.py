@@ -25,9 +25,10 @@ from ompi_tpu_torch.core.datatype import (  # noqa: F401
     UINT16_T, UINT32_T, UINT64_T, UNSIGNED, UNSIGNED_LONG,
     from_numpy_dtype, from_torch_dtype)
 from ompi_tpu_torch.core.errhandler import (  # noqa: F401
-    ERR_ARG, ERR_BUFFER, ERR_COMM, ERR_COUNT, ERR_NAME, ERR_OP, ERR_OTHER,
-    ERR_PENDING, ERR_PORT, ERR_PROC_FAILED, ERR_RANK, ERR_REVOKED, ERR_ROOT,
-    ERR_SERVICE, ERR_SPAWN, ERR_TOPOLOGY, ERR_TRUNCATE, ERR_TYPE,
+    ERR_ARG, ERR_BASE, ERR_BUFFER, ERR_COMM, ERR_COUNT, ERR_LOCKTYPE,
+    ERR_NAME, ERR_OP, ERR_OTHER, ERR_PENDING, ERR_PORT, ERR_PROC_FAILED,
+    ERR_RANK, ERR_REVOKED, ERR_RMA_CONFLICT, ERR_RMA_SYNC, ERR_ROOT,
+    ERR_SERVICE, ERR_SPAWN, ERR_TOPOLOGY, ERR_TRUNCATE, ERR_TYPE, ERR_WIN,
     ERRORS_ABORT,
     ERRORS_ARE_FATAL,
     ERRORS_RETURN, Errhandler, MPIError, SUCCESS, error_string)
@@ -35,8 +36,9 @@ from ompi_tpu_torch.core.group import (CONGRUENT, Group, IDENT,  # noqa: F401
                                        SIMILAR, UNDEFINED, UNEQUAL)
 from ompi_tpu_torch.core.info import INFO_ENV, INFO_NULL, Info  # noqa: F401
 from ompi_tpu_torch.core.op import (BAND, BOR, BXOR, LAND, LOR, LXOR,  # noqa: F401
-                                    MAX, MAXLOC, MIN, MINLOC, Op, PROD, SUM,
-                                    op_create, reduce_local)
+                                    MAX, MAXLOC, MIN, MINLOC, NO_OP, Op,
+                                    PROD, REPLACE, SUM, op_create,
+                                    reduce_local)
 from ompi_tpu_torch.core.request import (Grequest, Request,  # noqa: F401
                                          Status, startall, testall,
                                          testany, testsome, waitall,
@@ -61,6 +63,15 @@ THREAD_SERIALIZED = _rt.THREAD_SERIALIZED
 THREAD_MULTIPLE = _rt.THREAD_MULTIPLE
 
 COMM_NULL = None
+
+# one-sided RMA: the stacked single-controller window, and the per-rank
+# framework (MPI_Win_allocate/Win_create with component selection —
+# osc/shm same-host windows, osc/pt2pt emulation)
+from ompi_tpu_torch.osc.framework import (LOCK_EXCLUSIVE,  # noqa: F401,E402
+                                          LOCK_SHARED, Win)
+from ompi_tpu_torch.osc.window import (RmaWindow,  # noqa: F401,E402
+                                       win_allocate as Win_allocate,
+                                       win_create as Win_create)
 
 
 # lifecycle ---------------------------------------------------------------

@@ -31,6 +31,19 @@ def _np_fold(op, stacked, axis=0):
         return np.min(stacked, axis=axis)
     fn = np_combiner(op)
     acc = np.array(np.take(stacked, 0, axis=axis))
+    if op.predefined and not op.is_loc and op.commute:
+        # the C++ kernel table (native/ops.cpp, the op/avx role) for the
+        # remaining predefined commutative ops: one accumulator reduced
+        # into in place; operand order is irrelevant by commutativity,
+        # and a step the table declines takes the numpy combiner
+        from ompi_tpu_torch.native import native_reduce_into
+        acc = np.ascontiguousarray(acc)
+        rows = np.moveaxis(stacked, axis, 0)   # views: no copy per step
+        for i in range(1, stacked.shape[axis]):
+            step = np.ascontiguousarray(rows[i])
+            if not native_reduce_into(op.name, step, acc):
+                acc = np.asarray(fn(acc, step), dtype=acc.dtype)
+        return acc
     for i in range(1, stacked.shape[axis]):
         acc = np.asarray(fn(acc, np.take(stacked, i, axis=axis)),
                          dtype=acc.dtype)

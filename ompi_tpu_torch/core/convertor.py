@@ -9,7 +9,10 @@ is a gather and unpack a scatter on the last dim:
 - a tensor packs with ``index_select`` and unpacks with ``index_copy_``
   on its own device, from index tensors the datatype copied there once;
   nothing moves through the host;
-- a numpy array packs and unpacks with fancy indexing.
+- a numpy array packs and unpacks through the native run-copy loops
+  (``native/convertor.cpp``: one memcpy per contiguous run per
+  instance), or with fancy indexing where they decline (no library, an
+  object dtype, a map reaching outside the buffer).
 
 Unpack of a type whose instances overlap (a resized extent below the
 true extent, an indexed map that repeats a position) writes each
@@ -60,6 +63,75 @@ def _check_span(length: int, datatype: Datatype, count: int) -> None:
                          f"{lo}..{hi} on the last axis; it has {length}")
 
 
+def _native_args(buf: np.ndarray, datatype: Datatype, count: int):
+    """The byte geometry of the native run-copy loops over ``buf``; None
+    where the native path does not apply (no library, an object dtype,
+    an element map reaching outside the last axis: the numpy route then
+    raises its IndexError instead of a memcpy running out of bounds)."""
+    from ompi_tpu_torch.native import get_lib
+    lib = get_lib()
+    if lib is None or buf.dtype.hasobject or buf.ndim == 0:
+        return None
+    if count == 0 or datatype.count == 0:
+        return None
+    if buf.shape[-1] < count * datatype.extent:
+        return None
+    last = (count - 1) * datatype.extent
+    lo, hi = datatype.index_range()
+    if lo + min(0, last) < 0 or hi + max(0, last) >= buf.shape[-1]:
+        return None
+    offs, lens = datatype.runs()
+    if offs.size == 0:
+        return None
+    item = buf.dtype.itemsize
+    lead = int(np.prod(buf.shape[:-1])) if buf.ndim > 1 else 1
+    return (lib, (offs * item).astype(np.int64),
+            (lens * item).astype(np.int64), int(offs.size), count,
+            datatype.extent * item, datatype.count * item, lead,
+            buf.shape[-1] * item, count * datatype.count * item)
+
+
+def _native_pack(buf: np.ndarray, datatype: Datatype, count: int):
+    """``pack`` of a host array through ``ompi_tpu_pack_runs_rows``, or
+    None where the native path declines."""
+    geo = _native_args(buf, datatype, count)
+    if geo is None:
+        return None
+    (lib, offb, lenb, nruns, cnt, extent_b, packed_b, lead,
+     src_row_b, dst_row_b) = geo
+    src = np.ascontiguousarray(buf)
+    out = np.empty(buf.shape[:-1] + (count * datatype.count,), buf.dtype)
+    lib.ompi_tpu_pack_runs_rows(
+        out.ctypes.data, src.ctypes.data, offb.ctypes.data,
+        lenb.ctypes.data, nruns, cnt, extent_b, packed_b, lead,
+        src_row_b, dst_row_b)
+    return out
+
+
+def _native_unpack(out_buf, packed, datatype: Datatype, count: int) -> bool:
+    """``unpack`` into a C-contiguous host array through
+    ``ompi_tpu_unpack_runs_rows``; False where the native path declines
+    (the numpy route then raises any shape error)."""
+    if not (isinstance(out_buf, np.ndarray) and out_buf.flags["C_CONTIGUOUS"]
+            and out_buf.flags["WRITEABLE"]
+            and not isinstance(packed, torch.Tensor)):
+        return False
+    if (getattr(packed, "shape", (0,))[-1:] != (count * datatype.count,)
+            or tuple(packed.shape[:-1]) != out_buf.shape[:-1]):
+        return False
+    geo = _native_args(out_buf, datatype, count)
+    if geo is None:
+        return False
+    (lib, offb, lenb, nruns, cnt, extent_b, packed_b, lead,
+     dst_row_b, src_row_b) = geo
+    src = np.ascontiguousarray(packed, dtype=out_buf.dtype)
+    lib.ompi_tpu_unpack_runs_rows(
+        out_buf.ctypes.data, src.ctypes.data, offb.ctypes.data,
+        lenb.ctypes.data, nruns, cnt, extent_b, packed_b, lead,
+        dst_row_b, src_row_b)
+    return True
+
+
 def pack(buf, datatype: Optional[Datatype], count: int):
     """Pack ``count`` instances of ``datatype`` from ``buf`` (…, extent*count
     flat elements on the last axis) into a contiguous (…, count*dt.count)
@@ -73,8 +145,11 @@ def pack(buf, datatype: Optional[Datatype], count: int):
         _check_span(buf.shape[-1], datatype, count)
         return buf.index_select(
             -1, datatype.device_indices("gather", count, buf.device))
-    return np.ascontiguousarray(np.asarray(buf)[...,
-                                                datatype.flat_indices(count)])
+    buf = np.asarray(buf)
+    out = _native_pack(buf, datatype, count)
+    if out is not None:
+        return out
+    return np.ascontiguousarray(buf[..., datatype.flat_indices(count)])
 
 
 def unpack(out_buf, packed, datatype: Optional[Datatype], count: int):
@@ -101,6 +176,8 @@ def unpack(out_buf, packed, datatype: Optional[Datatype], count: int):
             dst = datatype.device_indices("dst", count, out_buf.device)
             src = datatype.device_indices("src", count, out_buf.device)
             out.index_copy_(-1, dst, packed.index_select(-1, src))
+        return out_buf
+    if _native_unpack(out_buf, packed, datatype, count):
         return out_buf
     out_buf[..., datatype.flat_indices(count)] = packed
     return out_buf

@@ -30,10 +30,15 @@ ERR_OTHER = 16
 ERR_INTERN = 17
 ERR_PENDING = 18
 ERR_IN_STATUS = 19
+ERR_WIN = 45          # one-sided RMA (MPI-3 ch. 11)
+ERR_BASE = 46
+ERR_LOCKTYPE = 47
+ERR_RMA_CONFLICT = 49
 ERR_SPAWN = 50        # dynamic process management
 ERR_PORT = 51
 ERR_SERVICE = 52
 ERR_NAME = 53
+ERR_RMA_SYNC = 54     # RMA call outside its epoch discipline
 ERR_REVOKED = 72      # ULFM: the communicator was revoked
 ERR_PROC_FAILED = 75  # ULFM: a peer process died
 
@@ -50,6 +55,10 @@ _CLASS_NAMES = {
     ERR_PENDING: "MPI_ERR_PENDING", ERR_IN_STATUS: "MPI_ERR_IN_STATUS",
     ERR_SPAWN: "MPI_ERR_SPAWN", ERR_PORT: "MPI_ERR_PORT",
     ERR_SERVICE: "MPI_ERR_SERVICE", ERR_NAME: "MPI_ERR_NAME",
+    ERR_WIN: "MPI_ERR_WIN", ERR_BASE: "MPI_ERR_BASE",
+    ERR_LOCKTYPE: "MPI_ERR_LOCKTYPE",
+    ERR_RMA_CONFLICT: "MPI_ERR_RMA_CONFLICT",
+    ERR_RMA_SYNC: "MPI_ERR_RMA_SYNC",
     ERR_REVOKED: "MPIX_ERR_REVOKED",
     ERR_PROC_FAILED: "MPIX_ERR_PROC_FAILED",
 }

@@ -231,6 +231,10 @@ BOR = Op(torch.bitwise_or, name="bor", predefined=True)
 BXOR = Op(torch.bitwise_xor, name="bxor", predefined=True)
 MINLOC = Op(_minloc, name="minloc", is_loc=True, predefined=True)
 MAXLOC = Op(_maxloc, name="maxloc", is_loc=True, predefined=True)
+# RMA accumulate ops (MPI-3): REPLACE takes the incoming value, NO_OP keeps
+# the target value (osc accumulate semantics, ompi/op/op.c)
+REPLACE = Op(lambda a, b: b, name="replace", commute=False, predefined=True)
+NO_OP = Op(lambda a, b: a, name="no_op", commute=False, predefined=True)
 
 
 def op_create(fn: Callable, commute: bool = True, name: str = "user_op") -> Op:
@@ -254,9 +258,17 @@ def reduce_local(inbuf, inoutbuf, op: Op):
     """MPI_Reduce_local: combine ``inbuf`` into ``inoutbuf`` with ``op``
     (no communication; the same combiner the collectives use). Returns
     ``inbuf op inoutbuf`` as a new tensor, or a new numpy array when both
-    buffers are host arrays."""
+    buffers are host arrays. Numpy operands of a predefined, non-loc op
+    take the C++ kernel table (``native/ops.cpp``, the op/avx role) where
+    it serves their dtype."""
     if not isinstance(op, Op) or op.fn is None:
         raise TypeError("invalid reduction op")
     if isinstance(inbuf, torch.Tensor) or isinstance(inoutbuf, torch.Tensor):
         return op(torch.as_tensor(inbuf), torch.as_tensor(inoutbuf))
-    return np_combiner(op)(np.asarray(inbuf), np.asarray(inoutbuf))
+    a, b = np.asarray(inbuf), np.asarray(inoutbuf)
+    if op.predefined and not op.is_loc:
+        from ompi_tpu_torch.native import native_reduce_local
+        out = native_reduce_local(op.name, a, b)
+        if out is not None:
+            return out
+    return np_combiner(op)(a, b)

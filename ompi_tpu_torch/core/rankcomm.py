@@ -1614,14 +1614,20 @@ class RankCommunicator:
 def _apply(op: op_mod.Op, a: Any, b: Any) -> Any:
     """A reduction combiner on the host tier. Tensors fold with the op's
     torch combiner (a numpy operand moves to the tensor's device); numpy
-    arrays with the dtype-preserving numpy kernel of a predefined op, or
-    the user's combiner over numpy; scalars come back as Python
-    scalars."""
+    arrays with the C++ kernel table (``native/ops.cpp``) or the
+    dtype-preserving numpy kernel of a predefined op, or the user's
+    combiner over numpy; scalars come back as Python scalars."""
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         dev = (a if isinstance(a, torch.Tensor) else b).device
         return op(torch.as_tensor(a, device=dev),
                   torch.as_tensor(b, device=dev))
-    r = np.asarray(op_mod.np_combiner(op)(np.asarray(a), np.asarray(b)))
+    an, bn = np.asarray(a), np.asarray(b)
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
-        return r
+        if op.predefined:
+            from ompi_tpu_torch.native import native_reduce_local
+            out = native_reduce_local(op.name, an, bn)
+            if out is not None:
+                return out
+        return np.asarray(op_mod.np_combiner(op)(an, bn))
+    r = np.asarray(op_mod.np_combiner(op)(an, bn))
     return r.item() if r.ndim == 0 else r

@@ -96,6 +96,9 @@ class Router:
         self._engines: Dict[Any, "PerRankEngine"] = {}
         self._pending: Dict[Any, List[Tuple[dict, bytes]]] = {}
         self._acks: Dict[int, threading.Event] = {}
+        # payloads carried by acks (the one-sided plane's get, fetch and
+        # error replies), kept until their waiter takes them
+        self._ack_replies: Dict[int, Any] = {}
         self._ack_ids = itertools.count(1)
         self._lock = threading.Lock()
         self._closing = False
@@ -265,6 +268,13 @@ class Router:
     def cancel_ack(self, aid: int) -> None:
         with self._lock:
             self._acks.pop(aid, None)
+            self._ack_replies.pop(aid, None)
+
+    def take_ack_reply(self, aid: int) -> Any:
+        """The payload the ack ``aid`` carried (None for a bare ack);
+        read once, after its event was set."""
+        with self._lock:
+            return self._ack_replies.pop(aid, None)
 
     def _deliver(self, header: dict, raw) -> None:
         """Called from btl reader threads (and loopback sends)."""
@@ -311,9 +321,14 @@ class Router:
                 self._departed.add(header["peer"])
             return
         if ctl == "ack":
+            aid = header["ack_id"]
             with self._lock:
-                ev = self._acks.pop(header["ack_id"], None)
+                ev = self._acks.pop(aid, None)
             if ev is not None:
+                if "desc" in header:
+                    reply = decode_payload(header["desc"], raw)
+                    with self._lock:
+                        self._ack_replies[aid] = reply
                 _progress.wake(ev)
             return
         if ctl == "xferack":
@@ -345,9 +360,15 @@ class Router:
                 return
         eng._incoming(header, raw)
 
-    def send_ack(self, world_rank: int, ack_id: int) -> None:
-        self.endpoint.send_frame(world_rank, {"ctl": "ack",
-                                              "ack_id": ack_id})
+    def send_ack(self, world_rank: int, ack_id: int,
+                 reply: Any = None) -> None:
+        """Complete the sender's ack ``ack_id``, carrying ``reply`` as its
+        payload when given."""
+        header = {"ctl": "ack", "ack_id": ack_id}
+        raw = b""
+        if reply is not None:
+            header["desc"], raw = encode_payload(reply)
+        self.endpoint.send_frame(world_rank, header, raw)
 
     def close(self) -> None:
         self._closing = True

@@ -23,11 +23,14 @@ pt2pt rides a separate matching *channel*, so its fragments can never
 cross-match user tags.
 
 The pessimist message-logging engine (``pml/vprotocol``) subclasses this
-one. The C++ matching backend waits for ROADMAP item 7; the
-request-level fault-tolerance checks wait for the ULFM plane.
+one. Matching has two equivalent backends: the C++ core
+(``native/matching.cpp``, integer descriptors in native queues, payloads
+held here by handle) when the native library loaded, else the Python
+queues; ``OMPI_TPU_TORCH_DISABLE_NATIVE_MATCH=1`` forces the Python one.
 """
 from __future__ import annotations
 
+import os
 import threading
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -45,6 +48,10 @@ PROC_NULL = -2
 
 CH_P2P = 0          # ordinary sends/recvs (int tags)
 CH_PART = 1         # partitioned pt2pt fragments (tuple tags)
+
+# the C++ matching core keeps its engines in one process-wide table, and
+# ctypes releases the GIL around every call: one lock orders them all
+_NATIVE_LOCK = threading.RLock()
 
 
 def _register_vars() -> None:
@@ -185,7 +192,9 @@ class MatchingEngine:
     """Per-communicator pt2pt state: one unexpected FIFO per (dest, src)
     (non-overtaking), one posted-receive list (match order), and the
     (src, dest) -> [messages, bytes] traffic table (the pml/monitoring
-    role)."""
+    role). The queues live in the C++ matching core when the native
+    library loaded (see the module doc), else in ``unexpected`` and
+    ``posted``."""
 
     def __init__(self, comm):
         self.comm = comm
@@ -197,6 +206,43 @@ class MatchingEngine:
         self.unexpected: Dict[Tuple[int, int], Deque[_Msg]] = {}
         self.posted: List[_PostedRecv] = []
         self.traffic: Dict[Tuple[int, int], List[int]] = {}
+        self._lib = None
+        self._h = -1
+        if not os.environ.get("OMPI_TPU_TORCH_DISABLE_NATIVE_MATCH"):
+            from ompi_tpu_torch.native import get_lib
+            lib = get_lib()
+            if lib is not None:
+                with _NATIVE_LOCK:
+                    self._h = lib.ompi_tpu_match_create(comm.size)
+                self._lib = lib
+                self._msgs: Dict[int, _Msg] = {}        # unexpected payloads
+                self._reqs: Dict[int, PtpRequest] = {}   # posted receives
+                self._next_handle = 1
+                self._tag_ids: Dict[Any, int] = {}       # tuple-tag intern
+
+    def __del__(self):
+        lib, h = getattr(self, "_lib", None), getattr(self, "_h", -1)
+        if lib is not None and h >= 0:
+            try:
+                with _NATIVE_LOCK:
+                    lib.ompi_tpu_match_destroy(h)
+            except Exception:            # noqa: BLE001 — interpreter exit
+                pass
+
+    def _tag_id(self, tag) -> int:
+        """Native tags are int64; tuple tags (the partitioned channel)
+        are interned: equal ids for equal tags."""
+        if isinstance(tag, int):
+            return tag
+        tid = self._tag_ids.get(tag)
+        if tid is None:
+            tid = self._tag_ids[tag] = (1 << 40) + len(self._tag_ids)
+        return tid
+
+    def _handle(self) -> int:
+        h = self._next_handle
+        self._next_handle += 1
+        return h
 
     def _q(self, dest: int, src: int) -> Deque[_Msg]:
         return self.unexpected.setdefault((dest, src), deque())
@@ -243,6 +289,19 @@ class MatchingEngine:
             t[1] += _nbytes(data)
         msg = _Msg(src, dest, tag, data, synchronous, channel)
         with self._mlock:
+            if self._lib is not None:
+                mh = self._handle()
+                with _NATIVE_LOCK:
+                    r = self._lib.ompi_tpu_match_send(
+                        self._h, src, dest, self._tag_id(tag), channel, mh,
+                        0 if synchronous else 1)
+                if r >= 0:                   # matched a posted receive
+                    self._reqs.pop(r).deliver(msg)
+                    req = Request.completed()
+                    req.status.count = 1
+                    return req
+                if not synchronous:
+                    self._msgs[mh] = msg
             for i, pr in enumerate(self.posted):
                 if pr.matches(msg):
                     self.posted.pop(i)
@@ -250,7 +309,7 @@ class MatchingEngine:
                     req = Request.completed()
                     req.status.count = 1
                     return req
-            if not synchronous:
+            if not synchronous and self._lib is None:
                 # enqueue INSIDE the lock: a concurrent irecv that found
                 # the queue empty must not post between our scan and this
                 # append, or message and receive strand in opposite queues
@@ -276,6 +335,14 @@ class MatchingEngine:
     def _match_unexpected_locked(self, dest: int, source: int, tag,
                                  channel: int = CH_P2P,
                                  remove: bool = True) -> Optional[_Msg]:
+        if self._lib is not None:
+            with _NATIVE_LOCK:
+                mh = self._lib.ompi_tpu_match_take(
+                    self._h, dest, source, self._tag_id(tag), channel,
+                    1 if remove else 0)
+            if mh < 0:
+                return None
+            return self._msgs.pop(mh) if remove else self._msgs[mh]
         srcs = (range(self.comm.size) if source == ANY_SOURCE
                 else [source])
         for s in srcs:
@@ -300,7 +367,14 @@ class MatchingEngine:
             return req
         with self._mlock:
             msg = self._match_unexpected_locked(dest, source, tag, channel)
-            if msg is None:
+            if msg is None and self._lib is not None:
+                rh = self._handle()
+                self._reqs[rh] = req
+                with _NATIVE_LOCK:
+                    self._lib.ompi_tpu_match_post(
+                        self._h, dest, source, self._tag_id(tag), channel,
+                        rh)
+            elif msg is None:
                 self.posted.append(
                     _PostedRecv(source, dest, tag, channel, req))
         if msg is not None:

@@ -317,11 +317,17 @@ def snapshot_hists(include_empty: bool = False) -> List[Dict[str, Any]]:
 
 
 def _osc_counters() -> Optional[Dict[str, int]]:
-    """The one-sided plane's op/byte counters, when RMA ran at all. The
-    port has no one-sided plane yet (``osc/`` is ROADMAP 17d), so there
-    is nothing to read and the dump carries no ``osc`` section; the
-    reference reads ``osc/base.stats`` here."""
-    return None
+    """The one-sided plane's op/byte counters (``osc/base.stats``), when
+    RMA ran at all — mpitop's ``osc`` section merges these per rank (the
+    latency histograms ride ``hists`` like every other plane's)."""
+    try:
+        from ompi_tpu_torch.osc import base as _osc_base
+        s = _osc_base.stats
+        if not any(s.values()):
+            return None
+        return {k: int(v) for k, v in s.items()}
+    except Exception:                    # noqa: BLE001 — the dump
+        return None                      # must never fail on a plane
 
 
 def dump(path: str, rank: Optional[int] = None) -> str:

@@ -22,10 +22,10 @@ Triggers (each wired at its source, all funneling into ``record``):
 
 Snapshot content: the trace SpanRing tail, every pvar (histograms
 included — they read as merged snapshots), the ft registry's
-epoch-ordered failure events and the health monitor's scores. The
-reference adds the open one-sided epochs and the coll decision table;
-the port writes ``osc_epochs`` empty and no ``decision`` until ``osc/``
-and ``api/tool`` are ported (ROADMAP 17d). Writes are
+epoch-ordered failure events, the health monitor's scores and the
+open one-sided epochs (``osc_epochs``). The reference adds the coll
+decision table; the port writes no ``decision`` until ``api/tool`` is
+ported. Writes are
 tmp + ``os.replace`` so a merge (``merge`` here, or the reference's
 ``tools/tracedump --format flightrec``) never sees a torn file — a rank
 killed mid-write leaves the previous complete snapshot or nothing.
@@ -102,13 +102,14 @@ def snapshot(trigger: str, detail: Optional[Dict[str, Any]] = None,
                       (_safe(_ft.default_registry().events, []) or [])],
         "health": _safe(_health.scores_snapshot, {}) or {},
     }
-    # open one-sided epochs: the reference reads osc/base's live-window
-    # registry here. The port has no one-sided plane until osc/ is
-    # ported (ROADMAP 17d), so no window can hold an epoch
-    # and the list stays empty. The coll decision-table read (the
-    # reference's api/tool.decision_table) waits for api/tool (17d):
-    # the payload carries no "decision" key until then.
-    payload["osc_epochs"] = []
+    # open one-sided epochs (osc/base's live-window registry): which
+    # windows were mid-epoch when the incident fired. The coll
+    # decision-table read (the reference's api/tool.decision_table)
+    # waits for api/tool: the payload carries no "decision" key.
+    def _osc_epochs():
+        from ompi_tpu_torch.osc import base as _osc_base
+        return _osc_base.open_epoch_state()
+    payload["osc_epochs"] = _safe(_osc_epochs, []) or []
     return payload
 
 

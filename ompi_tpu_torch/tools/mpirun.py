@@ -148,16 +148,17 @@ def run_per_rank(args, prog) -> int:
 
 def _sweep_shm(coord: str) -> None:
     """Remove the shared-memory files this job's ranks leaked (a killed
-    rank never reaches its unlink): the sm rings, the cpu IPC segments
-    and the shmseg pools and fold workspaces, named with the job's
-    tag."""
+    rank never reaches its unlink): the sm rings, the cpu IPC segments,
+    the shmseg pools and fold workspaces and the osc/shm window
+    segments, named with the job's tag."""
     if _PKG_ROOT not in sys.path:
         sys.path.insert(0, _PKG_ROOT)
     from ompi_tpu_torch.accelerator import SEG_PREFIX, SHM_DIR, tag_for
     from ompi_tpu_torch.btl.shmseg import POOL_PREFIX
     from ompi_tpu_torch.btl.sm import RING_PREFIX
+    from ompi_tpu_torch.osc.shm import WIN_PREFIX
     tag = tag_for(coord)
-    for prefix in (RING_PREFIX, SEG_PREFIX, POOL_PREFIX):
+    for prefix in (RING_PREFIX, SEG_PREFIX, POOL_PREFIX, WIN_PREFIX):
         for path in glob.glob(os.path.join(SHM_DIR, f"{prefix}_{tag}_*")):
             try:
                 os.unlink(path)

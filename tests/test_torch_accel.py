@@ -156,23 +156,31 @@ def test_host_register_restores_prior_state(worlds):
 def test_message_queue_dst_filter(worlds):
     """The posted receives a debugger's message-queue view shows for one
     destination rank: the reference's ``tools/debuggers`` view against
-    the port's matching engine, which holds the same records."""
+    the port's matching engine, which holds the same records (in the C++
+    core's request registry, as the reference's does, when the native
+    library is loaded; else in its Python queue)."""
     from ompi_tpu.tools import debuggers
+
+    def posted(pkg, c, dst=None):
+        if pkg is REF:
+            # the native engine's view adds its request handle
+            return [{k: v for k, v in p.items() if k != "handle"}
+                    for p in debuggers.message_queues(c, dst=dst)["posted"]]
+        eng = c._pml
+        reqs = (list(eng._reqs.values()) if eng._lib is not None
+                else [pr.req for pr in eng.posted])
+        return [{"dest": q.dest, "source": q.status.source,
+                 "tag": q.status.tag}
+                for q in reqs if dst is None or q.dest == dst]
 
     def run(pkg, world):
         c = world.dup()
         c.irecv(source=1, tag=5, dst=0)
         c.irecv(source=2, tag=6, dst=3)
-        if pkg is REF:
-            # the native engine's view adds its request handle
-            posted = [{k: v for k, v in p.items() if k != "handle"}
-                      for p in debuggers.message_queues(c, dst=3)["posted"]]
-        else:
-            posted = [{"dest": pr.dest, "source": pr.src, "tag": pr.tag}
-                      for pr in c._pml.posted if pr.dest == 3]
+        shown = posted(pkg, c, dst=3)
         c.send(np.ones(1, np.float32), src=1, dest=0, tag=5)
         c.send(np.ones(1, np.float32), src=2, dest=3, tag=6)
-        return posted, len(c._pml.posted)
+        return shown, len(posted(pkg, c))
     assert _both(worlds, run) == ([{"dest": 3, "source": 2, "tag": 6}], 0)
 
 

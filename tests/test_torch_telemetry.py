@@ -33,6 +33,7 @@ import pytest
 import ompi_tpu_torch as P
 from ompi_tpu import telemetry as r_tele
 from ompi_tpu.mca import pvar as r_pvar
+from ompi_tpu.osc import base as r_osc
 from ompi_tpu.mca import var as r_var
 from ompi_tpu.telemetry import flightrec as r_flightrec
 from ompi_tpu.telemetry import health as r_health
@@ -43,6 +44,7 @@ from ompi_tpu.trace import core as r_trace
 from ompi_tpu.utils import hooks as r_hooks
 from ompi_tpu_torch import telemetry as p_tele
 from ompi_tpu_torch.mca import pvar as p_pvar
+from ompi_tpu_torch.osc import base as p_osc
 from ompi_tpu_torch.mca import var as p_var
 from ompi_tpu_torch.telemetry import flightrec as p_flightrec
 from ompi_tpu_torch.telemetry import health as p_health
@@ -55,11 +57,11 @@ from ompi_tpu_torch.utils import hooks as p_hooks
 PORT = SimpleNamespace(name="port", tele=p_tele, pvar=p_pvar, var=p_var,
                        flightrec=p_flightrec, health=p_health, hist=p_hist,
                        prom=p_prom, attr=p_attr, trace=p_trace,
-                       hooks=p_hooks)
+                       hooks=p_hooks, osc=p_osc)
 REF = SimpleNamespace(name="ref", tele=r_tele, pvar=r_pvar, var=r_var,
                       flightrec=r_flightrec, health=r_health, hist=r_hist,
                       prom=r_prom, attr=r_attr, trace=r_trace,
-                      hooks=r_hooks)
+                      hooks=r_hooks, osc=r_osc)
 BOTH = (PORT, REF)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -704,14 +706,22 @@ def test_tracedump_flightrec_format(tmp_path, tele):
 # -- the reference's mpitop over telemetry dumps each package wrote ----------
 def _dump_of(pkg, path, rank, rows, health_snap=None):
     """A telemetry dump written by ``pkg.tele.dump``: each row's values
-    recorded into a registry histogram, the health section patched in."""
+    recorded into a registry histogram, the health section patched in.
+    The one-sided counters (process-wide, left by any RMA test this
+    process ran before) read zero while the dump is written, so the dump
+    carries no ``osc`` section."""
     pkg.tele._reset_for_tests()
     pkg.tele.enable()
     for name, values, labels in rows:
         h = pkg.tele.get_hist(name, labels=labels)
         for v in values:
             h.record(v)
-    pkg.tele.dump(str(path), rank=rank)
+    osc = dict(pkg.osc.stats)
+    pkg.osc.stats.update(dict.fromkeys(osc, 0))
+    try:
+        pkg.tele.dump(str(path), rank=rank)
+    finally:
+        pkg.osc.stats.update(osc)
     d = json.loads(path.read_text())
     d["health"] = health_snap or {}
     d["time"] = 100.0
