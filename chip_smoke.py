@@ -261,6 +261,43 @@ Phases, one or more lines each:
                 with a ``.cpu()`` control. The phase must end within 90 s.
                 ``python3 chip_smoke.py --onesided`` runs phases 1 and 16
                 alone.
+17. planes    — on the 8-rank world before phase 14 fails a rank of it,
+                32 MB fp32 per rank: (a) ``ShmemCtx`` over the 8 PEs with
+                a 2**23-element heap each (256 MB on ``cuda:0``, served by
+                the native buddy allocator): puts from CUDA origins, get,
+                collect, fcollect, broadcast, sum_to_all and max_to_all
+                (the PE-order float32 fold) and alltoall against numpy bit
+                for bit, with device ms; on an int32 heap,
+                atomic_fetch_add, compare_swap, a lock round and the
+                bitwise atomics, with µs per fetching atomic (each reads
+                one element back). (b) a ``File`` on the world in a temp
+                dir (its ``df -T`` type printed): write_at_all and
+                read_at_all of the stacked 8 x 32 MB CUDA tensor bit for
+                bit (ms, GB/s), a strided vector view, the shared pointer,
+                write_ordered/read_ordered. (c) ``entry()``'s params in
+                bf16 and the stacked tensor checkpointed from the card and
+                restored with ``comm=world``: every leaf bit for bit on
+                ``cuda:0``, the dense forward's logits bit for bit (ms per
+                save and restore). (d) ``mpi_memchecker_enable`` on: a
+                partitioned send of 4 x 8 MB CUDA partitions completes
+                clean, and a write after ``pready`` raises
+                ``MemcheckError`` at completion. (e) ``Query_cuda_support``,
+                ``Device_inventory`` naming the card, fp16 and bf16
+                allreduce at 32 MB per rank against float64 numpy (rtol
+                2e-2), affinity strings naming ``cuda:0``, the ``"gpu"``
+                rows of ``decision_table(8)``, a cvar write read back.
+                Then, after phase 16's jobs, (f) all at once: the port's
+                p14, p20 and p21 (the programs of
+                ``tests/test_torch_planes_perrank.py``) on 3 ranks with
+                CUDA origins, a 4-rank ``RankFile`` job writing 32 MB per
+                rank from a CUDA tensor and reading every peer's block
+                back bit for bit, and a fresh process
+                (``--planes-fresh-check``) counting 0 ``Memcpy DtoH`` in
+                the shmem puts and heap collectives from CUDA origins and
+                no payload copy in the memchecker's marks (one scalar per
+                ``verify``), with a ``.cpu()`` control; no ``otpt*`` file
+                left. The phase must end within 90 s. ``python3
+                chip_smoke.py --planes`` runs phases 1 and 17 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -5238,6 +5275,560 @@ def phase_onesided_job(smi: str, world_s: float) -> None:
           f"{OSC_JOB_PHASE_S} s) | {smi}")
 
 
+# -- phase 17 ------------------------------------------------------------
+PLN_SEED = 1700
+PLN_HEAP = LOCAL_ELEMS         # 2**23 fp32 per PE: 32 MB, a power of two
+PLN_JOB_TIMEOUT = 60           # seconds each per-rank job may take
+PLN_PHASE_S = 90               # the whole phase must end within this
+PLN_PART = 1 << 21             # a memchecked partition: 8 MB of fp32
+PLN_ATOMICS = 200              # fetching atomics timed on the int32 heap
+
+
+def _dtoh(fn) -> tuple:
+    """(count, bytes) of the ``Memcpy DtoH`` records torch.profiler takes
+    from the card inside ``fn()``: the count from ``key_averages``, the
+    bytes from the memcpy records of its Chrome trace (None when a record
+    carries no byte count)."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    count = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "DtoH" in e.key)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    sizes = [e.get("args", {}).get("bytes") for e in events
+             if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    return count, (None if None in sizes else sum(sizes))
+
+
+def _pln_shmem(w, x, xh, smi: str) -> list:
+    """17(a): ShmemCtx over the 8 PEs on cuda:0, a 32 MB fp32 heap each
+    (256 MB on the card), then the atomics on an int32 heap."""
+    from ompi_tpu_torch.shmem import ShmemCtx
+    n, dev = w.size, w.device
+    ctx = ShmemCtx(w, heap_size=PLN_HEAP, dtype=np.float32)
+    buf = ctx.heap.buffer
+    check(buf.device == dev and tuple(buf.shape) == (n, PLN_HEAP),
+          f"heap {tuple(buf.shape)} on {buf.device}")
+    check(ctx._buddy >= 0, "the buddy allocator does not serve the heap")
+    a = ctx.malloc(PLN_HEAP)
+    check(a == 0, f"malloc of the whole heap at {a}")
+    for pe in range(n):
+        ctx.put(pe, a, x[pe])            # CUDA origins
+    check(all(torch.equal(buf[pe], x[pe]) for pe in range(n)), "put rows")
+    put_ms = device_ms(lambda: ctx.put(3, a, x[3]), iters=10, warmup=2)
+    t0 = time.perf_counter()
+    got = ctx.get(5, a, PLN_HEAP)
+    get_ms = (time.perf_counter() - t0) * 1e3
+    check(isinstance(got, np.ndarray) and _bits(got, xh[5]), "get")
+    lines = [f"(a) ShmemCtx, 8 PEs x 2**23 fp32 (32 MB each, 256 MB heap on "
+             f"{dev}, buddy allocator): 32 MB put from a CUDA origin "
+             f"{put_ms:.4f} ms device ({_hbm(2 * x[3].nbytes, put_ms)}), "
+             f"get {get_ms:.2f} ms host (D2H); rows = numpy bit for bit"]
+    check(_bits(ctx.collect(a, PLN_HEAP), xh.reshape(-1)), "collect")
+    seg = (1000, PLN_HEAP // 32)       # 1 MB per PE
+    check(_bits(ctx.fcollect(a + seg[0], seg[1]),
+                xh[:, seg[0]:seg[0] + seg[1]].reshape(-1)), "fcollect")
+    ctx.broadcast(a, PLN_HEAP, root_pe=2)
+    check(_bits(ctx.collect(a, PLN_HEAP), np.tile(xh[2], n)), "broadcast")
+    bc_ms = device_ms(lambda: ctx.broadcast(a, PLN_HEAP, root_pe=2),
+                      iters=5, warmup=1)
+    times = {"broadcast": bc_ms}
+    for name, fold in (("sum_to_all", np.add), ("max_to_all", np.maximum)):
+        for pe in range(n):
+            ctx.put(pe, a, x[pe])
+        getattr(ctx, name)(a, PLN_HEAP)
+        want = xh[0].copy()
+        for pe in range(1, n):           # the PE-order fold, in float32
+            want = fold(want, xh[pe])
+        check(_bits(ctx.collect(a, PLN_HEAP), np.tile(want, n)), name)
+        times[name] = device_ms(lambda nm=name: getattr(ctx, nm)(
+            a, PLN_HEAP), iters=5, warmup=1)
+    err = float(np.abs(want - xh.max(axis=0)).max())
+    check(err == 0.0, "max_to_all against numpy's max")
+    for pe in range(n):
+        ctx.put(pe, a, x[pe])
+    blk = PLN_HEAP // n
+    ctx.alltoall(a, blk)
+    want = xh.reshape(n, n, blk).transpose(1, 0, 2).reshape(n, PLN_HEAP)
+    check(_bits(ctx.collect(a, PLN_HEAP), want.reshape(-1)), "alltoall")
+    times["alltoall"] = device_ms(lambda: ctx.alltoall(a, blk), iters=5,
+                                  warmup=1)
+    ctx.free(a)
+    rows = {"broadcast": n, "sum_to_all": 2 * n, "max_to_all": 2 * n,
+            "alltoall": 2 * n}          # least rows read + written
+    lines.append("(a) collect, fcollect (1 MB per PE), broadcast, "
+                 "sum_to_all, max_to_all (the PE-order float32 fold) and "
+                 "alltoall over the heap = numpy bit for bit; device ms "
+                 "at 32 MB per PE: " + ", ".join(
+                     f"{k} {v:.4f} ({_hbm(rows[k] * PLN_HEAP * 4, v)})"
+                     for k, v in times.items()))
+    ictx = ShmemCtx(w, heap_size=1 << 10, dtype=np.int32)
+    check(ictx.heap.buffer.dtype == torch.int32
+          and ictx.heap.buffer.device == dev, "int32 heap")
+    cnt, lk, bits = ictx.malloc(1), ictx.malloc(1), ictx.malloc(1)
+    t0 = time.perf_counter()
+    olds = [int(ictx.atomic_fetch_add(4, cnt, 1))
+            for _ in range(PLN_ATOMICS)]
+    fa_us = (time.perf_counter() - t0) / PLN_ATOMICS * 1e6
+    check(olds == list(range(PLN_ATOMICS))
+          and int(ictx.g(4, cnt)) == PLN_ATOMICS, "atomic_fetch_add")
+    t0 = time.perf_counter()
+    for _ in range(PLN_ATOMICS):
+        ictx.g(4, cnt)
+    g_us = (time.perf_counter() - t0) / PLN_ATOMICS * 1e6
+    check(int(ictx.atomic_compare_swap(4, cnt, PLN_ATOMICS, -7))
+          == PLN_ATOMICS and int(ictx.g(4, cnt)) == -7, "compare_swap")
+    check(int(ictx.atomic_compare_swap(4, cnt, 0, 9)) == -7
+          and int(ictx.g(4, cnt)) == -7, "failing compare_swap")
+    ictx.set_lock(lk, pe=3)
+    check(not ictx.test_lock(lk, pe=5), "held lock acquired twice")
+    try:
+        ictx.set_lock(lk, pe=5)
+        check(False, "set_lock on a held lock returned")
+    except MPI.MPIError as e:
+        check(e.error_class == MPI.ERR_PENDING, f"set_lock: {e}")
+    ictx.clear_lock(lk, pe=3)
+    ictx.set_lock(lk, pe=5)
+    ictx.clear_lock(lk, pe=5)
+    check(int(ictx.g(0, lk)) == 0, "lock word after the round")
+    ictx.p(2, bits, 0b1100)
+    ictx.atomic_and(2, bits, 0b1010)
+    ictx.atomic_or(2, bits, 0b0001)
+    old = int(ictx.atomic_fetch_xor(2, bits, 0b1111))
+    check(old == 0b1001 and int(ictx.g(2, bits)) == 0b0110,
+          "bitwise atomics")
+    lines.append(f"(a) int32 heap on {dev}: {PLN_ATOMICS} atomic_fetch_add "
+                 f"in order, compare_swap (and a failing one), a lock round "
+                 f"(a held lock raises ERR_PENDING), and/or/fetch_xor = "
+                 f"expected; {fa_us:.1f} µs per fetching atomic and "
+                 f"{g_us:.1f} µs per g (each reads one element back from "
+                 f"the card: host clock)")
+    return lines
+
+
+def _pln_io(w, x, xh) -> list:
+    """17(b): a File on the world in a temp dir."""
+    import tempfile
+    from ompi_tpu_torch.io import File
+    n = w.size
+    with tempfile.TemporaryDirectory() as tmp:
+        df = subprocess.run(["df", "-T", tmp], capture_output=True,
+                            text=True, timeout=30, check=True).stdout
+        fstype = df.splitlines()[1].split()[1]
+        path = os.path.join(tmp, "planes.bin")
+        with File(w, path, etype=np.float32) as f:
+            t0 = time.perf_counter()
+            wrote = f.write_at_all(0, x)
+            w_ms = (time.perf_counter() - t0) * 1e3
+            check(wrote == n * PLN_HEAP and os.path.getsize(path)
+                  == x.numel() * 4, f"write_at_all wrote {wrote}")
+            t0 = time.perf_counter()
+            back = f.read_at_all(0, PLN_HEAP)
+            r_ms = (time.perf_counter() - t0) * 1e3
+            check(isinstance(back, np.ndarray) and _bits(back, xh),
+                  "read_at_all")
+            t = MPI.FLOAT.create_vector(2, 1, 2).create_resized(0, 4).commit()
+            f.set_view(0, np.float32, t)
+            f.write_at(0, x[1, :8])       # lands on elements 0, 2, ..., 14
+            f.set_view(0, np.float32, None)
+            want = xh[0, :16].copy()
+            want[::2] = xh[1, :8]
+            check(_bits(f.read_at(0, 16), want), "strided view write")
+            f.set_view(0, MPI.FLOAT, t)
+            check(_bits(f.read_at(1, 3), xh[1, 1:4]), "strided view read")
+            f.set_view(0, np.float32, None)
+            end = n * PLN_HEAP
+            f.seek_shared(end)
+            f.write_shared(x[2, :1000])
+            f.write_shared(x[3, :24])
+            check(f.get_position_shared() == end + 1024, "shared pointer")
+            f.seek_shared(end)
+            check(_bits(f.read_shared(1024), np.concatenate(
+                [xh[2, :1000], xh[3, :24]])), "read_shared")
+            f.seek_shared(end + 1024)
+            f.write_ordered(x[:, :4096])
+            check(f.get_position_shared() == end + 1024 + n * 4096,
+                  "write_ordered pointer")
+            f.seek_shared(end + 1024)
+            check(_bits(f.read_ordered(4096), xh[:, :4096]), "read_ordered")
+    gb = x.numel() * 4 / 1e9
+    return [f"(b) File on the world in a temp dir ({fstype}, df -T): "
+            f"write_at_all of the stacked 8 x 32 MB CUDA tensor "
+            f"{w_ms:.1f} ms ({gb / w_ms * 1e3:.2f} GB/s: one D2H, the "
+            f"two-phase merge and pwrite), read_at_all {r_ms:.1f} ms "
+            f"({gb / r_ms * 1e3:.2f} GB/s) = the tensor bit for bit; a "
+            f"strided vector view from a CUDA origin, the shared pointer "
+            f"and write_ordered/read_ordered of 8 x 4096 = numpy"]
+
+
+def _pln_checkpoint(w, x) -> list:
+    """17(c): entry()'s params in bf16 and the stacked buffer, saved from
+    cuda:0 and restored with comm=world."""
+    import dataclasses as dc
+    import tempfile
+    from ompi_tpu_torch.io import checkpoint as ckpt
+    _fn, (params, tokens) = entry()
+    params = tree_map(lambda t: t.bfloat16(), params)
+    dense = dc.replace(CONFIG, use_flash=False)
+
+    def forward(p):                     # bf16 weights, read exactly in fp32
+        with torch.no_grad():
+            return T.forward(tree_map(lambda t: t.float(), p), tokens,
+                             dense)
+    launches = FA.launches
+    want = forward(params)
+    state = {"params": params, "stacked": x, "step": np.int64(17)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        ckpt.save(path, state, step=17)
+        s_ms = (time.perf_counter() - t0) * 1e3
+        like = {"params": tree_map(torch.empty_like, params),
+                "stacked": w.alloc((1,)), "step": np.int64(0)}
+        t0 = time.perf_counter()
+        got = ckpt.restore(path, like, comm=w)
+        torch.cuda.synchronize()
+        r_ms = (time.perf_counter() - t0) * 1e3
+        check(ckpt.latest_step(path) == 17, "latest_step")
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+    pl, gl = tree_leaves(params), tree_leaves(got["params"])
+    check(len(pl) == len(gl) and all(
+        g.dtype == torch.bfloat16 and g.device == w.device
+        and torch.equal(g.view(torch.int16), p.view(torch.int16))
+        for p, g in zip(pl, gl)), "bf16 params bit for bit on the card")
+    st = got["stacked"]
+    check(st.device == w.device and st.dtype == torch.float32
+          and torch.equal(st.view(torch.int32), x.view(torch.int32)),
+          "stacked leaf bit for bit on the card")
+    check(int(got["step"]) == 17, "step leaf")
+    logits = forward(got["params"])
+    check(logits.dtype == want.dtype and torch.equal(
+        logits.view(torch.int32), want.view(torch.int32))
+        and bool(torch.isfinite(logits).all()), "logits after restore")
+    check(FA.launches == launches, "the checkpoint forward launched")
+    return [f"(c) checkpoint of entry()'s {len(pl)} params in bf16 "
+            f"({sum(t.numel() for t in pl)} values) and the 8 x 32 MB "
+            f"stacked buffer from {w.device}: {nbytes / 1e6:.1f} MB on disk, "
+            f"save {s_ms:.1f} ms, restore with comm=world {r_ms:.1f} ms "
+            f"(host clock); every leaf bit for bit, bf16 kept, the stacked "
+            f"leaf and the params on {w.device}; the dense forward's "
+            f"{tuple(logits.shape)} {logits.dtype} logits from the restored "
+            f"params bit for bit (no kernel launch)"]
+
+
+def _pln_memchecker(w) -> list:
+    """17(d): the memchecker on, partitioned sends of CUDA partitions."""
+    from ompi_tpu_torch.utils import memchecker as mc
+    dev = w.device
+    g = torch.Generator(device=dev).manual_seed(PLN_SEED + 4)
+    var.var_set("mpi_memchecker_enable", True)
+    mc._reset_for_tests()
+    try:
+        parts = list(torch.randn((4, PLN_PART), device=dev, generator=g))
+        keep = [p.clone() for p in parts]
+        out = []
+        for dirty in (False, True):
+            req = w.psend_init(parts, dest=6, tag=17, src=1)
+            rreq = w.precv_init(1, tag=17, partitions=4, dst=6)
+            rreq.start()
+            req.start()
+            req.pready_range(0, 2)
+            if dirty:
+                parts[1][5] = -1.0       # after pready: the misuse
+                try:
+                    req.pready(3)
+                    check(False, "no MemcheckError for a dirty partition")
+                except mc.MemcheckError as e:
+                    check("partition 1" in str(e), f"memchecker: {e}")
+            else:
+                t0 = time.perf_counter()
+                req.pready(3)
+                v_ms = (time.perf_counter() - t0) * 1e3
+            rreq.wait()
+            got = rreq.get()
+            check(all(t.device == dev and torch.equal(t, k)
+                      for t, k in zip(got, keep)), "partitions delivered")
+            out.append(len(mc._tracked))
+        check(out == [0, 0] and mc.violations() == 1,
+              f"tracked {out}, violations {mc.violations()}")
+    finally:
+        var.var_set("mpi_memchecker_enable", False)
+        mc._reset_for_tests()
+    return [f"(d) memchecker on: a partitioned send of 4 x 8 MB CUDA "
+            f"partitions (clones on {dev} at pready) completes clean, the "
+            f"last pready with its 4 verifications {v_ms:.2f} ms host; a "
+            f"write to partition 1 after pready raises MemcheckError at "
+            f"completion, every entry released, the payload delivered as "
+            f"sent"]
+
+
+def _pln_mpiext_tool(w) -> list:
+    """17(e): the mpiext modules and MPI_T on the card."""
+    from ompi_tpu_torch.api import tool
+    from ompi_tpu_torch.mpiext import accel, affinity, shortfloat
+    n, dev = w.size, w.device
+    check(accel.Query_cuda_support() is True
+          and accel.Query_tpu_support() is False, "accel queries")
+    inv = accel.Device_inventory()
+    check(len(inv) == torch.cuda.device_count() and inv[0]["kind"]
+          == torch.cuda.get_device_name(0) and inv[0]["platform"] == "gpu",
+          f"inventory {inv}")
+    g = torch.Generator(device=dev).manual_seed(PLN_SEED + 5)
+    u = torch.rand((n, 2 * LOCAL_ELEMS), device=dev, generator=g) + 0.5
+    lines = []
+    for dt, alias in ((torch.float16, shortfloat.SHORT_FLOAT),
+                      (torch.bfloat16, shortfloat.C_BF16)):
+        check(alias.base is dt, f"{alias} base")
+        xs = u.to(dt)                   # 32 MB per rank
+        y = w.allreduce(xs, MPI.SUM)
+        check(y.dtype == dt and y.device == dev, f"{dt} result on {y.device}")
+        want = xs.double().sum(0).cpu().numpy()
+        got = y[0].double().cpu().numpy()
+        check(all(torch.equal(y[r], y[0]) for r in range(n)), "rows agree")
+        np.testing.assert_allclose(got, want, rtol=2e-2)
+        rel = float((np.abs(got - want) / np.abs(want)).max())
+        ms = device_ms(lambda: w.allreduce(xs, MPI.SUM), iters=10)
+        lines.append(f"(e) {alias.name} allreduce SUM, 8 x 32 MB on {dev}: "
+                     f"= float64 numpy (rtol 2e-2; worst {rel:.2e}), rows "
+                     f"identical, {ms:.4f} ms device")
+    amap = affinity.Affinity_map(w)
+    check(all(f"rank {r} bound to cuda:0 " in s for r, s in enumerate(amap)),
+          f"affinity {amap}")
+    table = tool.decision_table(n)
+    check(decision.platform_key(dev) == "gpu" and table ==
+          tool.decision_table(n, platform="gpu"), "decision rows")
+    old = tool.cvar_read("coll_base_verbose")
+    tool.cvar_write("coll_base_verbose", 9)
+    check(tool.cvar_read("coll_base_verbose") == 9, "cvar write")
+    tool.cvar_write("coll_base_verbose", old)
+    lines.append(f"(e) Query_cuda_support True, Query_tpu_support False, "
+                 f"Device_inventory {inv[0]['kind']!r}; Affinity_str "
+                 f"{affinity.Affinity_str(w, 3)[0]!r}; decision_table(8) "
+                 f"reads the \"gpu\" rows (allreduce {table['allreduce']}); "
+                 f"a cvar write read back")
+    return lines
+
+
+def phase_planes_world(w, smi: str) -> float:
+    """Phase 17 (a)-(e) on the live 8-rank world on cuda:0."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device=w.device).manual_seed(PLN_SEED)
+    x = torch.randn((w.size, PLN_HEAP), device=w.device, generator=g)
+    xh = x.cpu().numpy()
+    lines = (_pln_shmem(w, x, xh, smi) + _pln_io(w, x, xh)
+             + _pln_checkpoint(w, x) + _pln_memchecker(w)
+             + _pln_mpiext_tool(w))
+    del x, xh
+    torch.cuda.empty_cache()
+    for line in lines:
+        phase("planes", f"{line} | {smi}")
+    return time.perf_counter() - t0
+
+
+def _pln_fresh_check(report: str) -> int:
+    """17's DtoH counts in a process of their own
+    (``--planes-fresh-check``; see ``_fresh_check``): shmem calls from a
+    CUDA origin and over the heap, and the memchecker's marks on CUDA
+    tensors, each warmed once, then counted under the profiler, with a
+    ``.cpu()`` control."""
+    from ompi_tpu_torch.shmem import ShmemCtx
+    from ompi_tpu_torch.utils import memchecker as mc
+    dev = torch.device("cuda", 0)
+    MPI.Init(devices=[dev] * N_RANKS)
+    w = MPI.get_comm_world()
+    ctx = ShmemCtx(w, heap_size=PLN_HEAP, dtype=np.float32)
+    a = ctx.malloc(PLN_HEAP)
+    x = torch.randn((2, PLN_HEAP), device=dev)
+    calls = {"put": lambda: ctx.put(3, a, x[0]),
+             "put_nbi": lambda: ctx.put_nbi(4, a, x[1]),
+             "iput": lambda: ctx.iput(2, a, x[1, :1 << 20], tst=2),
+             "broadcast": lambda: ctx.broadcast(a, PLN_HEAP, 3),
+             "sum_to_all": lambda: ctx.sum_to_all(a, PLN_HEAP),
+             "max_to_all": lambda: ctx.max_to_all(a, PLN_HEAP),
+             "alltoall": lambda: ctx.alltoall(a, PLN_HEAP // N_RANKS)}
+    var.var_set("mpi_memchecker_enable", True)
+    parts = list(torch.randn((4, PLN_PART), device=dev))
+    marks = {"inflight x4": lambda: [mc.inflight(p) for p in parts],
+             "verify x4": lambda: [mc.verify(p) for p in parts]}
+    rep = {"counts": {}, "marks": {}}
+    for name, fn in calls.items():
+        fn()
+        rep["counts"][name] = _dtoh(fn)
+    for _ in range(2):                  # warm, then count
+        for name, fn in marks.items():
+            rep["marks"][name] = _dtoh(fn)
+    t = torch.ones(1024, device=dev)
+    rep["control"] = _dtoh(lambda: t.cpu())
+    with open(report, "w") as fh:
+        json.dump(rep, fh)
+    var.var_set("mpi_memchecker_enable", False)
+    MPI.Finalize()
+    return 0
+
+
+def _planes_rank(report: str) -> int:
+    """The 4-rank RankFile job of 17(f) (``--planes-rank REPORT``, run by
+    mpirun --per-rank on cuda:0): 32 MB per rank from a CUDA tensor,
+    written collectively, every peer's block read back; rank 0 writes
+    its lines."""
+    from ompi_tpu_torch.accelerator import job_tag
+    from ompi_tpu_torch.io.perrank import RankFile
+    MPI.Init()
+    w = MPI.get_comm_world()
+    r, n = w.rank(), w.size
+    check(w.device.type == "cuda", f"rank on {w.device}")
+    g = torch.Generator(device=w.device).manual_seed(PLN_SEED + 21)
+    full = torch.randn((n, PLN_HEAP), device=w.device, generator=g)
+    fullh = full.cpu().numpy()
+    path = report + ".dat"
+    with RankFile(w, path, etype=np.float32) as f:
+        w.barrier()
+        t0 = time.perf_counter()
+        f.write_at_all(r * PLN_HEAP, full[r])
+        w_ms = (time.perf_counter() - t0) * 1e3
+        f.sync()
+        for peer in range(n):
+            check(_bits(f.read_at(peer * PLN_HEAP, PLN_HEAP), fullh[peer]),
+                  f"rank {r} read of block {peer}")
+        w.barrier()
+        t0 = time.perf_counter()
+        mine = f.read_at_all(r * PLN_HEAP, PLN_HEAP)
+        r_ms = (time.perf_counter() - t0) * 1e3
+        check(_bits(mine, fullh[r]), "read_at_all")
+        check(f.get_size() == n * PLN_HEAP * 4, "file size")
+    w.barrier()
+    if r == 0:
+        os.unlink(path)
+        with open(report, "w") as fh:
+            json.dump({"tag": job_tag(), "lines": [
+                f"RankFile, 4 ranks on cuda:0: write_at_all of 32 MB per "
+                f"rank from a CUDA tensor (staged with .cpu(), gathered to "
+                f"the aggregator) {w_ms:.1f} ms on rank 0, every peer's "
+                f"block read back bit for bit on every rank, read_at_all "
+                f"{r_ms:.1f} ms (host clock)"]}, fh)
+    MPI.Finalize()
+    print(f"OK planes rank={r}", flush=True)
+    return 0
+
+
+def phase_planes_job(smi: str, world_s: float) -> None:
+    """Phase 17(f): the port's p14, p20 and p21 on 3 ranks, the 4-rank
+    RankFile job and the fresh process's DtoH counts, all started at
+    once."""
+    import glob
+    import importlib.util
+    import signal
+    import tempfile
+    import textwrap
+    from ompi_tpu_torch.accelerator import SHM_DIR
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    mpirun = os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py")
+    me = os.path.abspath(__file__)
+    spec = importlib.util.spec_from_file_location(
+        "planes_programs", os.path.join(root, "tests",
+                                        "test_torch_planes_perrank.py"))
+    progs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(progs)
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = []
+        for kind, n, body in (("p14", 3, progs.P14), ("p20", 3, progs.P20),
+                              ("p21", 3, progs.P21), ("rankfile", 4, None)):
+            out = os.path.join(tmp, kind)
+            cmd = [sys.executable, mpirun, "--per-rank", "-n", str(n),
+                   "--timeout", str(PLN_JOB_TIMEOUT)]
+            if body is None:
+                cmd += [me, "--planes-rank", out + ".json"]
+            else:
+                prog = out + ".py"
+                with open(prog, "w") as fh:
+                    fh.write(progs.HEADER + textwrap.dedent(body))
+                cmd += [prog, out + ".dat"]
+            jobs.append((kind, n, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True, cwd=root, start_new_session=True)))
+        fresh = os.path.join(tmp, "dtoh.json")
+        jobs.append(("fresh DtoH check", 0, fresh, subprocess.Popen(
+            [sys.executable, me, "--planes-fresh-check", fresh],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root, start_new_session=True)))
+        outs = []
+        deadline = time.monotonic() + PLN_JOB_TIMEOUT + 5
+        for kind, _n, _out, p in jobs:
+            try:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                outs.append(("", f"{kind}: killed at the phase's limit"))
+        for *_x, p in jobs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        lines, tags = [], []
+        for (kind, n, out, p), (so, se) in zip(jobs, outs):
+            marker = "OK planes" if kind == "rankfile" else f"OK {kind}_"
+            if p.returncode != 0 or so.count(marker) != n:
+                sys.stderr.write(se[-6000:])
+                check(False, f"{kind}: rc={p.returncode}, "
+                      f"{so.count(marker)} of {n} ranks OK:\n{so[-3000:]}")
+            if kind == "rankfile":
+                with open(out + ".json") as f:
+                    res = json.load(f)
+                lines += res["lines"]
+                tags.append(res["tag"])
+            elif n:
+                tags += [ln.split()[1] for ln in so.splitlines()
+                         if ln.startswith("TAG ")]
+                check(not os.path.exists(out + ".dat"), f"{kind} file left")
+            else:
+                with open(out) as f:
+                    res = json.load(f)
+                ccount, cbytes = res["control"]
+                check(ccount >= 1, f"the profiler saw {ccount} DtoH events "
+                      f"in a .cpu() copy")
+                bad = {k: v for k, v in res["counts"].items() if v[0]}
+                check(not bad, f"Memcpy DtoH events in shmem calls {bad}")
+                inf_n, inf_b = res["marks"]["inflight x4"]
+                ver_n, ver_b = res["marks"]["verify x4"]
+                check(inf_n == 0, f"{inf_n} DtoH events in inflight")
+                check(ver_n <= 4 if ver_b is None else ver_b <= 4 * 8,
+                      f"verify read back {ver_n} records, {ver_b} bytes")
+                lines.append(
+                    f"0 Memcpy DtoH events (torch.profiler, a fresh process) "
+                    f"in each of {', '.join(res['counts'])} on the 32 MB "
+                    f"heap from CUDA origins; memchecker marks of 4 x 8 MB "
+                    f"CUDA partitions: inflight {inf_n} DtoH, verify "
+                    f"{ver_n} DtoH of {ver_b} bytes in all (one scalar per "
+                    f"torch.equal, no payload); the control's .cpu() of "
+                    f"4096 bytes showed {ccount} record(s) of {cbytes} bytes")
+    check(len(tags) == 4 and all(tags), f"job tags {tags}")
+    left = [f for t in tags
+            for f in glob.glob(os.path.join(SHM_DIR, f"otpt*_{t}_*"))]
+    check(not left, f"files left: {left}")
+    job_s = time.perf_counter() - t0
+    for line in lines:
+        phase("planes", f"{line} | {smi}")
+    check(world_s + job_s < PLN_PHASE_S, f"phase 17 took "
+          f"{world_s + job_s:.1f} s")
+    phase("planes", f"(f) p14, p20 and p21 on 3 ranks and the RankFile job "
+          f"on 4, all on cuda:0 with CUDA origins: every rank OK, rc 0; no "
+          f"otpt*_ file of the four jobs left under {SHM_DIR}; per-rank "
+          f"part {job_s:.1f} s; phase 17 took {world_s + job_s:.1f} s "
+          f"(limit {PLN_PHASE_S} s) | {smi}")
+
+
 def main() -> int:
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
@@ -5257,6 +5848,10 @@ def main() -> int:
         return _osc_rank(sys.argv[-2].replace("_", " "), sys.argv[-1])
     if "--osc-fresh-check" in sys.argv:
         return _osc_fresh_check(sys.argv[-1])
+    if "--planes-rank" in sys.argv:
+        return _planes_rank(sys.argv[-1])
+    if "--planes-fresh-check" in sys.argv:
+        return _pln_fresh_check(sys.argv[-1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -5283,6 +5878,14 @@ def main() -> int:
         MPI.Finalize()
         torch.cuda.empty_cache()
         phase_onesided_job(smi, osc_s)
+        return 0
+    if "--planes" in sys.argv:
+        smi, _ = phase_device()
+        MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+        pln_s = phase_planes_world(MPI.get_comm_world(), smi)
+        MPI.Finalize()
+        torch.cuda.empty_cache()
+        phase_planes_job(smi, pln_s)
         return 0
     if "--perrank" in sys.argv:
         smi, _ = phase_device()
@@ -5317,6 +5920,7 @@ def main() -> int:
     world_s = phase_observe_world(world, smi)
     ses_s = phase_sessions_world(world, smi)
     osc_s = phase_onesided_world(world, smi)
+    pln_s = phase_planes_world(world, smi)
     res_s = phase_resilience_world(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
@@ -5326,6 +5930,7 @@ def main() -> int:
     phase_resilience_job(smi, res_s)
     phase_sessions_job(smi, ses_s)
     phase_onesided_job(smi, osc_s)
+    phase_planes_job(smi, pln_s)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

@@ -71,6 +71,7 @@ IN_PLACE = _InPlaceType()
 
 _cid_lock = threading.Lock()
 _cid_counter = itertools.count(0)
+_PML_INIT_LOCK = threading.Lock()     # a comm's first pt2pt call
 
 
 def _next_cid() -> int:
@@ -722,10 +723,15 @@ class Communicator:
             from ompi_tpu_torch.mca import var
             from ompi_tpu_torch.pml import vprotocol  # its var
             from ompi_tpu_torch.pml.stacked import MatchingEngine
-            if var.var_get("pml_v_protocol", "none") == "pessimist":
-                eng = self._pml_engine = vprotocol.PessimistEngine(self)
-            else:
-                eng = self._pml_engine = MatchingEngine(self)
+            # threads racing to a comm's first pt2pt call must share one
+            # engine: a second one would hold messages nobody matches
+            with _PML_INIT_LOCK:
+                eng = getattr(self, "_pml_engine", None)
+                if eng is None:
+                    eng = (vprotocol.PessimistEngine(self)
+                           if var.var_get("pml_v_protocol", "none")
+                           == "pessimist" else MatchingEngine(self))
+                    self._pml_engine = eng
         return eng
 
     def _record_pml(self, event: str) -> None:

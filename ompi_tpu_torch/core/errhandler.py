@@ -88,6 +88,20 @@ class Errhandler:
 
 
 def _fatal(comm, error_class, message):
+    # User-facing diagnostics ride the show_help catalogs (the
+    # opal_show_help pattern); the terse line stays for logs.
+    try:
+        from ompi_tpu_torch.utils import show_help
+        topic = {ERR_REVOKED: ("comm:revoked",
+                               (getattr(comm, "name", "?"),)),
+                 ERR_PROC_FAILED: ("comm:proc-failed",
+                                   (getattr(comm, "name", "?"), message))
+                 }.get(error_class)
+        if topic is not None:
+            show_help.show_help("help-mpi-errors.txt", topic[0],
+                                *topic[1])
+    except Exception:
+        pass
     sys.stderr.write(
         f"*** An error occurred: {error_string(error_class)} {message}\n"
         f"*** MPI_ERRORS_ARE_FATAL (job will abort)\n")

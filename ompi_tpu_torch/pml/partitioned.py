@@ -6,8 +6,10 @@ buffer is contributed partition by partition (``MPI_Pready``); the
 transfer completes once every partition is marked ready. The receive side
 exposes ``MPI_Parrived`` per-partition arrival. Each partition rides the
 matching engine's partitioned channel as its own message, snapshotted at
-``pready`` like every send. The memchecker's ownership checks (a write to
-a partition between ``pready`` and completion) wait for the tools plane.
+``pready`` like every send. With ``mpi_memchecker_enable`` on, the
+memchecker holds each partition from its ``pready`` to completion and
+raises ``MemcheckError`` at completion for a partition the user wrote in
+that window (CUDA partitions are compared on their card).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Any, List, Sequence
 from ompi_tpu_torch.core.errhandler import ERR_ARG, MPIError
 from ompi_tpu_torch.core.request import Request
 from ompi_tpu_torch.pml.stacked import CH_PART
+from ompi_tpu_torch.utils import memchecker
 
 
 class PartitionedSend(Request):
@@ -46,12 +49,32 @@ class PartitionedSend(Request):
             raise MPIError(ERR_ARG, f"partition {i} out of range")
         if not self.ready[i]:
             self.ready[i] = True
+            # per MPI-4, partition i is LIBRARY-owned from pready(i)
+            # until operation completion. The engine copies at send, so
+            # a later user write is harmless here, but it is
+            # non-portable MPI, and catching exactly that is the
+            # memchecker's job.
+            memchecker.inflight(self.parts[i],
+                                f"partition {i} after pready")
             # structured (tag, partition) tags on their own channel: no
             # arithmetic encoding, no collision with user int tags
             self.comm._pml.send(self.parts[i], self.src, self.dest,
                                 (self.tag, i), channel=CH_PART)
         if all(self.ready):
+            # completion: verify EVERY partition, releasing each tracked
+            # entry even when one fails (a stranded id-keyed entry could
+            # later fire on an unrelated buffer reusing the id), then
+            # complete; the violation is a diagnostic, the transfer
+            # itself happened
+            errors = []
+            for j, p in enumerate(self.parts):
+                try:
+                    memchecker.verify(p)
+                except memchecker.MemcheckError as e:
+                    errors.append(f"partition {j}: {e}")
             self._complete = True
+            if errors:
+                raise memchecker.MemcheckError("; ".join(errors))
 
     def pready_range(self, lo: int, hi: int) -> None:
         for i in range(lo, hi + 1):

@@ -50,9 +50,11 @@ from ompi_tpu_torch.core.communicator import Communicator
 from ompi_tpu_torch.core.errhandler import ERR_OTHER, MPIError
 from ompi_tpu_torch.core.group import Group
 from ompi_tpu_torch.core.info import INFO_ENV
+from ompi_tpu_torch.io import fcoll, sharedfp
 from ompi_tpu_torch.mca import base, var
 from ompi_tpu_torch.pml import pipeline, stacked, vprotocol
 from ompi_tpu_torch.runtime import progress
+from ompi_tpu_torch.utils import memchecker
 
 THREAD_SINGLE = 0
 THREAD_FUNNELED = 1
@@ -102,6 +104,9 @@ def _register_component_vars() -> None:
     vprotocol._register_vars()
     pipeline.register_params()
     shmseg.register_params()
+    memchecker.register_vars()
+    fcoll.register_vars()
+    sharedfp.register_vars()
 
 
 def init(requested: int = THREAD_SINGLE,

@@ -23,9 +23,8 @@ Triggers (each wired at its source, all funneling into ``record``):
 Snapshot content: the trace SpanRing tail, every pvar (histograms
 included — they read as merged snapshots), the ft registry's
 epoch-ordered failure events, the health monitor's scores and the
-open one-sided epochs (``osc_epochs``). The reference adds the coll
-decision table; the port writes no ``decision`` until ``api/tool`` is
-ported. Writes are
+open one-sided epochs (``osc_epochs``), and the coll decision table
+(``decision``, from ``api/tool``). Writes are
 tmp + ``os.replace`` so a merge (``merge`` here, or the reference's
 ``tools/tracedump --format flightrec``) never sees a torn file — a rank
 killed mid-write leaves the previous complete snapshot or nothing.
@@ -103,13 +102,18 @@ def snapshot(trigger: str, detail: Optional[Dict[str, Any]] = None,
         "health": _safe(_health.scores_snapshot, {}) or {},
     }
     # open one-sided epochs (osc/base's live-window registry): which
-    # windows were mid-epoch when the incident fired. The coll
-    # decision-table read (the reference's api/tool.decision_table)
-    # waits for api/tool: the payload carries no "decision" key.
+    # windows were mid-epoch when the incident fired
     def _osc_epochs():
         from ompi_tpu_torch.osc import base as _osc_base
         return _osc_base.open_epoch_state()
     payload["osc_epochs"] = _safe(_osc_epochs, []) or []
+    # the coll decision-table state (api/tool) — which algorithm each
+    # size class would take right now; advisory, skipped on any error
+    try:
+        from ompi_tpu_torch.api import tool as _tool
+        payload["decision"] = _tool.decision_table()
+    except Exception:                    # noqa: BLE001
+        pass
     return payload
 
 

@@ -91,9 +91,10 @@ def test_cpu_tensors_take_the_plain_fold_without_a_launch():
 
 
 def test_import_needs_no_nvcc_and_no_jax():
-    """The port imports (and its CPU fold, a CPU train step and the fp8
-    codec run) with jax, ompi_tpu and ml_dtypes made unimportable and no
-    CUDA toolkit on PATH: kernels build only when launched."""
+    """The port imports (and its CPU fold, a CPU train step, the fp8
+    codec and a help topic from its own catalog run) with jax, ompi_tpu
+    and ml_dtypes made unimportable and no CUDA toolkit on PATH: kernels
+    build only when launched."""
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['ompi_tpu'] = None\n"
         "sys.modules['ml_dtypes'] = None\n"
@@ -102,6 +103,13 @@ def test_import_needs_no_nvcc_and_no_jax():
         "import ompi_tpu_torch.pml.stacked, ompi_tpu_torch.pml.partitioned\n"
         "import ompi_tpu_torch.core.convertor, ompi_tpu_torch.topo.cart\n"
         "import ompi_tpu_torch.topo.neighbor, ompi_tpu_torch.topo.treematch\n"
+        "import ompi_tpu_torch.shmem, ompi_tpu_torch.shmem.perrank\n"
+        "import ompi_tpu_torch.io, ompi_tpu_torch.io.checkpoint\n"
+        "import ompi_tpu_torch.io.perrank, ompi_tpu_torch.mpiext\n"
+        "import ompi_tpu_torch.api.tool\n"
+        "from ompi_tpu_torch.utils import show_help\n"
+        "msg = show_help.render('help-mpi-errors.txt', 'comm:revoked', 'c#1')\n"
+        "assert 'c#1' in msg and 'MPIX_Comm_revoke' in msg, msg\n"
         "from ompi_tpu_torch.compress import codecs\n"
         "c = codecs.get_codec('fp8_block')\n"
         "assert c.name == 'fp8_block'\n"
