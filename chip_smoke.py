@@ -298,6 +298,34 @@ Phases, one or more lines each:
                 ``verify``), with a ``.cpu()`` control; no ``otpt*`` file
                 left. The phase must end within 90 s. ``python3
                 chip_smoke.py --planes`` runs phases 1 and 17 alone.
+18. tools     — on the 8-rank world before phase 14 fails a rank of it:
+                (a) a dup built with tracing, telemetry and monitoring
+                on runs allreduce, bcast and allgather 3 times each at
+                32 MB fp32 per rank (= the plain world) and CUDA sends
+                of 4 KB, 4 MB and 32 MB; the port's tools read it:
+                ``mpitop`` counts the 9 calls, ``tracedump`` one span per
+                call and a Perfetto JSON that parses,
+                ``profile.pt2pt_matrix`` = the bytes sent and
+                ``coll_table`` = the calls, ``comm_method`` platform
+                ``gpu`` with the framework's winners, ``info`` the CUDA
+                device and the native library, ``proctable`` 8 x
+                ``cuda:0``, ``message_queues`` a posted ``irecv`` that
+                then takes a CUDA payload, PERUSE once per CUDA send;
+                host ms per tool call; a fresh process
+                (``--tools-fresh-check``) counts 0 ``Memcpy DtoH`` in
+                every tool call with a ``.cpu()`` control. (b) two 8-rank
+                jobs on ``cuda:0``, one after the other
+                (``--tools-rank``): the port's p40 under
+                ``mpi_base_lockwitness=1`` with 4 MB CUDA payloads over
+                devxfer (graph acyclic, the 8 dumps merged by
+                ``tracedump``), then ``mpisync.sync_report_perrank``
+                (each |offset| <= its rtt) and ``comm_method`` on the
+                per-rank world; each times the 8 B allreduce (witness on,
+                off); every rank OK inside 60 s, no ``otpt*`` file left.
+                (c) the port's ``mpilint`` over ``ompi_tpu_torch/``: 0
+                unbaselined findings, 0 stale entries. The phase must
+                end within 90 s. ``python3 chip_smoke.py --tools`` runs
+                phases 1 and 18 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -5829,6 +5857,479 @@ def phase_planes_job(smi: str, world_s: float) -> None:
           f"(limit {PLN_PHASE_S} s) | {smi}")
 
 
+# -- phase 18 ----------------------------------------------------------
+TLS_SEED = 1800
+TLS_CALLS = 3                  # calls of each collective on the traced dup
+TLS_COLLS = ("allreduce", "bcast", "allgather")
+# fp32 elements of the CUDA sends (4 KB, 4 MB, 32 MB): below and above
+# devxfer's 1 MiB switch, and one rank's full width
+TLS_SENDS = (1 << 10, 1 << 20, LOCAL_ELEMS)
+TLS_MSGS = 20                  # messages per rank in the witness ring
+TLS_JOB_TIMEOUT = 60           # seconds each per-rank job may take
+TLS_PHASE_S = 90               # the whole phase must end within this
+
+
+def _tls_traffic(w, x, elems: int) -> tuple:
+    """On a dup of ``w`` built with tracing, telemetry and monitoring on:
+    TLS_CALLS of each collective at ``elems`` fp32 per rank, held
+    against the plain world; CUDA sends of TLS_SENDS sizes (capped at
+    ``elems``) around the ring; an ``irecv`` posted for a CUDA payload.
+    PERUSE counts the sends. Returns (dup, calls, sent bytes matrix,
+    peruse handle, fired list, posted request)."""
+    from ompi_tpu_torch import telemetry, trace
+    from ompi_tpu_torch.coll import monitoring
+    from ompi_tpu_torch.tools import peruse
+    n = w.size
+    trace.enable()
+    trace.reset()
+    telemetry.enable()
+    monitoring.reset()
+    d = _dup_with(w, coll_monitoring_enable=True)
+    fired = []
+    h = peruse.Event_comm_register(
+        "PERUSE_COMM_REQ_XFER_BEGIN", d,
+        lambda ev, comm, info: fired.append(ev))
+    h.start()
+    want = w.allreduce(x, MPI.SUM)
+    for _ in range(TLS_CALLS):
+        check(torch.equal(d.allreduce(x, MPI.SUM), want),
+              "traced allreduce differs from the plain world's")
+        b = d.bcast(x, 3)
+        check(torch.equal(b, x[3].expand_as(b)), "traced bcast")
+        a = d.allgather(x)
+        check(torch.equal(a[0].reshape(x.shape), x)
+              and torch.equal(a, a[0].expand_as(a)), "traced allgather")
+        del a, b
+    del want
+    sent = np.zeros((n, n), np.int64)
+    for i, k in enumerate(TLS_SENDS):
+        k = min(k, elems)
+        src, dst = i % n, (i + 1) % n
+        t = x[src, :k]
+        d.send(t, src=src, dest=dst, tag=180 + i)
+        got, st = d.recv(source=src, tag=180 + i, dst=dst)
+        check(got.device == x.device and torch.equal(got, t)
+              and st.source == src, f"CUDA send of {k} fp32")
+        sent[src, dst] += k * 4
+    req = d.irecv(source=2, tag=187, dst=5)
+    return d, len(TLS_COLLS) * TLS_CALLS, sent, h, fired, req
+
+
+def _tls_tools(d, calls: int, sent, fired, req, x, dump_dir: str) -> list:
+    """The tools over the traffic of ``_tls_traffic``: each checked
+    against what was done, each call timed on the host clock."""
+    from ompi_tpu_torch import telemetry, trace
+    from ompi_tpu_torch.tools import (comm_method, debuggers, info,
+                                      mpisync, mpitop, profile, tracedump)
+    n, cid = d.size, str(d.cid)
+    ms = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    q = timed("message_queues", lambda: debuggers.message_queues(d, dst=5))
+    check([p["tag"] for p in q["posted"]] == [187] and not q["unexpected"],
+          f"message_queues {q}")
+    t = x[2, :1 << 20]
+    d.send(t, src=2, dest=5, tag=187)
+    req.wait()
+    got = req.get()
+    check(got.device == x.device and torch.equal(got, t),
+          "the posted irecv's CUDA payload")
+    sent[2, 5] += t.numel() * 4
+    sends = len(TLS_SENDS) + 1
+    check(len(fired) == sends, f"PERUSE fired {len(fired)} times for "
+          f"{sends} CUDA sends")
+    torch.cuda.synchronize()
+    tele_path = telemetry.dump(os.path.join(dump_dir, "telemetry_0.json"),
+                               rank=0)
+    snaps, skipped = timed("mpitop load", lambda: mpitop.load_snapshots(
+        [tele_path]))
+    summ = timed("mpitop summarize", lambda: mpitop.summarize(
+        snaps, per_comm=True))
+    timed("mpitop table", lambda: mpitop.render_table(summ))
+    rows = [r for r in summ["rows"] if r.get("comm") == cid]
+    check(not skipped and len(rows) == 1 and rows[0]["coll_ops"] == calls,
+          f"mpitop rows of comm {cid}: {rows}, want {calls} ops")
+    tr_path = trace.dump(os.path.join(dump_dir, "trace_0.json"))
+    out = os.path.join(dump_dir, "perfetto.json")
+    check(timed("tracedump perfetto", lambda: tracedump.main(
+        [tr_path, "-o", out])) == 0, "tracedump perfetto")
+    with open(out) as f:
+        evs = json.load(f)["traceEvents"]
+    mine = [s for s in trace.span_dicts() if s.get("cid") == cid]
+    per = {f: sum(1 for s in mine if s["name"] == f"coll_{f}")
+           for f in TLS_COLLS}
+    check(per == dict.fromkeys(TLS_COLLS, TLS_CALLS),
+          f"spans per collective {per}")
+    check(len([e for e in evs if e.get("ph") == "X"])
+          >= len(TLS_COLLS) * TLS_CALLS, "perfetto events")
+    summary = os.path.join(dump_dir, "summary.json")
+    check(timed("tracedump summary", lambda: tracedump.main(
+        [tr_path, "--format", "summary", "-o", summary])) == 0,
+          "tracedump summary")
+    mat = timed("pt2pt_matrix", lambda: profile.pt2pt_matrix(d, "bytes"))
+    check(np.array_equal(mat, sent), f"pt2pt bytes {mat.tolist()} "
+          f"against {sent.tolist()}")
+    table = timed("coll_table", profile.coll_table)
+    got_calls = {f: table.get((d.cid, f), (0, 0))[0] for f in TLS_COLLS}
+    check(got_calls == dict.fromkeys(TLS_COLLS, TLS_CALLS),
+          f"coll_table calls {got_calls}")
+    cm = timed("comm_method", lambda: comm_method.table(d))
+    check(cm["platform"] == "gpu" and cm["coll"] == d._coll_winners
+          and cm["data_plane"] == "torch/cuda"
+          and cm["devices"] == ["cuda:0"] * n, f"comm_method {cm}")
+    inf = timed("info", info.collect)
+    check("cuda:0" in inf["platform"]
+          and inf["native_convertor"] == MPI.native.native_available(),
+          f"info {inf['platform']} {inf['native_convertor']}")
+    pt = timed("proctable", lambda: debuggers.proctable(d))
+    check(len(pt) == n and all(e["device"] == "cuda:0" for e in pt),
+          f"proctable {pt}")
+    rows = timed("mpisync", lambda: mpisync.sync_report(d, rounds=2))
+    check(all(r["offset_s"] == 0.0 for r in rows), "mpisync controller")
+    return [
+        f"(a) traced dup (trace, telemetry, monitoring on), {TLS_CALLS} x "
+        f"{'/'.join(TLS_COLLS)} at {x.shape[1] * 4 >> 20} MB per rank = "
+        f"the plain world; mpitop coll_ops {calls} on comm {cid}, "
+        f"tracedump {TLS_CALLS} spans per collective and a Perfetto JSON "
+        f"of {len(evs)} events that parses; pt2pt_matrix = the "
+        f"{int(sent.sum())} bytes of {sends} CUDA sends, coll_table "
+        f"{TLS_CALLS} calls per collective; comm_method platform "
+        f"{cm['platform']}, data plane {cm['data_plane']}, winners = the "
+        f"framework's; info lists {', '.join(inf['platform'])} and native "
+        f"{inf['native_convertor']}; proctable {len(pt)} x cuda:0; "
+        f"message_queues showed the posted irecv (tag 187) that took a "
+        f"CUDA payload; PERUSE fired {len(fired)} times for {sends} CUDA "
+        f"sends",
+        "(a) tool call ms (host clock): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ms.items())]
+
+
+def _tls_lint() -> str:
+    from ompi_tpu_torch.analyze import mpilint
+    t0 = time.perf_counter()
+    rep = mpilint.run_lint()
+    lint_ms = (time.perf_counter() - t0) * 1e3
+    check(rep["ok"] and not rep["findings"] and not rep["stale_baseline"],
+          f"mpilint: {rep['findings']} stale {rep['stale_baseline']}")
+    return (f"(c) mpilint over ompi_tpu_torch/: {rep['files']} files, "
+            f"{len(rep['rules'])} rules, 0 unbaselined findings, "
+            f"{len(rep['suppressed'])} baselined, 0 stale; {lint_ms:.0f} ms")
+
+
+def _tls_fresh_result(p, report: str) -> str:
+    """Wait for the fresh DtoH process and check its counts."""
+    import signal
+    try:
+        _so, se = p.communicate(timeout=TLS_JOB_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        se = "fresh DtoH check: killed at its limit"
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    if p.returncode != 0:
+        sys.stderr.write(se[-6000:])
+        check(False, f"fresh DtoH check: rc={p.returncode}")
+    with open(report) as f:
+        res = json.load(f)
+    ccount, cbytes = res["control"]
+    check(ccount >= 1, f"the profiler saw {ccount} DtoH events in a .cpu()")
+    bad = {k: v for k, v in res["counts"].items() if v[0]}
+    check(not bad, f"Memcpy DtoH events in tool calls {bad}")
+    return (f"(a) 0 Memcpy DtoH events (torch.profiler, a fresh process) "
+            f"in each of {', '.join(res['counts'])} over a traced dup on "
+            f"cuda:0; the control's .cpu() of 4096 bytes showed {ccount} "
+            f"record(s) of {cbytes} bytes")
+
+
+def phase_tools_world(w, smi: str) -> float:
+    """Phase 18 (a) on the live 8-rank world on cuda:0, with the fresh
+    process's DtoH count beside it, and (c)."""
+    import signal
+    import tempfile
+    from ompi_tpu_torch import telemetry, trace
+    from ompi_tpu_torch.coll import monitoring
+    t0 = time.perf_counter()
+    me = os.path.abspath(__file__)
+    tmp = tempfile.TemporaryDirectory()
+    fresh = os.path.join(tmp.name, "dtoh.json")
+    proc = subprocess.Popen(
+        [sys.executable, me, "--tools-fresh-check", fresh],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(me), start_new_session=True)
+    try:
+        g = torch.Generator(device=w.device).manual_seed(TLS_SEED)
+        x = torch.randn((w.size, LOCAL_ELEMS), device=w.device,
+                        generator=g)
+        d, calls, sent, h, fired, req = _tls_traffic(w, x, LOCAL_ELEMS)
+        try:
+            lines = _tls_tools(d, calls, sent, fired, req, x, tmp.name)
+        finally:
+            h.free()
+            d.free()
+            trace.disable()
+            trace.reset()
+            telemetry.disable()
+            monitoring.reset()
+        del x
+        torch.cuda.empty_cache()
+        lines.append(_tls_lint())
+        lines.append(_tls_fresh_result(proc, fresh))
+    finally:
+        if proc.poll() is None:          # a check above failed first
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        tmp.cleanup()
+    for line in lines:
+        phase("tools", f"{line} | {smi}")
+    return time.perf_counter() - t0
+
+
+def _tls_fresh_check(report: str) -> int:
+    """18(a)'s DtoH count in a process of its own
+    (``--tools-fresh-check``; see ``_fresh_check``): the traffic of
+    ``_tls_traffic`` at 1 MB per rank, then each tool call warmed once
+    and counted under torch.profiler, with a ``.cpu()`` control."""
+    import tempfile
+    from ompi_tpu_torch import telemetry, trace
+    from ompi_tpu_torch.tools import (comm_method, debuggers, info,
+                                      mpisync, mpitop, profile, tracedump)
+    dev = torch.device("cuda", 0)
+    MPI.Init(devices=[dev] * N_RANKS)
+    w = MPI.get_comm_world()
+    x = torch.randn((w.size, 1 << 18), device=dev)
+    d, _calls, _sent, h, _fired, req = _tls_traffic(w, x, 1 << 18)
+    rep = {"counts": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tele = telemetry.dump(os.path.join(tmp, "t.json"), rank=0)
+        tr = trace.dump(os.path.join(tmp, "tr.json"))
+        calls = {
+            "mpitop": lambda: mpitop.render_table(mpitop.summarize(
+                mpitop.load_snapshots([tele])[0], per_comm=True)),
+            "tracedump": lambda: tracedump.main(
+                [tr, "--format", "summary", "-o",
+                 os.path.join(tmp, "s.json")]),
+            "pt2pt_matrix": lambda: profile.pt2pt_matrix(d, "bytes"),
+            "coll_table": profile.coll_table,
+            "comm_method": lambda: comm_method.table(d),
+            "info": info.collect,
+            "proctable": lambda: debuggers.proctable(d),
+            "message_queues": lambda: debuggers.message_queues(d),
+            "mpisync": lambda: mpisync.sync_report(d, rounds=2),
+        }
+        for name, fn in calls.items():
+            fn()
+            rep["counts"][name] = _dtoh(fn)
+    t = torch.ones(1024, device=dev)
+    rep["control"] = _dtoh(lambda: t.cpu())
+    d.send(x[2, :4], src=2, dest=5, tag=187)
+    req.wait()
+    h.free()
+    d.free()
+    with open(report, "w") as fh:
+        json.dump(rep, fh)
+    MPI.Finalize()
+    return 0
+
+
+def _tools_rank(mode: str, report: str) -> int:
+    """A rank of phase 18(b)'s 8-rank jobs on cuda:0 (``--tools-rank
+    MODE REPORT``). ``witness``: the port's p40 under
+    ``mpi_base_lockwitness=1`` — a pt2pt ring on a worker thread whose
+    even messages are 4 MB CUDA tensors over devxfer, a persistent
+    allreduce re-armed on the main thread, ft heartbeats ticking — the
+    acquisition graph acyclic and dumped. ``plain``: mpisync's ping-pong
+    table and comm_method's transport rows. Both time the 8 B allreduce."""
+    import threading
+    from ompi_tpu_torch.accelerator import job_tag
+    from ompi_tpu_torch.analyze import lockwitness
+    from ompi_tpu_torch.runtime.init import _state
+    from ompi_tpu_torch.tools import comm_method, mpisync
+    MPI.Init(MPI.THREAD_MULTIPLE)
+    w = MPI.get_comm_world()
+    r, n, dev = w.rank(), w.size, w.device
+    check(dev.type == "cuda", f"rank on {dev}")
+    check(lockwitness.installed == (mode == "witness"),
+          f"witness installed {lockwitness.installed} in mode {mode}")
+    out = {"tag": job_tag(), "lines": []}
+    if mode == "witness":
+        errors = []
+        outer, inner = threading.Lock(), threading.Lock()
+        big = torch.arange(1 << 20, device=dev, dtype=torch.float32)
+
+        def ring():
+            try:
+                right, left = (r + 1) % n, (r - 1) % n
+                for i in range(TLS_MSGS):
+                    msg = (big + (r * 1000 + i)) if i % 2 == 0 \
+                        else np.full(256, r * 1000 + i, np.int64)
+                    with outer:
+                        with inner:
+                            pass
+                    if r % 2 == 0:
+                        w.send(msg, right, tag=40)
+                        data, _ = w.recv(left, tag=40)
+                    else:
+                        data, _ = w.recv(left, tag=40)
+                        w.send(msg, right, tag=40)
+                    if i % 2 == 0:
+                        check(data.device == dev and torch.equal(
+                            data, big + (left * 1000 + i)), "CUDA ring")
+                    else:
+                        check(int(data[0]) == left * 1000 + i, "host ring")
+            except BaseException as e:   # noqa: BLE001
+                errors.append(e)
+
+        th = threading.Thread(target=ring)
+        th.start()
+        data = np.full(512, float(r + 1), np.float32)
+        ref = np.asarray(w.allreduce(data, MPI.SUM))
+        req = w.allreduce_init(data, MPI.SUM)
+        for _ in range(10):
+            req.start()
+            req.wait()
+        check(np.asarray(req.get()).tobytes() == ref.tobytes(),
+              "persistent plan")
+        th.join(timeout=TLS_JOB_TIMEOUT)
+        check(not th.is_alive() and not errors, f"ring: {errors}")
+        xfer = _state["router"].xfer.stats["sent"]
+        check(xfer >= TLS_MSGS // 2, f"devxfer sent {xfer}")
+        w.barrier()
+        rep = lockwitness.report()
+        check(rep["installed"] and rep["edges"] and rep["cycles"] == [],
+              f"witness: {len(rep['edges'])} edges, cycles "
+              f"{rep['cycles']}")
+        lockwitness.dump(f"{report}.lw_r{r}.json", rank=r)
+        out["lines"].append(
+            f"rank 0: {len(rep['sites'])} witnessed sites, "
+            f"{len(rep['edges'])} edges, 0 cycles, max hold "
+            f"{rep['max_hold_us']:.1f} us; devxfer carried {xfer} CUDA "
+            f"messages of 4 MB")
+    else:
+        rows = mpisync.sync_report_perrank(w, rounds=10)
+        check(len(rows) == n and rows[0]["offset_s"] == 0.0, "mpisync")
+        for row in rows[1:]:
+            check(abs(row["offset_s"]) <= row["rtt_s"], f"mpisync {row}")
+        out["rtt_us"] = [row["rtt_s"] * 1e6 for row in rows[1:]]
+        out["offset_us"] = [row["offset_s"] * 1e6 for row in rows[1:]]
+        w.send(np.arange(4.0), (r + 1) % n, tag=3)
+        w.recv((r - 1) % n, tag=3)
+        t = comm_method.table(w)
+        check(t["platform"] == "gpu" and t["data_plane"] == "torch/cuda"
+              and t["devices"] == ["cuda:0"], f"comm_method {t}")
+        out["lines"].append(
+            f"rank 0: comm_method platform {t['platform']}, pt2pt "
+            f"transports {t['pt2pt_transports']}, btl_sm {t['btl_sm']}")
+    small = np.ones(2, np.float32)
+    w.barrier()
+    out["us_8b"] = _us_per_call(lambda: w.allreduce(small, MPI.SUM),
+                                calls=1000, warmup=100)
+    w.barrier()
+    if r == 0:
+        with open(report, "w") as fh:
+            json.dump(out, fh)
+    MPI.Finalize()
+    print(f"OK tools rank={r}/{n} mode={mode}", flush=True)
+    return 0
+
+
+def _tls_job(me, mpirun, root, mode, out, mca) -> tuple:
+    import signal
+    cmd = [sys.executable, mpirun, "--per-rank", "-n", str(N_RANKS),
+           "--timeout", str(TLS_JOB_TIMEOUT)]
+    for k, v in mca:
+        cmd += ["--mca", k, str(v)]
+    cmd += [me, "--tools-rank", mode, out]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, cwd=root, start_new_session=True)
+    try:
+        so, se = p.communicate(timeout=TLS_JOB_TIMEOUT + 5)
+    except subprocess.TimeoutExpired:
+        so, se = "", f"{mode}: killed at the job's limit"
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    job_s = time.perf_counter() - t0
+    marker = "OK tools rank="
+    if p.returncode != 0 or so.count(marker) != N_RANKS:
+        sys.stderr.write(se[-6000:])
+        check(False, f"{mode} job: rc={p.returncode}, {so.count(marker)} "
+              f"of {N_RANKS} ranks OK:\n{so[-3000:]}")
+    check(job_s < TLS_JOB_TIMEOUT, f"{mode} job took {job_s:.1f} s")
+    with open(out) as f:
+        return json.load(f), job_s
+
+
+def phase_tools_job(smi: str, world_s: float) -> None:
+    """Phase 18(b): the witness job and the plain job on 8 ranks of
+    cuda:0, one after the other (their 8 B allreduce times are compared),
+    and the merge of the witness dumps through tracedump."""
+    import glob
+    import tempfile
+    from ompi_tpu_torch.accelerator import SHM_DIR
+    from ompi_tpu_torch.tools import tracedump
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    mpirun = os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py")
+    me = os.path.abspath(__file__)
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        wit, wit_s = _tls_job(me, mpirun, root, "witness",
+                              os.path.join(tmp, "witness.json"),
+                              (("mpi_base_lockwitness", 1),
+                               ("mpi_base_ft_hb_period", 0.05)))
+        plain, plain_s = _tls_job(me, mpirun, root, "plain",
+                                  os.path.join(tmp, "plain.json"), ())
+        dumps = sorted(glob.glob(os.path.join(tmp, "witness.json.lw_r*")))
+        check(len(dumps) == N_RANKS, f"witness dumps {dumps}")
+        summary = os.path.join(tmp, "summary.json")
+        check(tracedump.main(["--format", "summary", "-o", summary,
+                              *dumps]) == 0, "tracedump of the dumps")
+        with open(summary) as f:
+            lw = json.load(f)["lockwitness"]
+        check(lw["ranks"] == N_RANKS and lw["edges"] and lw["cycles"] == []
+              and lw["per_rank_cycles"] == {}, f"merged witness {lw}")
+    left = [f for t in (wit["tag"], plain["tag"])
+            for f in glob.glob(os.path.join(SHM_DIR, f"otpt*_{t}_*"))]
+    check(not left, f"files left: {left}")
+    rtt = plain["rtt_us"]
+    lines += plain["lines"] + wit["lines"]
+    lines.append(
+        f"(b) mpisync.sync_report_perrank on {N_RANKS} ranks: rtt us "
+        f"{', '.join(f'{v:.1f}' for v in rtt)} (min {min(rtt):.1f}, max "
+        f"{max(rtt):.1f}); |offset| <= rtt on each rank (offsets us "
+        f"{', '.join(f'{v:.2f}' for v in plain['offset_us'])})")
+    lines.append(
+        f"(b) the port's p40 under mpi_base_lockwitness=1 with CUDA "
+        f"payloads over devxfer: {N_RANKS} dumps merged by tracedump, "
+        f"{len(lw['edges'])} edges over {len(lw['sites'])} sites, acyclic, "
+        f"max hold {lw['max_hold_us']:.1f} us; every rank OK, rc 0, no "
+        f"otpt* file left; jobs {wit_s:.1f} s (witness) and {plain_s:.1f} s "
+        f"(plain)")
+    lines.append(
+        f"(b) 8 B allreduce host us on {N_RANKS} ranks of cuda:0 (rank 0, "
+        f"1000 calls): witness on {wit['us_8b']:.2f}, off "
+        f"{plain['us_8b']:.2f} ({wit['us_8b'] / plain['us_8b'] - 1:+.1%})")
+    job_s = time.perf_counter() - t0
+    for line in lines:
+        phase("tools", f"{line} | {smi}")
+    check(world_s + job_s < TLS_PHASE_S,
+          f"phase 18 took {world_s + job_s:.1f} s")
+    phase("tools", f"per-rank part {job_s:.1f} s; phase 18 took "
+          f"{world_s + job_s:.1f} s (limit {TLS_PHASE_S} s) | {smi}")
+
+
 def main() -> int:
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
@@ -5852,6 +6353,10 @@ def main() -> int:
         return _planes_rank(sys.argv[-1])
     if "--planes-fresh-check" in sys.argv:
         return _pln_fresh_check(sys.argv[-1])
+    if "--tools-rank" in sys.argv:
+        return _tools_rank(sys.argv[-2], sys.argv[-1])
+    if "--tools-fresh-check" in sys.argv:
+        return _tls_fresh_check(sys.argv[-1])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -5887,6 +6392,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_planes_job(smi, pln_s)
         return 0
+    if "--tools" in sys.argv:
+        smi, kind = phase_device()
+        MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+        tls_s = phase_tools_world(MPI.get_comm_world(), smi)
+        MPI.Finalize()
+        torch.cuda.empty_cache()
+        phase_tools_job(smi, tls_s)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--perrank" in sys.argv:
         smi, _ = phase_device()
         phase_perrank(smi)
@@ -5921,6 +6438,7 @@ def main() -> int:
     ses_s = phase_sessions_world(world, smi)
     osc_s = phase_onesided_world(world, smi)
     pln_s = phase_planes_world(world, smi)
+    tls_s = phase_tools_world(world, smi)
     res_s = phase_resilience_world(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
@@ -5931,6 +6449,7 @@ def main() -> int:
     phase_sessions_job(smi, ses_s)
     phase_onesided_job(smi, osc_s)
     phase_planes_job(smi, pln_s)
+    phase_tools_job(smi, tls_s)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",

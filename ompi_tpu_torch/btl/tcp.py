@@ -141,6 +141,9 @@ class TcpEndpoint:
         self._ctl_qs: Dict[int, "queue.Queue"] = {}
         self._ctl_failed: set = set()
         self._ctl_q_bytes: Dict[int, int] = {}
+        # flush-window counters, published by pml/perrank's Router as the
+        # pvars btl_ctl_frames / btl_ctl_batches / btl_ctl_poke_dedup
+        self.ctl_stats = {"frames": 0, "batches": 0, "poke_dedup": 0}
 
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -375,6 +378,7 @@ class TcpEndpoint:
                 for header, payload in batch:
                     if header.get("ctl") == "_smpoke":
                         if seen_poke:
+                            self.ctl_stats["poke_dedup"] += 1
                             continue
                         seen_poke = True
                     deduped.append((header, payload))
@@ -413,6 +417,8 @@ class TcpEndpoint:
             if not sent:
                 self._ctl_peer_down(peer)
                 return
+            self.ctl_stats["frames"] += len(batch)
+            self.ctl_stats["batches"] += 1
             if retire:
                 return
 
@@ -435,7 +441,10 @@ class TcpEndpoint:
         if over:
             self._ctl_peer_down(peer)
             return
-        q.put_nowait((header, payload))      # never block a reader
+        try:
+            q.put_nowait((header, payload))  # never block a reader
+        except queue.Full:                   # a bounded queue: the same
+            self._ctl_peer_down(peer)        # contract as the byte cap
 
     def send_frame(self, peer: int, header: dict,
                    payload: bytes = b"") -> None:
@@ -558,8 +567,11 @@ class TcpEndpoint:
         self._closed = True
         with self._lock:
             ctl_qs = list(self._ctl_qs.values())
-        for q in ctl_qs:                     # retire the ctl senders
-            q.put_nowait(None)
+        for q in ctl_qs:                     # retire the ctl senders;
+            try:                             # a full queue must not block
+                q.put_nowait(None)           # close: its sender exits on
+            except queue.Full:               # _closed once the sockets
+                pass                         # below are shut
         try:
             self._listener.close()
         except OSError:

@@ -39,6 +39,7 @@ import torch
 
 from ompi_tpu_torch.coll.framework import coll_framework
 from ompi_tpu_torch.core import op as op_mod
+from ompi_tpu_torch.core.errhandler import ERR_OP, MPIError
 from ompi_tpu_torch.core.request import Request, event_on, stream_of
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.mca.base import Component
@@ -169,17 +170,19 @@ class NbcModule:
     def _rows(self) -> torch.Tensor:
         return torch.arange(self.comm.size, device=self.comm.device)
 
-    def _chunked(self, x: torch.Tensor):
+    def _chunked(self, x: torch.Tensor, rec: int = 1):
         """Pad the flattened rank row to a multiple of comm size and view
-        it as (N, N, C) chunks (the ring algorithms' segmentation)."""
+        it as (N, N, C, rec) chunks (the ring algorithms' segmentation).
+        ``rec`` is the record width a chunk never splits: 2 for the
+        (value, index) pairs of MINLOC/MAXLOC, 1 otherwise."""
         n = self.comm.size
-        flat = x.reshape(n, -1)
+        flat = x.reshape(n, -1, rec)
         length = flat.shape[1]
         c = max(1, math.ceil(length / n))
         pad = c * n - length
         if pad:
-            flat = torch.cat([flat, flat.new_zeros((n, pad))], dim=1)
-        return flat.reshape(n, n, c), length, tuple(x.shape)
+            flat = torch.cat([flat, flat.new_zeros((n, pad, rec))], dim=1)
+        return flat.reshape(n, n, c, rec), length * rec, tuple(x.shape)
 
     def iallreduce(self, x, op: op_mod.Op = op_mod.SUM) -> ScheduleRequest:
         """Ring allreduce: N-1 reduce-scatter rounds + N-1 allgather
@@ -195,7 +198,10 @@ class NbcModule:
         route = op_mod.unsigned_route(x.dtype, op)
         if route is not None:
             x = route[1](x)
-        chunks, length, shape = self._chunked(x)
+        if op.is_loc and (x.ndim < 2 or x.shape[-1] != 2):
+            raise MPIError(ERR_OP, f"{op.name} needs trailing (value, "
+                           f"index) pairs, got shape {tuple(x.shape)}")
+        chunks, length, shape = self._chunked(x, 2 if op.is_loc else 1)
         skey = ("iar", n, shape, x.dtype, op.uid)
         hit = self._sched.get(skey)
         if hit is None:

@@ -1348,12 +1348,33 @@ class TorchCollComponent(Component):
             help="Segment size in bytes for the segmented schedules "
                  "(ring_segmented allreduce, pipeline bcast): up to 8 "
                  "segments")
-        for func, names in ALGORITHMS.items():
-            var.var_register(
-                "coll", "torch", f"{func}_algorithm", vtype="str",
-                default="auto", enumerator=list(names),
-                help=f"{func} lowering: {_HELP[func]} (auto: the "
-                     f"decision tables)")
+        # one literal registration per collective, so mpilint indexes
+        # every coll_torch_<func>_algorithm name
+        def alg(func):
+            return {"enumerator": list(ALGORITHMS[func]),
+                    "help": f"{func} lowering: {_HELP[func]} (auto: the "
+                            f"decision tables)"}
+        var.var_register("coll", "torch", "allreduce_algorithm", vtype="str",
+                         default="auto", **alg("allreduce"))
+        var.var_register("coll", "torch", "allgather_algorithm", vtype="str",
+                         default="auto", **alg("allgather"))
+        var.var_register("coll", "torch", "bcast_algorithm", vtype="str",
+                         default="auto", **alg("bcast"))
+        var.var_register("coll", "torch", "alltoall_algorithm", vtype="str",
+                         default="auto", **alg("alltoall"))
+        var.var_register("coll", "torch", "reduce_algorithm", vtype="str",
+                         default="auto", **alg("reduce"))
+        var.var_register("coll", "torch", "gather_algorithm", vtype="str",
+                         default="auto", **alg("gather"))
+        var.var_register("coll", "torch", "scatter_algorithm", vtype="str",
+                         default="auto", **alg("scatter"))
+        var.var_register("coll", "torch", "reduce_scatter_block_algorithm",
+                         vtype="str", default="auto",
+                         **alg("reduce_scatter_block"))
+        var.var_register("coll", "torch", "scan_algorithm", vtype="str",
+                         default="auto", **alg("scan"))
+        var.var_register("coll", "torch", "barrier_algorithm", vtype="str",
+                         default="auto", **alg("barrier"))
 
     def comm_query(self, comm):
         if comm is None:

@@ -115,6 +115,8 @@ class Communicator:
         self._subeager: Dict[tuple, Any] = {}
         from ompi_tpu_torch.coll.framework import comm_select_coll
         self.c_coll: Dict[str, Any] = comm_select_coll(self)
+        from ompi_tpu_torch.tools import comm_method
+        comm_method.maybe_display(self)
 
     def _alloc_cid(self) -> int:
         """CID allocation hook: the process-wide space by default; MPI-4

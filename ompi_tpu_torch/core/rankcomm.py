@@ -105,6 +105,20 @@ _SLOT_ALIGN = 1 << 20
 _live_slots: "weakref.WeakSet" = weakref.WeakSet()
 
 
+# The thread-local call context that travels with a funneled body: a
+# layer above (the C ABI's reduction-datatype context) registers a
+# capture hook; _coll_serial snapshots every registered context at funnel
+# time and applies and resets it around the body on the worker.
+_TLS_PROPAGATORS: List[Callable[[], Tuple[Callable, Callable]]] = []
+
+
+def register_tls_propagator(
+        capture: Callable[[], Tuple[Callable, Callable]]) -> None:
+    """``capture()`` runs on the funneling caller and returns
+    ``(apply, reset)`` closures run on the worker around the body."""
+    _TLS_PROPAGATORS.append(capture)
+
+
 class _HiddenChannel:
     """A hidden matching-channel view of a communicator: same ranks,
     separate CID, so internal and tool messages never match user
@@ -1114,13 +1128,26 @@ class RankCommunicator:
             q = self._cq
             if q is not None and q.unfinished_tasks > 0:
                 ev = threading.Event()
+                props = [cap() for cap in _TLS_PROPAGATORS]
 
                 def runner():
+                    applied = []
+                    # apply() runs inside the try: a raising propagator
+                    # surfaces at the caller's wait like any body error,
+                    # instead of leaving ev unset and the caller hung
                     try:
+                        for apply, reset in props:
+                            apply()
+                            applied.append(reset)
                         box["res"] = fn(*a, **kw)
                     except BaseException as e:  # noqa: BLE001
                         box["err"] = e
                     finally:
+                        for reset in applied:
+                            try:
+                                reset()
+                            except BaseException:  # noqa: BLE001
+                                pass
                         ev.set()
                 q.put(runner)
         if ev is None:                   # worker idle: inline

@@ -56,6 +56,7 @@ from ompi_tpu_torch.btl.tcp import PeerDownError, decode_payload, \
 from ompi_tpu_torch.core.errhandler import (ERR_PENDING, ERR_PROC_FAILED,
                                             ERR_RANK, ERR_TAG, MPIError)
 from ompi_tpu_torch.core.request import Request, Status
+from ompi_tpu_torch.mca import pvar
 from ompi_tpu_torch.pml import pipeline as _pipeline
 from ompi_tpu_torch.runtime import ft
 from ompi_tpu_torch.runtime import progress as _progress
@@ -128,6 +129,10 @@ class Router:
         self.endpoint = BmlEndpoint(rank, nprocs, kv_set, kv_get,
                                     self._deliver,
                                     on_peer_lost=self._peer_lost)
+        # the ctl flush-window counters ride the MPI_T pvar plumbing
+        pvar.pvar_register_dict(
+            "btl_ctl", self.endpoint.tcp.ctl_stats,
+            help_prefix="ctl flush window: ")
 
     def wire_up(self) -> None:
         """Connect to every peer eagerly (add_procs): each pair then has

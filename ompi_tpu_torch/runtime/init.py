@@ -44,6 +44,9 @@ from typing import List, Optional
 import torch
 
 from ompi_tpu_torch import accelerator, compress
+# imported with the package, so the witness captures the interpreter's
+# lock factories before anything can rebind them
+from ompi_tpu_torch.analyze import lockwitness
 from ompi_tpu_torch.btl import shmseg
 from ompi_tpu_torch.coll import persistent, tuned
 from ompi_tpu_torch.core.communicator import Communicator
@@ -54,6 +57,7 @@ from ompi_tpu_torch.io import fcoll, sharedfp
 from ompi_tpu_torch.mca import base, var
 from ompi_tpu_torch.pml import pipeline, stacked, vprotocol
 from ompi_tpu_torch.runtime import progress
+from ompi_tpu_torch.tools import comm_method
 from ompi_tpu_torch.utils import memchecker
 
 THREAD_SINGLE = 0
@@ -107,6 +111,7 @@ def _register_component_vars() -> None:
     memchecker.register_vars()
     fcoll.register_vars()
     sharedfp.register_vars()
+    comm_method.register_params()
 
 
 def init(requested: int = THREAD_SINGLE,
@@ -115,6 +120,9 @@ def init(requested: int = THREAD_SINGLE,
     if _state["initialized"]:
         raise MPIError(ERR_OTHER, "MPI already initialized")
     _register_base_vars()
+    # arm the lock-order witness before transport and progress bring-up,
+    # so endpoint locks are created wrapped; off = threading.Lock untouched
+    lockwitness.maybe_install_from_var()
     # arm the tracer when the MCA var (env/param file) asks for it,
     # before any communicator exists: the coll composer and the per-rank
     # interposer wrap only while it is on
@@ -418,7 +426,8 @@ def _reset_for_tests() -> None:
     the monitoring table, the hooks' drop count and the skew watermarks
     are zeroed. The failure registry is emptied, the telemetry plane is
     disarmed with its histograms dropped, and the injection plane's gate
-    is closed. The sessions' refcount and per-rank create ordinals, the
+    is closed, and the lock witness is uninstalled and emptied. The
+    sessions' refcount and per-rank create ordinals, the
     DPM registry and the open per-rank ports are emptied."""
     global _parent_intercomm
     from ompi_tpu_torch import telemetry, trace
@@ -432,6 +441,8 @@ def _reset_for_tests() -> None:
     from ompi_tpu_torch.core import rankcomm
     from ompi_tpu_torch.runtime import spc
     from ompi_tpu_torch.utils import hooks
+    lockwitness.uninstall()
+    lockwitness.reset()
     trace.disable()
     trace.reset()
     trace.set_process_rank(-1)

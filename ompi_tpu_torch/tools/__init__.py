@@ -1,1 +1,3 @@
-"""Command-line tools: ``mpirun``."""
+"""Command-line tools: ``mpirun``, ``mpitop``, ``tracedump``, ``info``,
+``comm_method``, ``mpisync``, ``profile``, ``debuggers``, ``peruse``,
+``mpilint``, ``checkparity`` and ``checkall``."""

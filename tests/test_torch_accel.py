@@ -155,23 +155,31 @@ def test_host_register_restores_prior_state(worlds):
 
 def test_message_queue_dst_filter(worlds):
     """The posted receives a debugger's message-queue view shows for one
-    destination rank: the reference's ``tools/debuggers`` view against
-    the port's matching engine, which holds the same records (in the C++
-    core's request registry, as the reference's does, when the native
-    library is loaded; else in its Python queue)."""
-    from ompi_tpu.tools import debuggers
+    destination rank: each package's ``tools/debuggers`` view of its
+    matching engine (in the C++ core's request registry when the native
+    library is loaded, else in the Python queue). The port's view is held
+    against the reference's tool reading the port's engine, and against
+    the engine's own records."""
+    from ompi_tpu.tools import debuggers as r_debuggers
+    from ompi_tpu_torch.tools import debuggers as p_debuggers
+
+    def view(tool, c, dst):
+        # the native engine's view adds its request handle
+        return [{k: v for k, v in p.items() if k != "handle"}
+                for p in tool.message_queues(c, dst=dst)["posted"]]
 
     def posted(pkg, c, dst=None):
         if pkg is REF:
-            # the native engine's view adds its request handle
-            return [{k: v for k, v in p.items() if k != "handle"}
-                    for p in debuggers.message_queues(c, dst=dst)["posted"]]
+            return view(r_debuggers, c, dst)
+        shown = view(p_debuggers, c, dst)
+        assert shown == view(r_debuggers, c, dst)
         eng = c._pml
         reqs = (list(eng._reqs.values()) if eng._lib is not None
                 else [pr.req for pr in eng.posted])
-        return [{"dest": q.dest, "source": q.status.source,
-                 "tag": q.status.tag}
-                for q in reqs if dst is None or q.dest == dst]
+        assert shown == [{"dest": q.dest, "source": q.status.source,
+                          "tag": q.status.tag}
+                         for q in reqs if dst is None or q.dest == dst]
+        return shown
 
     def run(pkg, world):
         c = world.dup()

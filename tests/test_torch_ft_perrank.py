@@ -509,9 +509,10 @@ def _load(paths):
 
 def test_telemetry_straggler_drill_names_rank1(tmp_path):
     """4 ranks, a 200 ms injected pml delay on every frame rank 1 sends:
-    every healthy rank's monitor declares it, the reference's mpitop
-    elects it slow_rank from the port's dumps with a visible p99, and the
-    flight-recorder merge names it the critical rank."""
+    every healthy rank's monitor declares it, the port's mpitop (and the
+    reference's beside it, with the same summary) elects it slow_rank from
+    the port's dumps with a visible p99, and the flight-recorder merge
+    names it the critical rank."""
     env = {"mpi_base_telemetry": 1, "mpi_base_telemetry_sample_s": 0.1,
            "mpi_base_telemetry_window_s": 10,
            "mpi_base_telemetry_straggler_score": 0.02,
@@ -524,10 +525,12 @@ def test_telemetry_straggler_drill_names_rank1(tmp_path):
                "OK p41_straggler", 4)
     files = sorted(glob.glob(str(tmp_path / "telemetry_*.json")))
     assert len(files) == 4, files
-    from ompi_tpu.tools import mpitop
+    from ompi_tpu.tools import mpitop as r_mpitop
+    from ompi_tpu_torch.tools import mpitop
     snaps, skipped = mpitop.load_snapshots(files)
     assert not skipped, skipped
     summary = mpitop.summarize(snaps)
+    assert summary == r_mpitop.summarize(r_mpitop.load_snapshots(files)[0])
     assert summary["slow_rank"] == 1, summary
     assert summary["declared"].get("1", 0) >= 3, summary["declared"]
     row1 = [r for r in summary["rows"] if r["rank"] == 1][0]
@@ -546,8 +549,9 @@ def test_telemetry_straggler_drill_names_rank1(tmp_path):
 def test_telemetry_flightrec_on_kill(tmp_path):
     """The kill drill with telemetry armed: the survivors' proc-failed
     triggers write parseable snapshots (atomic under the kill), and the
-    reference's ``tracedump --format flightrec`` merges the port's files
-    into an incident report naming rank 2 critical and absent."""
+    port's ``tracedump --format flightrec`` (and the reference's beside
+    it, with the same report) merges the port's files into an incident
+    report naming rank 2 critical and absent."""
     env = dict(P34_ENV, mpi_base_telemetry=1,
                mpi_base_telemetry_flightrec_dir=str(tmp_path))
     _assert_ok(run_drill(tmp_path, "p34t", P34_KILL, 4, env=env,
@@ -559,11 +563,16 @@ def test_telemetry_flightrec_on_kill(tmp_path):
     assert 2 not in {p["rank"] for p in payloads}   # the victim never wrote
     assert any(p["trigger"] == "proc_failed" and
                p["detail"].get("rank") == 2 for p in payloads), payloads
-    from ompi_tpu.tools import tracedump
+    from ompi_tpu.tools import tracedump as r_tracedump
+    from ompi_tpu_torch.tools import tracedump
     out = tmp_path / "incident.json"
     assert tracedump.main(["--format", "flightrec", "-o", str(out)]
                           + frecs) == 0
     report = json.loads(out.read_text())
+    ref_out = tmp_path / "incident_ref.json"
+    assert r_tracedump.main(["--format", "flightrec", "-o", str(ref_out)]
+                            + frecs) == 0
+    assert json.loads(ref_out.read_text()) == report
     assert report["incident"] == 1 and report["critical_rank"] == 2
     assert report.get("critical_absent") is True, report
     assert report["accusations"].get("2", 0) >= 1, report

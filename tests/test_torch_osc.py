@@ -792,16 +792,19 @@ def test_osc_flightrec_snapshots_open_epochs():
 
 
 def test_osc_mpitop_section_and_trace_summary(tmp_path):
-    """The port's telemetry dump carries the osc counter block, the
-    reference's mpitop renders the osc section from it as from its own
-    package's dump, and both trace summaries aggregate osc.* spans."""
+    """The port's telemetry dump carries the osc counter block, each
+    package's mpitop renders the osc section from its package's dump (the
+    reference's mpitop beside it, with the same summary), and both trace
+    summaries aggregate osc.* spans."""
     from ompi_tpu import telemetry as r_tele
-    from ompi_tpu.tools import mpitop
+    from ompi_tpu.tools import mpitop as r_mpitop
     from ompi_tpu.trace import attribution as r_attr
     from ompi_tpu_torch import telemetry as p_tele
+    from ompi_tpu_torch.tools import mpitop as p_mpitop
     from ompi_tpu_torch.trace import attribution as p_attr
     rows = {}
-    for pkg, tele in (("port", p_tele), ("ref", r_tele)):
+    for pkg, tele, mpitop in (("port", p_tele, p_mpitop),
+                              ("ref", r_tele, r_mpitop)):
         _comms_, wins = _world(2, 8, "pt2pt", pkg=pkg)
         try:
             for w in wins:
@@ -815,6 +818,7 @@ def test_osc_mpitop_section_and_trace_summary(tmp_path):
         snaps, skipped = mpitop.load_snapshots([path])
         assert snaps and not skipped
         summary = mpitop.summarize(snaps)
+        assert summary == r_mpitop.summarize(snaps)
         assert summary["osc"], f"{pkg}: osc section missing"
         rows[pkg] = summary["osc"][0]
         assert "osc (one-sided):" in mpitop.render_table(summary)

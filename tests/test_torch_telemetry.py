@@ -6,11 +6,11 @@ Every case feeds both packages the same inputs: the same samples go into
 both ``Histogram`` types, the same synthetic waits and clocks into both
 health monitors, the same payloads into both flight-recorder merges, the
 same rows into both Prometheus renderers, and the outputs must be
-identical. The reference's ``tools/tracedump`` and ``tools/mpitop`` have
-no port yet; their cases instead feed files the port wrote (trace dumps,
-flight-recorder snapshots, telemetry dumps) to the reference's tools and
-require the same report the reference's own files give — the port's
-dump formats are the reference's. Live collectives run on the port's
+identical. The ``tools/tracedump`` and ``tools/mpitop`` cases read the
+files each package wrote (trace dumps, flight-recorder snapshots,
+telemetry dumps) with that package's tool and, beside it, with the
+reference's tool: all four reports must agree — the port's dump formats
+are the reference's. Live collectives run on the port's
 8-rank CPU world and on a dup of the reference's world.
 
 The repair: a freed (or shrunk) communicator's per-comm instruments —
@@ -39,6 +39,8 @@ from ompi_tpu.telemetry import flightrec as r_flightrec
 from ompi_tpu.telemetry import health as r_health
 from ompi_tpu.telemetry import hist as r_hist
 from ompi_tpu.telemetry import prom as r_prom
+from ompi_tpu.tools import mpitop as r_mpitop
+from ompi_tpu.tools import tracedump as r_tracedump
 from ompi_tpu.trace import attribution as r_attr
 from ompi_tpu.trace import core as r_trace
 from ompi_tpu.utils import hooks as r_hooks
@@ -50,6 +52,8 @@ from ompi_tpu_torch.telemetry import flightrec as p_flightrec
 from ompi_tpu_torch.telemetry import health as p_health
 from ompi_tpu_torch.telemetry import hist as p_hist
 from ompi_tpu_torch.telemetry import prom as p_prom
+from ompi_tpu_torch.tools import mpitop as p_mpitop
+from ompi_tpu_torch.tools import tracedump as p_tracedump
 from ompi_tpu_torch.trace import attribution as p_attr
 from ompi_tpu_torch.trace import core as p_trace
 from ompi_tpu_torch.utils import hooks as p_hooks
@@ -57,11 +61,13 @@ from ompi_tpu_torch.utils import hooks as p_hooks
 PORT = SimpleNamespace(name="port", tele=p_tele, pvar=p_pvar, var=p_var,
                        flightrec=p_flightrec, health=p_health, hist=p_hist,
                        prom=p_prom, attr=p_attr, trace=p_trace,
-                       hooks=p_hooks, osc=p_osc)
+                       hooks=p_hooks, osc=p_osc, mpitop=p_mpitop,
+                       tracedump=p_tracedump)
 REF = SimpleNamespace(name="ref", tele=r_tele, pvar=r_pvar, var=r_var,
                       flightrec=r_flightrec, health=r_health, hist=r_hist,
                       prom=r_prom, attr=r_attr, trace=r_trace,
-                      hooks=r_hooks, osc=r_osc)
+                      hooks=r_hooks, osc=r_osc, mpitop=r_mpitop,
+                      tracedump=r_tracedump)
 BOTH = (PORT, REF)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,6 +82,17 @@ def _both(fn):
     port, ref = fn(PORT), fn(REF)
     assert port == ref, (port, ref)
     return port
+
+
+def _own_and_ref_tool(run, tool):
+    """``run(pkg, t)`` over ``pkg``'s files with ``pkg``'s own ``tool``
+    and with the reference's beside it; the two must agree."""
+    def fn(pkg):
+        own = run(pkg, getattr(pkg, tool))
+        ref = run(pkg, getattr(REF, tool))
+        assert own == ref, (pkg.name, own, ref)
+        return own
+    return fn
 
 
 def _teardown(pkg):
@@ -636,16 +653,14 @@ def test_flightrec_merge_fallback_worst_p99():
     assert "critical_absent" not in rep
 
 
-# -- the reference's tracedump over files each package wrote -----------------
+# -- each package's tracedump, and the reference's, over its files ------------
 def test_tracedump_skips_truncated_and_strict(tmp_path, capsys):
-    """A trace dump the port wrote reads in the reference's tracedump as
-    the reference's own does: a truncated sibling is skipped (rc 0), and
-    ``--strict`` turns the skip into rc 1."""
-    from ompi_tpu.tools import tracedump
-
-    def run(pkg):
+    """A trace dump the port wrote reads in the port's tracedump and in
+    the reference's as the reference's own does: a truncated sibling is
+    skipped (rc 0), and ``--strict`` turns the skip into rc 1."""
+    def run(pkg, tracedump):
         d = tmp_path / pkg.name
-        d.mkdir()
+        d.mkdir(exist_ok=True)
         pkg.trace.set_process_rank(0)
         pkg.trace.enable(capacity=16)
         try:
@@ -671,18 +686,17 @@ def test_tracedump_skips_truncated_and_strict(tmp_path, capsys):
                 rep["skipped"], os.path.basename(
                     rep["skipped_files"][0]["file"]), rc_strict, rc_clean)
 
-    assert _both(run) == (0, True, 1, "trace_1.json", 1, 0)
+    assert _both(_own_and_ref_tool(run, "tracedump")) == \
+        (0, True, 1, "trace_1.json", 1, 0)
 
 
 def test_tracedump_flightrec_format(tmp_path, tele):
-    """Flight-recorder snapshots the port wrote merge in the reference's
-    ``tracedump --format flightrec`` into the same incident report as the
-    reference's own snapshots."""
-    from ompi_tpu.tools import tracedump
-
-    def run(pkg):
+    """Flight-recorder snapshots the port wrote merge in the port's and
+    the reference's ``tracedump --format flightrec`` into the same
+    incident report as the reference's own snapshots."""
+    def run(pkg, tracedump):
         d = tmp_path / pkg.name
-        d.mkdir()
+        d.mkdir(exist_ok=True)
         pkg.var.var_set("mpi_base_telemetry_flightrec_dir", str(d))
         files = []
         try:
@@ -700,10 +714,11 @@ def test_tracedump_flightrec_format(tmp_path, tele):
         return rc, rep["incident"], rep["critical_rank"], \
             rep["accusations"], rep["ranks"]
 
-    assert _both(run) == (0, 1, 3, {"3": 2}, [0, 1])
+    assert _both(_own_and_ref_tool(run, "tracedump")) == \
+        (0, 1, 3, {"3": 2}, [0, 1])
 
 
-# -- the reference's mpitop over telemetry dumps each package wrote ----------
+# -- each package's mpitop, and the reference's, over its telemetry dumps ----
 def _dump_of(pkg, path, rank, rows, health_snap=None):
     """A telemetry dump written by ``pkg.tele.dump``: each row's values
     recorded into a registry histogram, the health section patched in.
@@ -734,12 +749,11 @@ def _dump_of(pkg, path, rank, rows, health_snap=None):
 
 
 def test_mpitop_summarize_elects_declared_straggler(tmp_path):
-    from ompi_tpu.tools import mpitop
     coll = {"comm": "w", "func": "allreduce", "sclass": "small"}
 
-    def run(pkg):
+    def run(pkg, mpitop):
         d = tmp_path / pkg.name
-        d.mkdir()
+        d.mkdir(exist_ok=True)
         files = [
             _dump_of(pkg, d / "telemetry_0.json", 0,
                      [("tele_coll_allreduce_cw_small", [100] * 10, coll),
@@ -756,7 +770,7 @@ def test_mpitop_summarize_elects_declared_straggler(tmp_path):
         return (skipped, s, mpitop.render_table(s),
                 any(r.get("comm") == "w" for r in per["rows"]))
 
-    skipped, s, table, per_comm = _both(run)
+    skipped, s, table, per_comm = _both(_own_and_ref_tool(run, "mpitop"))
     assert skipped == [] and s["slow_rank"] == 1
     assert s["declared"] == {"1": 1} and s["accusations"]["1"] == 0.3
     rows = {r["rank"]: r for r in s["rows"]}
@@ -768,11 +782,9 @@ def test_mpitop_summarize_elects_declared_straggler(tmp_path):
 def test_mpitop_slow_rank_fallback_excludes_recv_waits(tmp_path):
     """With no accusations the election is own latency only: the rank
     stuck waiting (big recv p99) is not blamed for its peer."""
-    from ompi_tpu.tools import mpitop
-
-    def run(pkg):
+    def run(pkg, mpitop):
         d = tmp_path / pkg.name
-        d.mkdir()
+        d.mkdir(exist_ok=True)
         files = [
             _dump_of(pkg, d / "telemetry_0.json", 0,
                      [("tele_pml_recv_us", [500_000] * 5, None),
@@ -783,15 +795,13 @@ def test_mpitop_slow_rank_fallback_excludes_recv_waits(tmp_path):
         s = mpitop.summarize(mpitop.load_snapshots(files)[0])
         return s["declared"], s["accusations"], s["slow_rank"]
 
-    assert _both(run) == ({}, {}, 1)
+    assert _both(_own_and_ref_tool(run, "mpitop")) == ({}, {}, 1)
 
 
 def test_mpitop_load_snapshots_skips_garbage(tmp_path, capsys):
-    from ompi_tpu.tools import mpitop
-
-    def run(pkg):
+    def run(pkg, mpitop):
         d = tmp_path / pkg.name
-        d.mkdir()
+        d.mkdir(exist_ok=True)
         good = _dump_of(pkg, d / "telemetry_0.json", 0, [])
         bad = d / "telemetry_1.json"
         bad.write_text("{not json")
@@ -801,7 +811,8 @@ def test_mpitop_load_snapshots_skips_garbage(tmp_path, capsys):
                 [os.path.basename(s["file"]) for s in skipped],
                 "telemetry_1.json" in err)
 
-    assert _both(run) == ([0], ["telemetry_1.json"], True)
+    assert _both(_own_and_ref_tool(run, "mpitop")) == \
+        ([0], ["telemetry_1.json"], True)
 
 
 # -- Prometheus exporter -----------------------------------------------------
