@@ -326,6 +326,26 @@ Phases, one or more lines each:
                 unbaselined findings, 0 stale entries. The phase must
                 end within 90 s. ``python3 chip_smoke.py --tools`` runs
                 phases 1 and 18 alone.
+19. cabi      — the MPI C ABI on the card. (a) On the 8-row world of
+                ``cuda:0`` (before phase 14 fails a rank of it): the
+                single-controller glue's five nonblocking-collective
+                contracts of ``tests/test_cabi_async.py`` (async issue,
+                issue order, deferred error at wait, worker retired with
+                its comm, ``comm_free`` drains), against numpy. (b) After
+                phase 18's jobs: the port's ``mpicc`` builds
+                ``libtpumpi_torch.so`` and 11 programs of
+                ``tests/cabi_programs/`` from the checkout, with an MPI_T
+                probe (a PMPI tool the phase writes) and ``pmpi_tool.c``;
+                each program runs under the port's ``mpirun --per-rank``
+                with no device override, so every rank binds ``cuda:0``:
+                ``c13_staged`` alone at 64 MB per rank under the probe
+                (``coll_staged_device`` > 0 on every rank, its own timing
+                line, ``cuda:0``'s free memory during the job), then the
+                rest four at a time and the PMPI tool under c03; every
+                rank prints its ``OK`` line; seconds per job; 0
+                flash-fold launches over the phase; no ``otpt*`` file
+                left. ``python3 chip_smoke.py --cabi`` runs phases 1 and
+                19 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -6330,6 +6350,298 @@ def phase_tools_job(smi: str, world_s: float) -> None:
           f"{world_s + job_s:.1f} s (limit {TLS_PHASE_S} s) | {smi}")
 
 
+# -- phase 19 ----------------------------------------------------------
+# (program, ranks) of the C conformance programs the phase runs on the
+# card; c23_bigcount (2.1 GB, about 90 s alone) stays out
+CAB_JOBS = (("c01_hello", 2), ("c03_coll", 3), ("c08_userop", 3),
+            ("c11_rma", 3), ("c12_mpiio", 3), ("c13_staged", 2),
+            ("c14_icoll_full", 3), ("c19_mpit", 2), ("c25_spawn", 2),
+            ("c35_join_mpmd", 2), ("c37_thread_comms", 2))
+CAB_STAGED = "c13_staged"      # 16 Mi floats = 64 MB per rank by default
+CAB_JOB_TIMEOUT = 90           # seconds each C job may take
+CAB_PARALLEL = 4               # C jobs at once after c13 ran alone
+CAB_PHASE_S = 150              # the whole phase must end within this
+CAB_SLOT = 64 << 20            # c13's payload per rank, in bytes
+# A PMPI tool LD_PRELOADed under c13: at MPI_Finalize it reads, through
+# MPI_T, the staged device tier's SPC counter and the device override
+CAB_PROBE = r"""
+#include <mpi.h>
+#include <stdio.h>
+
+int MPI_Finalize(void)
+{
+    int rank = -1, idx = -1, count = 0;
+    unsigned long long staged = 0;
+    char dev[256] = "?";
+    PMPI_Comm_rank(MPI_COMM_WORLD, &rank);
+    MPI_T_pvar_session ses;
+    MPI_T_pvar_handle ph;
+    if (MPI_T_pvar_get_index("spc_coll_staged_device", &idx)
+            == MPI_SUCCESS) {
+        MPI_T_pvar_session_create(&ses);
+        MPI_T_pvar_handle_alloc(ses, idx, NULL, &ph, &count);
+        MPI_T_pvar_read(ses, ph, &staged);
+        MPI_T_pvar_handle_free(ses, &ph);
+        MPI_T_pvar_session_free(&ses);
+    }
+    MPI_T_cvar_handle ch;
+    if (MPI_T_cvar_get_index("mpi_base_device", &idx) == MPI_SUCCESS) {
+        MPI_T_cvar_handle_alloc(idx, NULL, &ch, &count);
+        MPI_T_cvar_read(ch, dev);
+        MPI_T_cvar_handle_free(&ch);
+    }
+    printf("CABI_PROBE rank=%d coll_staged_device=%llu "
+           "mpi_base_device='%s'\n", rank, staged, dev);
+    fflush(stdout);
+    return PMPI_Finalize();
+}
+"""
+
+
+def phase_cabi_world(w, smi: str) -> float:
+    """Phase 19 on the 8-row world of cuda:0: the single-controller C-ABI
+    glue's five nonblocking-collective contracts (``tests/
+    test_cabi_async.py``) against numpy."""
+    from ompi_tpu_torch.api import cabi
+    from ompi_tpu_torch.core.errhandler import MPIError
+    t0 = time.perf_counter()
+    check(cabi._comm(cabi.COMM_WORLD) is w and w.device.type == "cuda",
+          "the glue's COMM_WORLD is the card's world")
+    n, dbl, sum_ = w.size, 14, 1
+
+    def mv(a):
+        return memoryview(np.ascontiguousarray(a).tobytes())
+
+    def rows(v):
+        return np.tile(np.asarray([v], np.float64), (n, 1))
+    # (1) async issue: the i-call returns a worker request
+    buf = np.arange(n, dtype=np.float64)
+    rh = cabi.ireduce(cabi.COMM_WORLD, mv(buf), dbl, sum_, 0)
+    with cabi._lock:
+        kind = type(cabi._requests[rh][0]).__name__
+    check(kind == "_AsyncBytesReq", f"ireduce took {kind}")
+    while True:
+        got = cabi.test(rh)
+        if got[0]:
+            break
+    check(np.frombuffer(got[1], np.float64)[0] == buf.sum(), "ireduce")
+    # (2) issue order on the serial worker
+    r1 = cabi.iscan(cabi.COMM_WORLD, mv(rows(1.0)), dbl, sum_)
+    r2 = cabi.iscan(cabi.COMM_WORLD, mv(rows(10.0)), dbl, sum_)
+    ramp = np.arange(1, n + 1, dtype=np.float64)
+    check(np.array_equal(np.frombuffer(cabi.wait(r1)[0], np.float64), ramp)
+          and np.array_equal(np.frombuffer(cabi.wait(r2)[0], np.float64),
+                             10 * ramp), "iscan issue order")
+    # (3) a deferred error surfaces at wait and frees the request
+    rh = cabi.ireduce(cabi.COMM_WORLD, mv(rows(1.0)), 9999, sum_, 0)
+    try:
+        cabi.wait(rh)
+        check(False, "a bad datatype handle completed")
+    except MPIError as e:
+        err = e.error_class
+    with cabi._lock:
+        check(rh not in cabi._requests, "errored request kept")
+    # (4) the worker retires with its comm
+    h = cabi.comm_dup(cabi.COMM_WORLD)
+    rh = cabi.igather(h, mv(rows(2.0)), dbl, 0, dbl)
+    with cabi._lock:
+        check(h in cabi._icoll_workers, "no worker for the dup")
+    # the stacked result: the root's gathered row on every row
+    check(np.array_equal(np.frombuffer(cabi.wait(rh)[0], np.float64),
+                         np.full(n * n, 2.0)), "igather")
+    cabi.comm_free(h)
+    with cabi._lock:
+        check(h not in cabi._icoll_workers, "worker outlived comm_free")
+    # (5) comm_free drains the pending collectives
+    h = cabi.comm_dup(cabi.COMM_WORLD)
+    rhs = [cabi.iscan(h, mv(rows(1.0)), dbl, sum_) for _ in range(4)]
+    cabi.comm_free(h)
+    check(all(np.array_equal(np.frombuffer(cabi.wait(r)[0], np.float64),
+                             ramp) for r in rhs), "drained iscans")
+    s = time.perf_counter() - t0
+    phase("cabi", f"(a) the glue's 5 nonblocking contracts on the 8-row "
+          f"world of {w.device}: async issue (_AsyncBytesReq), issue "
+          f"order, deferred error at wait (class {err}, request freed), "
+          f"worker retired with its comm, comm_free drains 4 iscans; = "
+          f"numpy; {s:.2f} s | {smi}")
+    return s
+
+
+def _cab_build(tmp: str) -> tuple:
+    """The port's library and the phase's programs, built from the
+    checkout by the port's mpicc (its ``main``, one gcc per program, in
+    parallel). Returns ({name: binary}, probe, tool, library seconds,
+    seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from ompi_tpu_torch.tools import mpicc
+    root = os.path.dirname(os.path.abspath(__file__))
+    progs = os.path.join(root, "tests", "cabi_programs")
+    t0 = time.perf_counter()
+    so = mpicc.build_lib()
+    lib_s = time.perf_counter() - t0
+    check(so.resolve().parent == mpicc.BUILD_DIR, f"library {so}")
+    probe_c = os.path.join(tmp, "cabi_probe.c")
+    with open(probe_c, "w") as f:
+        f.write(CAB_PROBE)
+    units = [(os.path.join(progs, f"{name}.c"), os.path.join(tmp, name), ())
+             for name, _ in CAB_JOBS]
+    units.append((probe_c, os.path.join(tmp, "cabi_probe.so"),
+                  ("-shared", "-fPIC")))
+    units.append((os.path.join(progs, "pmpi_tool.c"),
+                  os.path.join(tmp, "pmpi_tool.so"), ("-shared", "-fPIC")))
+
+    def cc(unit):
+        src, out, extra = unit
+        check(mpicc.main([*extra, src, "-o", out]) == 0, f"mpicc {src}")
+        return out
+    with ThreadPoolExecutor(len(units)) as pool:
+        outs = list(pool.map(cc, units))
+    bins = {name: out for (name, _), out in zip(CAB_JOBS, outs)}
+    return bins, outs[-2], outs[-1], lib_s, time.perf_counter() - t0
+
+
+class _FreeWatch:
+    """The least free memory of cuda:0 while a job runs
+    (``torch.cuda.mem_get_info`` is the device's, so it sees the rank
+    processes' contexts and buffers), polled every 20 ms."""
+
+    def __init__(self):
+        import threading
+        self.base = torch.cuda.mem_get_info(0)[0]
+        self.low = self.base
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._poll, daemon=True)
+        self._th.start()
+
+    def _poll(self):
+        while not self._stop.wait(0.02):
+            self.low = min(self.low, torch.cuda.mem_get_info(0)[0])
+
+    def drop_mib(self) -> float:
+        self._stop.set()
+        self._th.join()
+        return (self.base - self.low) / 2 ** 20
+
+
+def _cab_job(binary: str, n: int, cwd: str, args=(), preload="") -> tuple:
+    """One C program under the port's mpirun --per-rank, with no device
+    override: every rank binds cuda:0. Returns (stdout, seconds)."""
+    import signal
+    root = os.path.dirname(os.path.abspath(__file__))
+    mpirun = os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("OMPI_TPU_TORCH_")}
+    if preload:
+        env["LD_PRELOAD"] = preload
+    cmd = [sys.executable, mpirun, "--per-rank", "-n", str(n), "--timeout",
+           str(CAB_JOB_TIMEOUT), binary, *args]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, cwd=cwd, env=env,
+                         start_new_session=True)
+    try:
+        so, se = p.communicate(timeout=CAB_JOB_TIMEOUT + 5)
+    except subprocess.TimeoutExpired:
+        so, se = "", "killed at the job's limit"
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        p.wait()
+    s = time.perf_counter() - t0
+    name = os.path.basename(binary)
+    marker = f"OK {name}"
+    if p.returncode != 0 or so.count(marker) != n:
+        sys.stderr.write(se[-6000:])
+        check(False, f"{name} on {n} ranks: rc={p.returncode}, "
+              f"{so.count(marker)} of {n} OK:\n{so[-3000:]}")
+    return so, s
+
+
+def phase_cabi_job(smi: str, world_s: float) -> int:
+    """Phase 19's C jobs on cuda:0: build, c13 alone under the MPI_T
+    probe (the staged tier's counter on every rank, its own timing line,
+    cuda:0's free memory during the job), then the other programs and
+    the PMPI tool under c03, ``CAB_PARALLEL`` at a time. Returns the
+    flash-fold launches in this process over the phase (0)."""
+    import glob
+    import re as _re
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from ompi_tpu_torch.accelerator import SHM_DIR
+    t0 = time.perf_counter()
+    before = FA.launches
+    lines = []
+    shm_before = set(glob.glob(os.path.join(SHM_DIR, "otpt*")))
+    with tempfile.TemporaryDirectory() as tmp:
+        bins, probe, tool, lib_s, build_s = _cab_build(tmp)
+        lines.append(f"(b) built libtpumpi_torch.so in {lib_s:.2f} s and "
+                     f"{len(bins)} programs + the MPI_T probe + the PMPI "
+                     f"tool with the port's mpicc in {build_s:.2f} s")
+        n13 = dict(CAB_JOBS)[CAB_STAGED]
+        watch = _FreeWatch()
+        out, s13 = _cab_job(bins[CAB_STAGED], n13, tmp, preload=probe)
+        drop = watch.drop_mib()
+        probes = _re.findall(r"CABI_PROBE rank=(\d+) coll_staged_device="
+                             r"(\d+) mpi_base_device='([^']*)'", out)
+        check(sorted(int(r) for r, _, _ in probes) == list(range(n13)),
+              f"probe lines {probes}")
+        staged = {int(r): int(c) for r, c, _ in probes}
+        check(all(c > 0 for c in staged.values()),
+              f"coll_staged_device per rank {staged}")
+        check(all(d == "" for _, _, d in probes),
+              f"a device override reached the ranks: {probes}")
+        check(drop >= n13 * CAB_SLOT / 2 ** 20,
+              f"cuda:0 free memory fell by {drop:.0f} MiB in c13's job")
+        timing = _re.search(r"timing n=\d+ allreduce=[\d.]+ ms "
+                            r"bcast=[\d.]+ ms", out)
+        check(timing is not None, f"c13's timing line: {out[-2000:]}")
+        lines.append(
+            f"(b) c13_staged on {n13} ranks (16 Mi floats = 64 MB per rank, "
+            f"no device override; probe: mpi_base_device unset on every "
+            f"rank): {timing.group(0)}; coll_staged_device per rank "
+            f"{[staged[r] for r in range(n13)]} (MPI_T, read at "
+            f"MPI_Finalize); cuda:0 free memory fell by {drop:.0f} MiB "
+            f"during the job; job {s13:.1f} s")
+        # the rest, and c03 again under the PMPI tool, four at a time
+        rest = [(name, n, "") for name, n in CAB_JOBS if name != CAB_STAGED]
+        rest.append(("c03_coll", 3, tool))
+
+        def run(job):
+            name, n, preload = job
+            so, s = _cab_job(bins[name], n, tmp, preload=preload)
+            return name, n, s, so
+        watch = _FreeWatch()
+        with ThreadPoolExecutor(CAB_PARALLEL) as pool:
+            done = list(pool.map(run, rest))
+        drop = watch.drop_mib()
+        *done, (_, _, s_tool, so) = done
+        tool_lines = [ln for ln in so.splitlines()
+                      if ln.startswith("PMPI_TOOL")]
+        check(len(tool_lines) == 3 and all(
+            "allreduce=1" in ln and "bcast=1" in ln for ln in tool_lines),
+            f"PMPI tool lines {tool_lines}")
+        lines.append(
+            f"(b) OK on every rank, seconds per job ({CAB_PARALLEL} at a "
+            f"time): " + ", ".join(
+                f"{name} n={n} {s:.1f}" for name, n, s, _ in done)
+            + f"; pmpi_tool.so LD_PRELOADed under c03_coll n=3: "
+            f"allreduce=1 bcast=1 on 3 ranks, {s_tool:.1f} s; cuda:0 free "
+            f"memory fell by up to {drop:.0f} MiB")
+    left = set(glob.glob(os.path.join(SHM_DIR, "otpt*"))) - shm_before
+    check(not left, f"files left: {sorted(left)}")
+    launched = FA.launches - before
+    check(launched == 0, f"{launched} flash_fold launches in phase 19")
+    job_s = time.perf_counter() - t0
+    for line in lines:
+        phase("cabi", f"{line} | {smi}")
+    phase("cabi", f"flash_fold launches over phase 19: {launched}; no "
+          f"otpt* file left; per-rank part {job_s:.1f} s; phase 19 took "
+          f"{world_s + job_s:.1f} s (aim {CAB_PHASE_S} s) | {smi}")
+    return launched
+
+
 def main() -> int:
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
@@ -6392,6 +6704,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_planes_job(smi, pln_s)
         return 0
+    if "--cabi" in sys.argv:
+        smi, kind = phase_device()
+        MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+        cab_s = phase_cabi_world(MPI.get_comm_world(), smi)
+        MPI.Finalize()
+        torch.cuda.empty_cache()
+        phase_cabi_job(smi, cab_s)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--tools" in sys.argv:
         smi, kind = phase_device()
         MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
@@ -6439,6 +6763,7 @@ def main() -> int:
     osc_s = phase_onesided_world(world, smi)
     pln_s = phase_planes_world(world, smi)
     tls_s = phase_tools_world(world, smi)
+    cab_s = phase_cabi_world(world, smi)
     res_s = phase_resilience_world(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
@@ -6450,12 +6775,14 @@ def main() -> int:
     phase_onesided_job(smi, osc_s)
     phase_planes_job(smi, pln_s)
     phase_tools_job(smi, tls_s)
+    cab_launches = phase_cabi_job(smi, cab_s)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",
         "source": "ompi_tpu_torch/csrc/flash_fold.cu",
         "replaces": "ompi_tpu/ops/flash_attention.py:72",
         "launches": launches,
+        "launches_cabi": cab_launches,     # phase 19's path
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         "shapes": list(kern.values()),

@@ -33,6 +33,7 @@ ERR_IN_STATUS = 19
 ERR_WIN = 45          # one-sided RMA (MPI-3 ch. 11)
 ERR_BASE = 46
 ERR_LOCKTYPE = 47
+ERR_KEYVAL = 48
 ERR_RMA_CONFLICT = 49
 ERR_SPAWN = 50        # dynamic process management
 ERR_PORT = 51
@@ -53,6 +54,7 @@ _CLASS_NAMES = {
     ERR_UNKNOWN: "MPI_ERR_UNKNOWN", ERR_TRUNCATE: "MPI_ERR_TRUNCATE",
     ERR_OTHER: "MPI_ERR_OTHER", ERR_INTERN: "MPI_ERR_INTERN",
     ERR_PENDING: "MPI_ERR_PENDING", ERR_IN_STATUS: "MPI_ERR_IN_STATUS",
+    ERR_KEYVAL: "MPI_ERR_KEYVAL",
     ERR_SPAWN: "MPI_ERR_SPAWN", ERR_PORT: "MPI_ERR_PORT",
     ERR_SERVICE: "MPI_ERR_SERVICE", ERR_NAME: "MPI_ERR_NAME",
     ERR_WIN: "MPI_ERR_WIN", ERR_BASE: "MPI_ERR_BASE",

@@ -490,6 +490,8 @@ class RankCommunicator:
             return False
         if op is not None and (op.is_loc or op.fn is None):
             return False                 # pair ops stay on the host fold
+        if op is not None and op.host_only:
+            return False                 # a C fn pointer reads host memory
         return True
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:

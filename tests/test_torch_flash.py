@@ -106,7 +106,8 @@ def test_import_needs_no_nvcc_and_no_jax():
         "import ompi_tpu_torch.shmem, ompi_tpu_torch.shmem.perrank\n"
         "import ompi_tpu_torch.io, ompi_tpu_torch.io.checkpoint\n"
         "import ompi_tpu_torch.io.perrank, ompi_tpu_torch.mpiext\n"
-        "import ompi_tpu_torch.api.tool\n"
+        "import ompi_tpu_torch.api.tool, ompi_tpu_torch.api.cabi\n"
+        "import ompi_tpu_torch.tools.mpicc, ompi_tpu_torch.tools.mpmd_exec\n"
         "from ompi_tpu_torch.utils import show_help\n"
         "msg = show_help.render('help-mpi-errors.txt', 'comm:revoked', 'c#1')\n"
         "assert 'c#1' in msg and 'MPIX_Comm_revoke' in msg, msg\n"
