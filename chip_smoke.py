@@ -6362,6 +6362,10 @@ CAB_JOB_TIMEOUT = 90           # seconds each C job may take
 CAB_PARALLEL = 4               # C jobs at once after c13 ran alone
 CAB_PHASE_S = 150              # the whole phase must end within this
 CAB_SLOT = 64 << 20            # c13's payload per rank, in bytes
+# c12 writes a fixed /tmp path that another checkout's run would share:
+# it is compiled from a copy whose path literal (and nothing else)
+# points into the phase's own temp dir
+CAB_TEMP_PATH = ("c12_mpiio", '"/tmp/ompi_tpu_c12_%d.dat"', '"{d}/c12_%d.dat"')
 # A PMPI tool LD_PRELOADed under c13: at MPI_Finalize it reads, through
 # MPI_T, the staged device tier's SPC counter and the device override
 CAB_PROBE = r"""
@@ -6398,13 +6402,15 @@ int MPI_Finalize(void)
 """
 
 
-def phase_cabi_world(w, smi: str) -> float:
+def phase_cabi_world(w, smi: str) -> tuple:
     """Phase 19 on the 8-row world of cuda:0: the single-controller C-ABI
     glue's five nonblocking-collective contracts (``tests/
-    test_cabi_async.py``) against numpy."""
+    test_cabi_async.py``) against numpy. Returns (seconds, flash-fold
+    launches over this part)."""
     from ompi_tpu_torch.api import cabi
     from ompi_tpu_torch.core.errhandler import MPIError
     t0 = time.perf_counter()
+    before = FA.launches
     check(cabi._comm(cabi.COMM_WORLD) is w and w.device.type == "cuda",
           "the glue's COMM_WORLD is the card's world")
     n, dbl, sum_ = w.size, 14, 1
@@ -6464,7 +6470,7 @@ def phase_cabi_world(w, smi: str) -> float:
           f"order, deferred error at wait (class {err}, request freed), "
           f"worker retired with its comm, comm_free drains 4 iscans; = "
           f"numpy; {s:.2f} s | {smi}")
-    return s
+    return s, FA.launches - before
 
 
 def _cab_build(tmp: str) -> tuple:
@@ -6483,7 +6489,16 @@ def _cab_build(tmp: str) -> tuple:
     probe_c = os.path.join(tmp, "cabi_probe.c")
     with open(probe_c, "w") as f:
         f.write(CAB_PROBE)
-    units = [(os.path.join(progs, f"{name}.c"), os.path.join(tmp, name), ())
+    srcs = {name: os.path.join(progs, f"{name}.c") for name, _ in CAB_JOBS}
+    name, old, new = CAB_TEMP_PATH
+    with open(srcs[name]) as f:
+        text = f.read()
+    check(text.count(old) == 1 and len(tmp) < 200,
+          f"{name}.c holds {text.count(old)} of {old}")
+    srcs[name] = os.path.join(tmp, f"{name}.c")
+    with open(srcs[name], "w") as f:
+        f.write(text.replace(old, new.format(d=tmp)))
+    units = [(srcs[name], os.path.join(tmp, name), ())
              for name, _ in CAB_JOBS]
     units.append((probe_c, os.path.join(tmp, "cabi_probe.so"),
                   ("-shared", "-fPIC")))
@@ -6525,14 +6540,18 @@ class _FreeWatch:
 
 def _cab_job(binary: str, n: int, cwd: str, args=(), preload="") -> tuple:
     """One C program under the port's mpirun --per-rank, with no device
-    override: every rank binds cuda:0. Returns (stdout, seconds)."""
+    override: every rank binds cuda:0. The job's name server is a file
+    of its own under ``cwd``. Returns (stdout, seconds)."""
     import signal
+    import tempfile
     root = os.path.dirname(os.path.abspath(__file__))
     mpirun = os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("OMPI_TPU_TORCH_")}
     if preload:
         env["LD_PRELOAD"] = preload
+    env["OMPI_TPU_TORCH_NAME_SERVER_FILE"] = os.path.join(
+        tempfile.mkdtemp(dir=cwd), "names.json")
     cmd = [sys.executable, mpirun, "--per-rank", "-n", str(n), "--timeout",
            str(CAB_JOB_TIMEOUT), binary, *args]
     t0 = time.perf_counter()
@@ -6559,12 +6578,16 @@ def _cab_job(binary: str, n: int, cwd: str, args=(), preload="") -> tuple:
     return so, s
 
 
-def phase_cabi_job(smi: str, world_s: float) -> int:
+def phase_cabi_job(smi: str, world: tuple) -> int:
     """Phase 19's C jobs on cuda:0: build, c13 alone under the MPI_T
     probe (the staged tier's counter on every rank, its own timing line,
     cuda:0's free memory during the job), then the other programs and
-    the PMPI tool under c03, ``CAB_PARALLEL`` at a time. Returns the
-    flash-fold launches in this process over the phase (0)."""
+    the PMPI tool under c03, ``CAB_PARALLEL`` at a time. ``world`` is
+    ``phase_cabi_world``'s (seconds, launches). Returns the flash-fold
+    launches of phase 19 in this process: part (a) and the controller
+    of part (b). The counter lives in each process, so the C ranks'
+    launches are not in it; no C entry point reaches the attention
+    forward, whose only caller is ``entry()``'s model."""
     import glob
     import re as _re
     import tempfile
@@ -6631,12 +6654,14 @@ def phase_cabi_job(smi: str, world_s: float) -> int:
             f"memory fell by up to {drop:.0f} MiB")
     left = set(glob.glob(os.path.join(SHM_DIR, "otpt*"))) - shm_before
     check(not left, f"files left: {sorted(left)}")
-    launched = FA.launches - before
+    world_s, launched = world
+    launched += FA.launches - before
     check(launched == 0, f"{launched} flash_fold launches in phase 19")
     job_s = time.perf_counter() - t0
     for line in lines:
         phase("cabi", f"{line} | {smi}")
-    phase("cabi", f"flash_fold launches over phase 19: {launched}; no "
+    phase("cabi", f"flash_fold launches over phase 19 in the controller "
+          f"process (parts a and b): {launched}; no "
           f"otpt* file left; per-rank part {job_s:.1f} s; phase 19 took "
           f"{world_s + job_s:.1f} s (aim {CAB_PHASE_S} s) | {smi}")
     return launched
@@ -6707,10 +6732,10 @@ def main() -> int:
     if "--cabi" in sys.argv:
         smi, kind = phase_device()
         MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
-        cab_s = phase_cabi_world(MPI.get_comm_world(), smi)
+        cab = phase_cabi_world(MPI.get_comm_world(), smi)
         MPI.Finalize()
         torch.cuda.empty_cache()
-        phase_cabi_job(smi, cab_s)
+        phase_cabi_job(smi, cab)
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -6763,7 +6788,7 @@ def main() -> int:
     osc_s = phase_onesided_world(world, smi)
     pln_s = phase_planes_world(world, smi)
     tls_s = phase_tools_world(world, smi)
-    cab_s = phase_cabi_world(world, smi)
+    cab = phase_cabi_world(world, smi)
     res_s = phase_resilience_world(world, smi)
     MPI.Finalize()
     torch.cuda.empty_cache()
@@ -6775,14 +6800,14 @@ def main() -> int:
     phase_onesided_job(smi, osc_s)
     phase_planes_job(smi, pln_s)
     phase_tools_job(smi, tls_s)
-    cab_launches = phase_cabi_job(smi, cab_s)
+    cab_launches = phase_cabi_job(smi, cab)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",
         "source": "ompi_tpu_torch/csrc/flash_fold.cu",
         "replaces": "ompi_tpu/ops/flash_attention.py:72",
         "launches": launches,
-        "launches_cabi": cab_launches,     # phase 19's path
+        "launches_cabi": cab_launches,     # phase 19, controller process
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         "shapes": list(kern.values()),

@@ -120,9 +120,9 @@ def op_create_c(fn_ptr: int, commute: int) -> int:
     int *len, MPI_Datatype *dt)`` as a framework Op. The callback runs
     on the host reduction tier (per-rank textbook algorithms,
     coll/basic, reduce_local) — the tier where the reference's user
-    ops run too. A C function pointer reads host memory only: the op is
-    ``host_only``, which the staged tiers (``RankCommunicator._stageable``,
-    ``TunedCollModule``) keep on the host fold, and a
+    ops run too. A C function pointer reads host memory only: the staged
+    tiers (``RankCommunicator._stageable``, ``TunedCollModule``) keep an
+    op with a ``_c_callback`` on the host fold, and a
     device tensor that reaches the combiner anyway is an ERR_OP, never a
     pointer into device memory. The host fold hands the combiner numpy
     arrays or CPU tensors (``op.np_combiner`` wraps a user op over
@@ -159,7 +159,6 @@ def op_create_c(fn_ptr: int, commute: int) -> int:
     op = op_mod.op_create(combine, commute=bool(commute),
                           name=f"c_user@{fn_ptr:#x}")
     op._c_callback = cb                  # keep the CFUNCTYPE alive
-    op.host_only = True
     h = next(_next_dyn_op)
     with _lock:
         _OPS[h] = op
@@ -4924,13 +4923,16 @@ def intercomm_create_from_groups(lgh: int, local_leader: int,
 # fcntl-locked JSON registry — the ompi-server role played by the
 # filesystem, reachable from independently-launched jobs. The port keeps
 # a registry of its own (``OMPI_TPU_TORCH_NAME_SERVER_FILE``, default
-# ``/tmp/ompi_tpu_torch_names_<uid>.json``): a JAX-package job running
-# beside a port job must not see the port's published names -----------
+# ``ompi_tpu_torch_names_<uid>.json`` in the temp dir, ``TMPDIR``
+# honoured): a JAX-package job running beside a port job must not see
+# the port's published names -------------------------------------------
 def _namesvc_path() -> str:
     import os as _os
+    import tempfile
     return _os.environ.get(
         "OMPI_TPU_TORCH_NAME_SERVER_FILE",
-        f"/tmp/ompi_tpu_torch_names_{_os.getuid()}.json")
+        _os.path.join(tempfile.gettempdir(),
+                      f"ompi_tpu_torch_names_{_os.getuid()}.json"))
 
 
 def _namesvc_update(fn):

@@ -286,8 +286,8 @@ class TunedCollModule:
     """Routes each call between coll/torch (``device``) and coll/basic
     (``host``): a tensor runs on the device; a numpy stacked buffer below
     the switch point runs the numpy fold; a larger one is staged onto the
-    world's device and its result copied back, unless its op is
-    ``host_only`` (a C user op), which only the numpy fold can call. The
+    world's device and its result copied back, unless its op is a C
+    user op (``_c_callback``), which only the numpy fold can call. The
     schedule introspection (``selected``, the memos) is the device
     module's."""
 
@@ -315,7 +315,8 @@ class TunedCollModule:
 
     def _run(self, func: str, buf, *args):
         mod, stage = self._decide(func, buf)
-        if stage and any(getattr(a, "host_only", False) for a in args):
+        if stage and any(getattr(a, "_c_callback", None) is not None
+                         for a in args):
             mod, stage = self.host, False  # a C fn pointer reads host memory
         if stage:
             x = torch.from_numpy(np.ascontiguousarray(buf)).to(

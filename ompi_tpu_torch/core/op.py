@@ -72,12 +72,7 @@ class Op:
     ``fn(a, b)`` must be an elementwise torch combiner.
     ``xla_prim`` in {"sum", "max", "min", None}: when set, collectives may
     lower to the one-shot reduction over the rank axis.
-    ``host_only``: the combiner reads host memory only (a C function
-    pointer, ``api/cabi.op_create_c``), so no tier stages its operands
-    onto a device.
     """
-
-    host_only = False
 
     def __init__(self, fn: Callable, *, commute: bool = True,
                  name: str = "user_op", xla_prim: Optional[str] = None,

@@ -490,7 +490,7 @@ class RankCommunicator:
             return False
         if op is not None and (op.is_loc or op.fn is None):
             return False                 # pair ops stay on the host fold
-        if op is not None and op.host_only:
+        if getattr(op, "_c_callback", None) is not None:
             return False                 # a C fn pointer reads host memory
         return True
 

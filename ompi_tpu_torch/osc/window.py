@@ -29,6 +29,7 @@ puts land in the caller's tensor).
 """
 from __future__ import annotations
 
+import threading
 import time as _time
 import weakref
 from typing import Any, Optional, Set
@@ -80,6 +81,7 @@ class RmaWindow:
         self._epoch_check = bool(
             var.var_get("mpi_base_osc_epoch_check", True))
         self._dead: Set[int] = set()
+        self._dead_lock = threading.Lock()
         self._bytes = 0                  # per-window traffic counter
         if self.component == "shm":
             self._w = ShmWindow(comm, size, dtype, name=name)
@@ -130,6 +132,12 @@ class RmaWindow:
 
     def _check_dead(self, what: str,
                     target: Optional[int] = None) -> None:
+        if _ft.any_failed():
+            # the registry records a failure before it calls its
+            # listeners, so a caller that already sees a peer failed
+            # can get here before this window's listener ran
+            for wr in _ft.failed_ranks() - self._dead:
+                self._peer_dead(wr, _ft.failure_reason(wr))
         if not self._dead:
             return
         if target is not None:
@@ -146,7 +154,10 @@ class RmaWindow:
     def _peer_dead(self, world_rank: int, reason: str) -> None:
         if self._world and world_rank not in self._world:
             return
-        self._dead.add(world_rank)
+        with self._dead_lock:            # the listener or _check_dead,
+            if world_rank in self._dead:  # whichever comes first
+                return
+            self._dead.add(world_rank)
         try:
             self._w.peer_failed(world_rank)
         except Exception:                # noqa: BLE001 — reclaim is

@@ -16,7 +16,8 @@ Two things differ from the reference's harness:
   Each is compiled from a copy in which only those path literals point
   into a directory of this module's own (``TEMP_PATHS`` lists each literal
   and how often it occurs; the test asserts both). No size, seed or check
-  changes.
+  changes. For the same reason each case names a name-server file of
+  its own (``OMPI_TPU_TORCH_NAME_SERVER_FILE``).
 - Each program is compiled on first use into a cache shared by the run's
   workers, keyed by the hash of its (patched) source and headers, and
   renamed into place: each program compiles once per run, not once per
@@ -149,10 +150,12 @@ def test_temp_paths_are_the_only_change(io_dir):
 @pytest.mark.parametrize("src,n", CASES,
                          ids=[f"{c[0].removesuffix('.c')}-n{c[1]}"
                               for c in CASES])
-def test_cabi_program(cache_dir, io_dir, src, n):
+def test_cabi_program(cache_dir, io_dir, tmp_path, src, n):
     binary = compile_cached(cache_dir, src, io_dir)
     tmo = PROG_TIMEOUT.get(src, 150)
-    res = _run(binary, n, tmo, PROG_ARGS.get(src, []))
+    # a name server of the case's own (c18, c35 publish names)
+    env = _env(OMPI_TPU_TORCH_NAME_SERVER_FILE=str(tmp_path / "names.json"))
+    res = _run(binary, n, tmo, PROG_ARGS.get(src, []), env=env)
     assert res.returncode == 0, \
         f"rc={res.returncode}\n--- out\n{res.stdout}\n--- err\n" \
         f"{res.stderr[-4000:]}"

@@ -24,6 +24,7 @@ import os
 import signal
 import subprocess
 import sys
+import tempfile
 import textwrap
 
 import numpy as np
@@ -344,7 +345,13 @@ def test_hw_resource_info_keys_match_reference(worlds):
     ref, port = keys(rc), keys(pc)
     assert sorted(ref) == sorted(port)
     assert port["mpi_hw_resource_type"] == "host"
-    assert port["accelerator_kind"] == "cpu"        # no card here
+    import torch
+    if torch.cuda.is_available():
+        assert port["accelerator_kind"] == torch.cuda.get_device_name(0)
+        assert port["num_accelerators"] == str(torch.cuda.device_count())
+    else:                                   # Device_inventory's CPU record
+        assert port["accelerator_kind"] == "cpu"
+        assert port["num_accelerators"] == "1"
 
 
 # -- the per-rank tier: one job of each package --------------------------
@@ -456,12 +463,15 @@ def test_mpmd_exec_rank_slicing(tmp_path):
     assert outs == [(0, "first"), (0, "first"), (0, "second x"), (3, "")]
 
 
-def test_name_server_file_is_the_ports_own(monkeypatch):
+def test_name_server_file_is_the_ports_own(monkeypatch, tmp_path):
     for k in ("OMPI_TPU_NAME_SERVER_FILE", "OMPI_TPU_TORCH_NAME_SERVER_FILE"):
         monkeypatch.delenv(k, raising=False)
     assert pc._namesvc_path() != rc._namesvc_path()
     assert os.path.basename(pc._namesvc_path()).startswith(
         "ompi_tpu_torch_names_")
+    # the default lies in the temp dir, which TMPDIR chooses
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    assert os.path.dirname(pc._namesvc_path()) == str(tmp_path)
     monkeypatch.setenv("OMPI_TPU_NAME_SERVER_FILE", "/nonexistent/ref.json")
     assert pc._namesvc_path() != "/nonexistent/ref.json"
     monkeypatch.setenv("OMPI_TPU_TORCH_NAME_SERVER_FILE", "/x/port.json")

@@ -720,6 +720,28 @@ def test_osc_ft_dead_peer_fails_epoch():
         p_ft._reset_for_tests()
 
 
+def test_osc_ft_dead_peer_seen_before_its_listener_ran():
+    """The registry records a failure before it calls its listeners: a
+    window whose listener has not run yet still refuses RMA to the dead
+    peer, and the late listener counts the torn epoch no second time."""
+    _comms_, wins = _world(3, 4, "shm")
+    try:
+        for w in wins:
+            w.fence()
+        p_ft.remove_listener(wins[0]._ft_cb)     # its listener is late
+        before = p_base.stats["ft_failed_epochs"]
+        p_ft.default_registry().fail_rank(2, "test kill")
+        assert p_base.stats["ft_failed_epochs"] == before + 2
+        with pytest.raises(MPIError) as ei:
+            wins[0].put(np.ones(2, np.float32), 2)
+        assert ei.value.error_class == ERR_PROC_FAILED
+        wins[0]._ft_cb(2, "test kill")
+        assert p_base.stats["ft_failed_epochs"] == before + 3
+    finally:
+        _free_all(wins)
+        p_ft._reset_for_tests()
+
+
 def test_osc_ft_dead_holder_releases_lock():
     _comms_, wins = _world(3, 4, "pt2pt")
     try:
