@@ -346,6 +346,35 @@ Phases, one or more lines each:
                 flash-fold launches over the phase; no ``otpt*`` file
                 left. ``python3 chip_smoke.py --cabi`` runs phases 1 and
                 19 alone.
+20. multictl  — the multi-controller world on the card: two controller
+                processes, each launched by the port's ``mpirun
+                --coordinator 127.0.0.1:<port> --num-hosts 2 --host-id
+                {0,1} -n 4`` (``--multictl-rank``), each holding 4 rows
+                on ``cuda:0``, together one 8-rank COMM_WORLD whose
+                collectives cross the controller tier (CUDA IPC slots of
+                the per-rank tier). Each controller checks, on its own
+                rows: the ten Standard collectives at 32 MB fp32 per rank
+                against numpy on host copies (MAX, MIN, int32 and data
+                movement exact, float SUM, PROD and scan rtol 1e-5, atol
+                1e-5), every result on ``cuda:0``; ``hier`` forced and
+                chosen by ``auto`` for allreduce, bcast, allgather,
+                reduce_scatter_block and barrier, against ``direct``
+                (across controllers both are one exchange: the same bits,
+                so neither is timed apart); ``_groups()`` = [[0..3], [4..7]] / [[0, 4], [1, 5], [2, 6],
+                [3, 7]]; the compressed hier allreduce (int8) within the
+                reference's envelope; a split spanning both controllers;
+                the single-controller guards and a remote row's
+                ``ERR_RANK``; 0 ``Memcpy DtoH`` records of payload size in
+                the crossing allreduce and bcast (torch.profiler, with a
+                ``.cpu()`` control); 0 flash-fold launches. Controller 0
+                prints each collective's ms (a CUDA-event span that
+                includes the tier's host fences, and the host clock)
+                beside phase 4's single-controller and phase 11's
+                per-rank ms of the same call, the bytes each controller
+                wrote into and read from the tier, and each controller's
+                start-up seconds; every controller OK inside 90 s, no
+                ``otpt*`` file left. ``python3 chip_smoke.py --multictl``
+                runs phases 1 and 20 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -394,6 +423,8 @@ HBM_BYTES_PER_S = 3.35e12
 
 N_RANKS = 8
 LOCAL_ELEMS = 8 << 20          # 32 MB of fp32 per rank, 256 MB stacked
+# per-collective ms of phases 4 and 11, printed beside phase 20's
+COLL_MS: dict = {}
 
 
 def check(cond, msg: str) -> None:
@@ -717,6 +748,7 @@ def phase_collectives(w) -> None:
               f"{moved / ms / 1e6:.1f} GB/s "
               f"({moved / ms / 1e9 / (HBM_BYTES_PER_S / 1e12):.1%} of "
               f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        COLL_MS[("p4", name)] = ms
         return res.cpu().numpy()
 
     r = run("allreduce SUM f32", lambda: w.allreduce(x, MPI.SUM),
@@ -769,9 +801,9 @@ def phase_collectives(w) -> None:
     _close(r[1:], pre[:-1], 1e-5, 1e-5, "exscan")
     check(np.array_equal(r[0], xh[0]), "exscan row 0")
     del r, pre
+    bar_ms = COLL_MS[("p4", "barrier")] = host_ms(w.barrier, iters=20)
     phase("collectives", f"barrier (auto: "
-          f"{w._coll('barrier').selected('barrier')}): "
-          f"{host_ms(w.barrier, iters=20):.4f} ms")
+          f"{w._coll('barrier').selected('barrier')}): {bar_ms:.4f} ms")
 
     evens, odds = w.split([i % 2 for i in range(n)])[0:2]
     check(evens.size == n // 2 and odds.size == n // 2, "split sizes")
@@ -2760,6 +2792,9 @@ def phase_perrank(smi: str) -> None:
             lines = json.load(f)
     for line in lines:
         phase("perrank", f"{line} | {smi}")
+        m = re.match(r"([^:]+): ([0-9.]+) ms", line)
+        if m:
+            COLL_MS[("p11", m.group(1))] = float(m.group(2))
     phase("perrank", "'ms call' is a CUDA-event span on rank 0's stream "
           "that includes the host fences; 'of HBM' divides bytes by it")
     phase("perrank", f"8 rank processes on cuda:0, every result = numpy "
@@ -6667,7 +6702,381 @@ def phase_cabi_job(smi: str, world: tuple) -> int:
     return launched
 
 
+
+# -- phase 20 ----------------------------------------------------------
+MC_HOSTS = 2                   # controller processes
+MC_ROWS = 4                    # rows each controller holds on cuda:0
+MC_JOB_TIMEOUT = 90            # seconds the job may take
+MC_SEED = 2000
+# phase 20's call -> (phase 4's name, phase 11's name) of the same call
+MC_PEERS = {
+    "allreduce SUM f32": ("allreduce SUM f32", "allreduce SUM f32"),
+    "allreduce MAX f32": ("allreduce MAX f32", "allreduce MAX f32"),
+    "allreduce PROD f32": ("allreduce PROD f32", "allreduce PROD f32"),
+    "allreduce SUM i32": ("allreduce SUM i32", "allreduce SUM i32"),
+    "reduce MIN root 2": ("reduce MIN root 2", None),
+    "bcast root 3": ("bcast root 3", "bcast root 3"),
+    "allgather": ("allgather", "allgather"),
+    "gather root 1": ("gather root 1", None),
+    "scatter root 5": ("scatter root 5", None),
+    "alltoall": ("alltoall", "alltoall"),
+    "reduce_scatter_block SUM": ("reduce_scatter_block SUM",
+                                 "reduce_scatter_block (alltoall + host "
+                                 "fold)"),
+    "scan SUM": ("scan SUM", None),
+    "barrier": ("barrier", None),
+}
+
+
+def _mc_inputs(n: int) -> list:
+    """Every rank's 32 MB fp32 input, made from the seed by every
+    controller (the global array each passes to ``stack``)."""
+    return [np.random.default_rng(MC_SEED + j).random(LOCAL_ELEMS,
+                                                      dtype=np.float32)
+            for j in range(n)]
+
+
+def _multictl_rank(t_launch: float, report: str) -> int:
+    """One controller of phase 20 (run by ``mpirun --coordinator``):
+    checks every collective on its own rows; controller 0 writes its
+    lines and both write their numbers to ``report``."""
+    from ompi_tpu_torch.core import rankcomm
+    from ompi_tpu_torch.core.errhandler import MPIError
+    from ompi_tpu_torch.core.multictl import Rows
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    MPI.Init(devices=[dev] * MC_ROWS)
+    init_s = time.perf_counter() - t0
+    up_s = time.time() - t_launch
+    w = MPI.get_comm_world()
+    me = int(os.environ["OMPI_TPU_TORCH_MCA_mpi_base_process_id"])
+    n = w.size
+    mine = list(w._local)
+    check(n == MC_HOSTS * MC_ROWS and w.spans_processes
+          and w.is_multiprocess, f"world of {n} rows spanning controllers")
+    check(mine == list(range(me * MC_ROWS, (me + 1) * MC_ROWS)),
+          f"controller {me} holds {mine}")
+    check(all(d == dev for d in w.devices) and w.device == dev,
+          "every row on cuda:0")
+    dmod = w._coll("allreduce").device
+    low, high = dmod._groups()
+    check(low == [[0, 1, 2, 3], [4, 5, 6, 7]]
+          and high == [[0, 4], [1, 5], [2, 6], [3, 7]],
+          f"_groups() = {low} / {high}")
+    lines, nums = [], {"controller": me, "init_s": init_s, "up_s": up_s}
+    fl0 = FA.launches
+    xs = _mc_inputs(n)
+    stack = np.stack(xs)
+    s64 = stack.astype(np.float64)
+    per = LOCAL_ELEMS // n
+    x = w.stack(xs)
+    xp = w.stack([0.5 + a for a in xs])
+    xi = w.stack([(a * 1000).astype(np.int32) for a in xs])
+    yw = w.stack([a.reshape(n, per) for a in xs])     # (N, N, per) rows
+
+    def host(y, what):
+        """The local rows of a result, checked to be on cuda:0."""
+        check(isinstance(y, Rows) and y.local.device == dev
+              and y.ranks == tuple(mine), f"{what}: not this controller's "
+              f"rows on cuda:0")
+        return y.local.cpu().numpy()
+
+    def same(got, want, what, rtol=0.0):
+        if rtol:
+            ok = np.allclose(got, want, rtol=rtol, atol=1e-5)
+        else:
+            ok = np.array_equal(got, want)
+        check(ok, f"controller {me}: {what} differs from numpy (max abs "
+              f"err {np.max(np.abs(got.astype(np.float64) - want)):.3g})")
+
+    def timed(name, fn, want_fn, rtol=0.0):
+        """Run, check, time and count the tier bytes of one call."""
+        b0 = dict(rankcomm.tier_bytes)
+        y = fn()
+        moved = {k: rankcomm.tier_bytes[k] - b0[k] for k in b0}
+        same(*want_fn(y), name, rtol)
+        del y
+        _, ms, us = _pr_timed(fn, iters=3)
+        nums.setdefault("bytes", {})[name] = moved
+        nums.setdefault("ms", {})[name] = (ms, us)
+        return ms
+
+    rows = np.asarray(mine)
+    auto = {}
+    for func, buf, op in (("allreduce", x, MPI.SUM), ("bcast", x, None),
+                          ("allgather", x, None),
+                          ("reduce_scatter_block", yw, MPI.SUM)):
+        auto[func] = w._coll(func).selected(func, buf, op,
+                                            3 if func == "bcast" else None)
+    auto["barrier"] = w._coll("barrier").selected("barrier")
+    check(all(a == "hier" for a in auto.values()),
+          f"auto picks on the spanning world: {auto}")
+    timed("allreduce SUM f32", lambda: w.allreduce(x, MPI.SUM),
+          lambda y: (host(y, "allreduce")[0], s64.sum(0)), 1e-5)
+    timed("allreduce MAX f32", lambda: w.allreduce(x, MPI.MAX),
+          lambda y: (host(y, "allreduce MAX")[0], stack.max(0)))
+    timed("allreduce PROD f32", lambda: w.allreduce(xp, MPI.PROD),
+          lambda y: (host(y, "allreduce PROD")[0], (0.5 + s64).prod(0)),
+          1e-5)
+    timed("allreduce SUM i32", lambda: w.allreduce(xi, MPI.SUM),
+          lambda y: (host(y, "allreduce i32")[0], np.stack(
+              [(a * 1000).astype(np.int32) for a in xs]).sum(
+                  0, dtype=np.int32)))
+    red = w.reduce(x, MPI.MIN, root=2)
+    if 2 in mine:
+        same(host(red, "reduce")[mine.index(2)], stack.min(0), "reduce MIN")
+    del red
+    _, ms, us = _pr_timed(lambda: w.reduce(x, MPI.MIN, root=2), iters=3)
+    nums["ms"]["reduce MIN root 2"] = (ms, us)
+    timed("bcast root 3", lambda: w.bcast(x, root=3),
+          lambda y: (host(y, "bcast"), np.broadcast_to(stack[3],
+                                                       (MC_ROWS,) +
+                                                       stack[3].shape)))
+
+    def ag_check(y):
+        check(all(torch.equal(y.local[a], y.local[0])
+                  for a in range(1, MC_ROWS)), "allgather rows differ")
+        return y.local[0].cpu().numpy(), stack
+    timed("allgather", lambda: w.allgather(x), ag_check)
+    g = w.gather(x, root=1)
+    if 1 in mine:
+        same(g.local[mine.index(1)].cpu().numpy(), stack, "gather")
+    del g
+    _, ms, us = _pr_timed(lambda: w.gather(x, root=1), iters=3)
+    nums["ms"]["gather root 1"] = (ms, us)
+    yh = stack.reshape(n, n, per)
+    timed("scatter root 5", lambda: w.scatter(yw, root=5),
+          lambda y: (host(y, "scatter"), yh[5][rows]))
+    timed("alltoall", lambda: w.alltoall(yw),
+          lambda y: (host(y, "alltoall"), np.swapaxes(yh, 0, 1)[rows]))
+    timed("reduce_scatter_block SUM",
+          lambda: w.reduce_scatter_block(yw, MPI.SUM),
+          lambda y: (host(y, "reduce_scatter_block"),
+                     s64.reshape(n, n, per).sum(0)[rows]), 1e-5)
+    timed("scan SUM", lambda: w.scan(x, MPI.SUM),
+          lambda y: (host(y, "scan"), np.cumsum(s64, axis=0)[rows]), 1e-5)
+    _, ms, us = _pr_timed(w.barrier, iters=20)
+    nums["ms"]["barrier"] = (ms, us)
+
+    # hier forced, and direct forced: across controllers both name the
+    # one exchange (coll/torch_'s ``_mc_alg``), so ``selected`` reports
+    # the forced name and the results are the same bits
+    hd = []
+    for func, fn in (
+            ("allreduce", lambda: w.allreduce(x, MPI.SUM)),
+            ("bcast", lambda: w.bcast(x, root=6)),
+            ("allgather", lambda: w.allgather(x)),
+            ("reduce_scatter_block",
+             lambda: w.reduce_scatter_block(yw, MPI.SUM))):
+        out = {}
+        for alg in ("hier", "direct"):
+            var.var_set(f"coll_torch_{func}_algorithm", alg)
+            ran = w._coll(func).selected(
+                func, yw if func == "reduce_scatter_block" else x,
+                None if func in ("bcast", "allgather") else MPI.SUM,
+                6 if func == "bcast" else None)
+            check(ran == alg, f"{func} forced {alg} ran {ran}")
+            out[alg] = fn()
+        var.var_set(f"coll_torch_{func}_algorithm", "auto")
+        a, b = out["hier"].local, out["direct"].local
+        check(torch.equal(a, b), f"{func}: hier differs from direct")
+        hd.append(func)
+        del out, a, b
+    for alg in ("hier", "direct"):
+        var.var_set("coll_torch_barrier_algorithm", alg)
+        check(w._coll("barrier").selected("barrier") == alg, "barrier alg")
+        w.barrier()
+    var.var_set("coll_torch_barrier_algorithm", "auto")
+    hd.append("barrier")
+
+    # the compressed hier allreduce: only the crossing chunk quantized
+    var.var_set("mpi_base_compress", True)     # the calls gate on it
+    cw = w.dup()
+    ran = cw._coll("allreduce").selected("allreduce", x, MPI.SUM)
+    check(ran == "compressed:int8_block", f"compressed dup ran {ran}")
+    yc = host(cw.allreduce(x, MPI.SUM), "compressed allreduce")
+    ref = s64.sum(0)
+    err = float(np.abs(yc[0] - ref).max())
+    bound = 0.02 * float(np.abs(ref).max())
+    check(err <= bound and all(np.array_equal(yc[a], yc[0])
+                               for a in range(MC_ROWS)),
+          f"compressed allreduce error {err:.3g} > {bound:.3g}")
+    _, cms, _us = _pr_timed(lambda: cw.allreduce(x, MPI.SUM), iters=3)
+    nums["compressed"] = (err, bound, cms)
+    cw.free()
+    var.var_set("mpi_base_compress", False)
+    del yc
+
+    # a plain CUDA tensor is the global stack every controller passes
+    small = torch.from_numpy(stack[:, :1024].copy()).to(dev)
+    yt = w.allreduce(small, MPI.SUM)
+    same(host(yt, "global tensor allreduce")[0], s64[:, :1024].sum(0),
+         "global tensor allreduce", 1e-5)
+
+    # a split spanning both controllers: ranks {0, 2, 4, 6} and {1, 3, ...}
+    sub = w.split([r % 2 for r in range(n)])[mine[0]]
+    check(sub.spans_processes and sub.size == n // 2, "spanning split")
+    sy = sub.allreduce(sub.stack([xs[r] for r in range(0, n, 2)]), MPI.SUM)
+    same(sy.local[0].cpu().numpy(), s64[0::2].sum(0), "split allreduce",
+         1e-5)
+    del sy
+
+    # the guards
+    w.set_errhandler(MPI.ERRORS_RETURN)
+    guarded = 0
+    for fn in (lambda: w.send(np.zeros(2), 0, 1),
+               lambda: w.recv(0, dst=1), lambda: w.probe(0),
+               lambda: MPI.Win(w, 8),
+               lambda: __import__("ompi_tpu_torch.shmem.api", fromlist=[
+                   "ShmemCtx"]).ShmemCtx(w, heap_size=16),
+               lambda: w.allgatherv([np.zeros(r + 1) for r in range(n)])):
+        try:
+            fn()
+        except MPIError as e:
+            check("single-controller" in str(e), f"guard said {e}")
+            guarded += 1
+    check(guarded == 6, f"{guarded} of 6 guards raised")
+    try:
+        w.shard(x, (1 - me) * MC_ROWS)
+        check(False, "a remote row was read")
+    except MPIError as e:
+        check(e.error_class == MPI.ERR_RANK, f"remote row: {e}")
+    w.set_errhandler(MPI.ERRORS_ARE_FATAL)
+
+    # no payload crosses through the host: the allreduce and bcast that
+    # cross controllers copy nothing of payload size device-to-host
+    dtoh = {}
+    for name, fn in (("allreduce", lambda: w.allreduce(x, MPI.SUM)),
+                     ("bcast", lambda: w.bcast(x, root=6)),
+                     ("control .cpu()", lambda: x.local.cpu())):
+        cnt, nbytes = _dtoh(fn)
+        dtoh[name] = (cnt, nbytes)
+    payload = LOCAL_ELEMS * 4
+    for name in ("allreduce", "bcast"):
+        cnt, nbytes = dtoh[name]
+        check(cnt == 0 or (nbytes is not None and nbytes < payload),
+              f"{name}: {cnt} DtoH records, {nbytes} bytes")
+    cnt, nbytes = dtoh["control .cpu()"]
+    check(cnt >= 1 and (nbytes is None or nbytes >= MC_ROWS * payload),
+          f"the .cpu() control saw {cnt} DtoH records, {nbytes} bytes")
+    nums["dtoh"] = dtoh
+    nums["flash_fold"] = FA.launches - fl0
+    check(nums["flash_fold"] == 0, "a flash-fold launch in phase 20")
+    nums["auto"] = auto
+    nums["hier_vs_direct"] = hd
+    MPI.Finalize()
+    with open(report, "w") as f:
+        json.dump(nums, f)
+    print(f"OK multictl controller={me}", flush=True)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_multictl(smi: str) -> int:
+    """Launch the two controllers, relay their numbers; returns the
+    flash-fold launches the phase made (0)."""
+    import signal
+    import tempfile
+    from ompi_tpu_torch.accelerator import SHM_DIR, tag_for
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    mpirun = os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        reports = [os.path.join(tmp, f"c{h}.json") for h in range(MC_HOSTS)]
+        t_launch = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, mpirun, "--coordinator", f"127.0.0.1:{port}",
+             "--num-hosts", str(MC_HOSTS), "--host-id", str(h), "-n",
+             str(MC_ROWS), os.path.abspath(__file__), "--multictl-rank",
+             repr(t_launch), reports[h]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root, start_new_session=True) for h in range(MC_HOSTS)]
+        deadline = time.monotonic() + MC_JOB_TIMEOUT
+        outs = []
+        for p in procs:
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                out, err = "", "killed at the phase's limit"
+            outs.append((out, err))
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        job_s = time.perf_counter() - t0
+        for h, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"OK multictl controller={h}" not in out:
+                sys.stderr.write(err[-6000:])
+                check(False, f"controller {h} rc={p.returncode}:\n"
+                      f"{out[-3000:]}")
+        nums = []
+        for r in reports:
+            with open(r) as f:
+                nums.append(json.load(f))
+    tag = tag_for(f"127.0.0.1:{port}")
+    left = [f for f in os.listdir(SHM_DIR)
+            if f.startswith("otpt") and f"_{tag}_" in f]
+    check(not left, f"files left behind: {left}")
+    check(job_s <= MC_JOB_TIMEOUT, f"the job took {job_s:.1f} s")
+    c0 = nums[0]
+    mib = LOCAL_ELEMS * 4 / 2 ** 20
+
+    def peer(key, name):
+        if name is None:
+            return "no such call"
+        v = COLL_MS.get((key, name))
+        return "not run" if v is None else f"{v:.3f} ms"
+    for name, (ms, us) in c0["ms"].items():
+        p4, p11 = MC_PEERS.get(name, (None, None))
+        moved = c0["bytes"].get(name)
+        tier = (f"; tier bytes out/in per controller "
+                + ", ".join(f"c{c['controller']} "
+                            f"{c['bytes'][name]['out'] / 1e6:.1f}/"
+                            f"{c['bytes'][name]['in'] / 1e6:.1f} MB"
+                            for c in nums)) if moved is not None else ""
+        phase("multictl", f"{name}: {ms:.3f} ms call, {us:.0f} us host, "
+              f"{mib:.0f} MiB per rank, 2 controllers x {MC_ROWS} rows | "
+              f"phase 4 (1 controller x 8 rows, host clock): "
+              f"{peer('p4', p4)}; phase 11 (8 rank processes, call): "
+              f"{peer('p11', p11)}{tier} | "
+              f"{smi}")
+    phase("multictl", f"auto picks: {c0['auto']}; hier forced and "
+          f"direct forced: selected() reports each, same bits, for "
+          f"{', '.join(c0['hier_vs_direct'])} (one exchange across "
+          f"controllers); _groups() [[0..3], [4..7]]"
+          f" / [[0, 4], [1, 5], [2, 6], [3, 7]]")
+    err, bound, cms = c0["compressed"]
+    phase("multictl", f"compressed hier allreduce (int8_block): max abs "
+          f"err {err:.4g} <= {bound:.4g}, {cms:.3f} ms call | {smi}")
+    for c in nums:
+        d = c["dtoh"]
+        phase("multictl", f"controller {c['controller']}: Memcpy DtoH "
+              f"records (count, bytes): allreduce {d['allreduce']}, bcast "
+              f"{d['bcast']}, control .cpu() {d['control .cpu()']}; "
+              f"Init {c['init_s']:.2f} s, launch to Init done "
+              f"{c['up_s']:.2f} s; flash-fold launches {c['flash_fold']}")
+    phase("multictl", "'ms call' is a CUDA-event span on controller 0's "
+          "stream that includes the tier's host fences; each controller "
+          "checked its rows against numpy (float SUM/PROD/scan rtol 1e-5, "
+          "the rest exact), the guards, a spanning split; no otpt* file "
+          f"left; phase 20 took {time.perf_counter() - t0:.1f} s "
+          f"(limit {MC_JOB_TIMEOUT}) | {smi}")
+    return sum(c["flash_fold"] for c in nums)
+
+
 def main() -> int:
+    if "--multictl-rank" in sys.argv:
+        return _multictl_rank(float(sys.argv[-2]), sys.argv[-1])
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
     if "--dataplane-rank" in sys.argv:
@@ -6741,6 +7150,15 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--multictl" in sys.argv:
+        smi, kind = phase_device()
+        mc_launches = phase_multictl(smi)
+        check(mc_launches == 0, "flash-fold launches in phase 20")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--tools" in sys.argv:
         smi, kind = phase_device()
         MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
@@ -6801,6 +7219,7 @@ def main() -> int:
     phase_planes_job(smi, pln_s)
     phase_tools_job(smi, tls_s)
     cab_launches = phase_cabi_job(smi, cab)
+    mc_launches = phase_multictl(smi)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",
@@ -6808,6 +7227,7 @@ def main() -> int:
         "replaces": "ompi_tpu/ops/flash_attention.py:72",
         "launches": launches,
         "launches_cabi": cab_launches,     # phase 19, controller process
+        "launches_multictl": mc_launches,  # phase 20, both controllers
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         "shapes": list(kern.values()),

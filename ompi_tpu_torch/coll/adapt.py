@@ -133,8 +133,8 @@ class AdaptComponent(Component):
 
     def comm_query(self, comm):
         prio = var.var_get("coll_adapt_priority", 28)
-        if prio < 0:
-            return None
+        if prio < 0 or getattr(comm, "is_multiprocess", False):
+            return None                   # segments index every row
         return (prio, AdaptModule(comm,
                                   var.var_get("coll_adapt_segsize", 1024)))
 

@@ -15,15 +15,19 @@ memo holds only compressed schedules), on the stacked tensor:
 
 - allreduce: the segmented ring with every hop quantized (dequant ->
   reduce -> requant in the reduce-scatter, lossless code forwarding in
-  the allgather — ``_ring_allreduce_inner(codec=...)``). The reference
-  takes the two-tier hier schedule (``_hier_allreduce_inner(codec=...)``,
-  only the high-tier chunk quantized) on a multihost communicator; one
-  controller drives every rank here, so the comm is never multihost.
+  the allgather — ``_ring_allreduce_inner(codec=...)``). On a
+  communicator spanning controllers it takes the two-tier hier schedule,
+  as the reference does (``_hier_allreduce_inner(codec=...)``'s
+  ``inner_q``): the controller's rows are summed full width, and only
+  the scattered chunks that cross the controller tier are quantized, then
+  folded in fixed controller order. Where controllers hold unequal row
+  counts (no hier tiers) each controller's whole partial crosses as one
+  quantized row; the reference runs its compressed ring there.
 - allgather: quantize each row once, gather codes and scales, dequantize
-  per row.
+  per row (across controllers the codes cross the controller tier).
 - reduce_scatter_block: quantize per row, all-to-all the codes,
   dequantize and fold in fixed rank order (bitwise identical across
-  ranks).
+  ranks; across controllers the all-to-all rides the controller tier).
 
 The byte pvars ``compress_bytes_in``/``_out`` count, per call, the wire
 bytes each schedule's hops would move compressed and uncompressed (a
@@ -38,7 +42,8 @@ import numpy as np
 from ompi_tpu_torch import compress
 from ompi_tpu_torch.coll import decision
 from ompi_tpu_torch.coll.framework import coll_framework
-from ompi_tpu_torch.coll.torch_ import TorchCollModule
+from ompi_tpu_torch.coll.torch_ import (TorchCollModule, _chunks, _meta,
+                                        _to_all)
 from ompi_tpu_torch.compress import codecs as _codecs
 from ompi_tpu_torch.compress import stats as _stats
 from ompi_tpu_torch.mca import var
@@ -80,6 +85,12 @@ class _CompressedDevice(TorchCollModule):
         return hit[1]
 
     def bind_allreduce(self, example, op):
+        if self._mc:
+            if self._owner._eligible("allreduce", example, op):
+                self.allreduce_compressed(example, op)     # warm
+                return lambda buf: self.allreduce_compressed(buf, op)
+            return self._owner._flat_mod("allreduce").bind_allreduce(
+                example, op)
         x = self._to_dev(example)
         if self._owner._eligible("allreduce", x, op):
             fn = self._allreduce_fn(x, op)
@@ -115,10 +126,96 @@ class _CompressedDevice(TorchCollModule):
         return self._memo(fk, make)
 
     def allreduce_compressed(self, x, op):
+        if self._mc:
+            return self._mc_compressed("allreduce", x, op)
         x = self._to_dev(x)
         return self._allreduce_fn(x, op)(x)
 
+    # -- across controllers ------------------------------------------------
+    def _mc_compressed(self, func: str, x, op=None):
+        """The compressed schedule of ``func`` on this controller's rows;
+        its tier exchanges carry codes and scales."""
+        rows = self._mc_rows(x)
+        if not self.comm._local:
+            return self._mc_call(func, rows, op)
+        cobj, cblock = self._codec()
+        g = _meta(rows)
+        fk = ("c_mc_" + func, g.shape, g.dtype,
+              None if op is None else op.uid, cobj.name, cblock)
+        make = {"allreduce": self._mc_allreduce_q,
+                "allgather": self._mc_allgather_q,
+                "reduce_scatter_block": self._mc_rsb_q}[func]
+        return rows.like(self._memo(fk, lambda: make(g, op, cobj,
+                                                     cblock))(rows.local))
+
+    def _mc_allreduce_q(self, g, op, cobj, cblock) -> Callable:
+        low, _high = self._groups()
+        H = len(self.comm.layout.parts)
+        total = int(np.prod(g.shape[1:]))
+        glen = len(low[0]) if low is not None else 1
+        chunk = -(-total // glen)
+        itemsize = g.element_size()
+
+        def inner(X):
+            dt = X.dtype
+            if low is not None:
+                # rank k of the controller holds its chunk k
+                part = _chunks(X, glen, chunk).sum(0, dtype=dt)
+            else:
+                part = X.reshape(X.shape[0], -1).sum(0, dtype=dt)[None]
+            qc, qs = cobj.torch_quant_rows(part, cblock)
+            gc = self._mc_run("_device_allgather", qc)
+            gs = self._mc_run("_device_allgather", qs)
+            # fixed controller order: every position class folds the
+            # same dequantized contributions alike
+            acc = cobj.torch_dequant_rows(gc[0], gs[0], chunk, dt, cblock)
+            for h in range(1, H):
+                acc = op.fn(acc, cobj.torch_dequant_rows(
+                    gc[h], gs[h], chunk, dt, cblock))
+            return _to_all(acc.reshape(-1), X.shape)
+        hops = H - 1                           # codes received per rank
+        return _account_fn(inner, hops * chunk * itemsize,
+                           hops * cobj.wire_bytes(chunk, cblock), H)
+
+    def _mc_allgather_q(self, g, op, cobj, cblock) -> Callable:
+        n = self.comm.size
+        shape = tuple(g.shape[1:])
+        total = int(np.prod(shape))
+
+        def inner(X):                          # (L, *s) -> (L, N, *s)
+            qc, qs = cobj.torch_quant_rows(X.reshape(X.shape[0], -1),
+                                           cblock)
+            out = cobj.torch_dequant_rows(
+                self._mc_gather_rows(qc), self._mc_gather_rows(qs), total,
+                X.dtype, cblock)
+            return self._mc_expand(out.reshape((n,) + shape), X.shape[0])
+        hops = n - 1
+        return _account_fn(inner, hops * total * g.element_size(),
+                           hops * cobj.wire_bytes(total, cblock), n)
+
+    def _mc_rsb_q(self, g, op, cobj, cblock) -> Callable:
+        n = self.comm.size
+        shape = tuple(g.shape[2:])
+        total = int(np.prod(shape))
+
+        def inner(X):                          # (L, N, *s) -> (L, *s)
+            L = X.shape[0]
+            qc, qs = cobj.torch_quant_rows(X.reshape(L, n, -1), cblock)
+            # out[a, i]: rank i's codes for my a-th rank
+            dq = cobj.torch_dequant_rows(self._mc_alltoall(qc),
+                                         self._mc_alltoall(qs), total,
+                                         X.dtype, cblock)
+            acc = dq[:, 0] if n > 1 else dq[:, 0].clone()
+            for i in range(1, n):
+                acc = op.fn(acc, dq[:, i])
+            return acc.reshape((L,) + shape)
+        hops = n - 1
+        return _account_fn(inner, hops * total * g.element_size(),
+                           hops * cobj.wire_bytes(total, cblock), n)
+
     def allgather_compressed(self, x):
+        if self._mc:
+            return self._mc_compressed("allgather", x)
         x = self._to_dev(x)
         cobj, cblock = self._codec()
         fk = ("c_allgather", x.shape, x.dtype, cobj.name, cblock)
@@ -144,6 +241,8 @@ class _CompressedDevice(TorchCollModule):
         return self._memo(fk, make)(x)
 
     def reduce_scatter_block_compressed(self, x, op):
+        if self._mc:
+            return self._mc_compressed("reduce_scatter_block", x, op)
         x = self._to_dev(x)
         cobj, cblock = self._codec()
         fk = ("c_rsb", x.shape, x.dtype, op.uid, cobj.name, cblock)

@@ -265,7 +265,9 @@ class HanComponent(Component):
         if _in_construction() or getattr(comm, "_han_inner", False):
             return None                   # never recurse into own tiers
         prio = var.var_get("coll_han_priority", 35)
-        if prio < 0:
+        if prio < 0 or getattr(comm, "is_multiprocess", False):
+            # its tiers index every row of the stack; across controllers
+            # coll/torch's hier schedules are the two-tier path
             return None
         groups = locality_groups(comm, var.var_get("coll_han_split", 0))
         if groups is None:

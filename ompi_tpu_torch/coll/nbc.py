@@ -329,6 +329,10 @@ class NbcComponent(Component):
         prio = var.var_get("coll_nbc_priority", 30)
         if comm is None or prio < 0:
             return None
+        if getattr(comm, "is_multiprocess", False):
+            # schedules index every rank's row; across controllers an
+            # i-collective is the blocking one, completed on the tier
+            return None
         return (prio, NbcModule(comm))
 
 

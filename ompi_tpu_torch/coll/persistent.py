@@ -1,7 +1,7 @@
 """coll/persistent — pre-bound persistent collectives + bucket fusion.
 
-The port of ``ompi_tpu/coll/persistent.py``, for the single-controller
-(stacked) tier and the per-rank tier. Two mechanisms behind the MPI-4
+The port of ``ompi_tpu/coll/persistent.py``, for the stacked tier (one
+controller or several) and the per-rank tier. Two mechanisms behind the MPI-4
 persistent-collective family (``MPI_Allreduce_init`` …):
 
 1. **Plan pre-binding.** Validation, component selection and the
@@ -257,6 +257,8 @@ def _bucket_spec(comm, data, op) -> Optional[Tuple]:
     n = comm.size
     if getattr(data, "ndim", 0) < 1 or data.shape[0] != n:
         return None
+    if getattr(comm, "is_multiprocess", False):
+        return None                      # a bucket flattens every row
     try:
         dt = torch_dtype(data.dtype)
     except TypeError:
@@ -289,11 +291,14 @@ def _preselect_codec(func: str, nbytes: int, dtype, op=None
 
 def _decide(comm, func: str, nbytes: int) -> str:
     """The plan's recorded algorithm: ``coll/decision``'s choice for the
-    plan's (func, per-rank bytes) on the communicator's platform, as the
+    plan's (func, per-rank bytes) on the communicator's platform, its
+    multihost rows on a communicator spanning controllers, as the
     reference's plans record it (the var pins and the dynamic rules are
-    the running module's to apply)."""
-    return decision.decide(func, comm.size, nbytes, False, None,
-                           decision.platform_key(comm.device))
+    the running module's to apply). A plan binds what the one-shot call
+    runs; bucket fusion stays off across controllers."""
+    return decision.decide(func, comm.size, nbytes,
+                           bool(getattr(comm, "spans_processes", False)),
+                           None, decision.platform_key(comm.device))
 
 
 def _stacked_plan(comm, func: str, *args) -> CollPlan:

@@ -62,7 +62,8 @@ class SelfCollComponent(Component):
                          help="Selection priority for single-rank comms")
 
     def comm_query(self, comm):
-        if comm is None or comm.size != 1:
+        if comm is None or comm.size != 1 or getattr(
+                comm, "is_multiprocess", False):
             return None
         return (var.var_get("coll_self_priority", 75), SelfCollModule(comm))
 

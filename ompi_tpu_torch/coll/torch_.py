@@ -55,6 +55,25 @@ Each built schedule (a closure over its index tensors on the device) is
 held in a bounded LRU (``coll_torch_cache_max_entries``). A schedule
 writes only into buffers it allocated: a result never aliases an input
 or another rank's row.
+
+**Across controllers** (``core/multictl``; the reference's multi-process
+mesh): on a communicator whose rows sit in several controller processes,
+a buffer is this controller's rows (``multictl.Rows``) and every
+collective is a local stage over those rows on the controller's device,
+one exchange over the hidden controller tier (``RankCommunicator``'s
+device slots: CUDA IPC on the card, shared memory on the CPU), and a
+local stage that writes each local row. Reductions fold locally before
+they cross, so a controller ships one partial, never all its rows
+(allreduce, reduce, reduce_scatter_block, scan). ``_groups`` are the
+controllers' rank sets (``low``) and one rank per controller (``high``),
+and ``auto`` reads ``coll/decision``'s multihost rows. Across
+controllers ``hier`` and ``direct`` are one exchange: after the local
+stage a controller holds one partial (or its own rows), which is all
+that the hier schedule's scattered chunks would carry over the slow
+tier, so ``selected`` reports ``hier`` where the rows pick it and the
+one body runs. The explicit single-controller schedules (ring, trees,
+Bruck, ...) are programs over every rank's row; across controllers they
+run as that two-stage direct form, which is what ``selected`` reports.
 """
 from __future__ import annotations
 
@@ -67,8 +86,9 @@ import torch.nn.functional as F
 
 from ompi_tpu_torch.coll import decision, tuned
 from ompi_tpu_torch.coll.framework import coll_framework
-from ompi_tpu_torch.core import convertor
+from ompi_tpu_torch.core import convertor, multictl
 from ompi_tpu_torch.core import op as op_mod
+from ompi_tpu_torch.core.multictl import Rows
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.mca.base import Component
 
@@ -168,6 +188,13 @@ def _to_all(flat: torch.Tensor, shape) -> torch.Tensor:
             .contiguous().view(shape))
 
 
+def _meta(x) -> torch.Tensor:
+    """A shape-and-dtype carrier of ``x``'s global stack, for planning."""
+    dt = x.dtype if isinstance(x.dtype, torch.dtype) else \
+        torch.from_numpy(np.empty(0, x.dtype)).dtype
+    return torch.empty(tuple(x.shape), dtype=dt, device="meta")
+
+
 def _npad2(n: int) -> int:
     p = 1
     while p < n:
@@ -206,6 +233,9 @@ class TorchCollModule:
         self._fast: Dict[Tuple, Tuple] = _LruCache()
         self._barrier_tokens: Dict[str, Tuple] = {}
         self._rows_t: Optional[torch.Tensor] = None
+        # the comm's rows are fixed when it is built: a multiprocess
+        # comm takes the cross-controller schedules
+        self._mc = bool(getattr(comm, "is_multiprocess", False))
 
     # -- helpers ---------------------------------------------------------
     def _to_dev(self, x) -> torch.Tensor:
@@ -237,7 +267,7 @@ class TorchCollModule:
             dyn = tuned._load_rules(
                 var.var_get("coll_tuned_dynamic_rules", ""))
             alg = decision.decide(
-                func, self.comm.size, nbytes, False, dyn,
+                func, self.comm.size, nbytes, self._multihost(), dyn,
                 platform=decision.platform_key(self.comm.device))
         if (alg in decision.REORDERING and not commute
                 and (func, alg) not in decision.ORDER_PRESERVING):
@@ -250,16 +280,31 @@ class TorchCollModule:
             return "direct"
         return alg
 
-    def _groups(self) -> Tuple[List[List[int]], List[List[int]]]:
-        """(low, high) tiers for the hier schedules. Every rank of the
-        single-controller communicator is in one process, so the tiers
-        are the balanced factorization: ``low`` contiguous rank blocks
-        of the largest divisor <= sqrt(n), ``high`` one rank per
-        block."""
+    def _multihost(self) -> bool:
+        """The communicator's rows sit on more than one controller."""
+        return bool(getattr(self.comm, "spans_processes", False))
+
+    def _groups(self):
+        """(low, high) tiers for the hier schedules (coll/xla.py:200-229):
+        ``low`` the ranks of each controller process (the fast tier),
+        ``high`` one rank per controller (the slow tier). Within one
+        controller, the balanced factorization: ``low`` contiguous rank
+        blocks of the largest divisor <= sqrt(n). Controllers holding
+        unequal row counts give (None, None): hier does not apply, and
+        the schedules run direct."""
         n = self.comm.size
-        g = next(f for f in range(int(n ** 0.5), 0, -1) if n % f == 0)
-        low = [list(range(i, i + g)) for i in range(0, n, g)]
-        high = [[gr[i] for gr in low] for i in range(g)]
+        if self._multihost():
+            by: Dict[int, List[int]] = {}
+            for r in range(n):
+                by.setdefault(self.comm.controller_of(r), []).append(r)
+            low = list(by.values())
+        else:
+            g = next(f for f in range(int(n ** 0.5), 0, -1) if n % f == 0)
+            low = [list(range(i, i + g)) for i in range(0, n, g)]
+        size = len(low[0])
+        if any(len(gr) != size for gr in low):
+            return None, None
+        high = [[gr[i] for gr in low] for i in range(size)]
         return low, high
 
     def _nseg(self, chunk_bytes: int) -> int:
@@ -268,7 +313,7 @@ class TorchCollModule:
         return max(1, min(8, -(-chunk_bytes // segsize)))
 
     def _entry(self, func: str, x: torch.Tensor, op=None,
-               root: Optional[int] = None) -> Tuple:
+               root: Optional[int] = None, plan: str = "_plan_") -> Tuple:
         """(epoch, fn, algorithm) for this call's (func, shape, dtype, op,
         root): one dict probe when warm. The epoch is read before the
         decision, so a rules-file reload during it re-decides once. A
@@ -276,16 +321,17 @@ class TorchCollModule:
         twin and runs it between the twin's ``into`` and ``back`` maps
         (``op.unsigned_route``): every schedule below sees only types
         torch reduces."""
-        fk = (func, x.shape, x.dtype, None if op is None else op.uid, root)
+        fk = (plan, func, x.shape, x.dtype,
+              None if op is None else op.uid, root)
         ep = var.epoch()
         hit = self._fast.get(fk)
         if hit is None or hit[0] != ep:
             route = op_mod.unsigned_route(x.dtype, op)
             if route is None:
-                alg, fn = getattr(self, "_plan_" + func)(x, op, root)
+                alg, fn = getattr(self, plan + func)(x, op, root)
             else:
                 twin, into, back = route
-                alg, inner = getattr(self, "_plan_" + func)(
+                alg, inner = getattr(self, plan + func)(
                     x.view(twin), op, root)
 
                 def fn(b, inner=inner, into=into, back=back):
@@ -307,6 +353,8 @@ class TorchCollModule:
         allgather, which select their own."""
         if func == "barrier":
             return self._barrier_alg()
+        if self._mc:
+            return self._entry(func, _meta(x), op, root, "_mcplan_")[2]
         return self._entry(func, self._to_dev(x), op, root)[2]
 
     # -- allreduce schedules ----------------------------------------------
@@ -1212,6 +1260,8 @@ class TorchCollModule:
         return inner
 
     def _barrier_alg(self) -> str:
+        if self._mc:
+            return self._mc_alg("barrier", 4)
         alg = self._algorithm("barrier", 4)
         if (alg == "tree" and self.comm.size == 1) or \
                 alg not in ALGORITHMS["barrier"][2:]:
@@ -1240,8 +1290,281 @@ class TorchCollModule:
         token, fn = st
         return [fn(token)]
 
+
+    # -- across controllers (core/multictl) --------------------------------
+    # Every plan below maps this controller's rows (``Rows.local``) to its
+    # rows of the result; the tier exchanges are collective over the
+    # controllers holding rows, which all build the same plan from the
+    # global shapes (SPMD).
+    def _mc_tier(self):
+        return multictl.tier(self.comm.layout.ctrls)
+
+    def _mc_run(self, body: str, *args):
+        """``body`` of the controller tier's device slots, on the tier's
+        collective context. The hidden tier's own entries are not the
+        user's collectives: no SPC count, hook or interposer sees them."""
+        t = self._mc_tier()
+        t._check()
+        return t._coll_serial(getattr(t, body), *args)
+
+    def _mc_exchange(self, flat: torch.Tensor, cap: int, want):
+        """One ragged round over the controller tier: write ``flat``,
+        read ``want[g]`` of controller g's payload."""
+        return self._mc_run("_device_exchange", flat, cap, want)
+
+    def _mc_allreduce(self, part: torch.Tensor, op) -> torch.Tensor:
+        """The controllers' partials folded in controller order."""
+        return self._mc_run("_device_allreduce", part, op)
+
+    def _mc_alg(self, func: str, nbytes: int, commute: bool = True) -> str:
+        """The algorithm ``selected`` reports across controllers: ``hier``
+        where the decision rows pick it and the tiers allow it, else
+        ``direct`` (reduce and gather are the multihost rows' aliases,
+        allreduce and allgather). Both name the same exchange: the local
+        stage already leaves one partial (or this controller's rows) per
+        controller, which is what the hier schedule's scattered chunks
+        add up to, so one body serves both."""
+        alg = self._algorithm(func, nbytes, commute)
+        if alg == "hier" and self._groups()[0] is not None:
+            return "hier"
+        return "direct"
+
+    def _mc_rows(self, x) -> Rows:
+        """A multi-controller operand: its rows, or this controller's
+        rows of the global stack every controller passes."""
+        if isinstance(x, Rows):
+            return self.comm._check_rows(x)
+        return self.comm.put(x)
+
+    def _mc_call(self, func: str, x, op=None, root=None):
+        rows = self._mc_rows(x)
+        if not self.comm._local:
+            # no row here: this controller takes no part
+            shape = tuple(rows.local.shape)
+            if func in ("allgather", "gather"):
+                shape = (0, self.comm.size) + shape[1:]
+            elif func in ("scatter", "reduce_scatter_block"):
+                shape = (0,) + shape[2:]
+            return rows.like(rows.local.new_empty(shape))
+        fn = self._entry(func, _meta(rows), op, root, "_mcplan_")[1]
+        return rows.like(fn(rows.local))
+
+    def mc_full(self, rows: Rows) -> torch.Tensor:
+        """Every rank's row of a multi-controller buffer, in rank order,
+        on this controller's device (the staged host path's readback)."""
+        return self._mc_gather_rows(rows.local)
+
+    def _mc_gather_rows(self, X: torch.Tensor) -> torch.Tensor:
+        """(L, *s) local rows -> (N, *s) every rank's row in rank order:
+        each controller ships its rows once."""
+        lay = self.comm.layout
+        per = int(np.prod(X.shape[1:], dtype=np.int64))
+        esz = X.element_size()
+        want = [(0, 0) if g == lay.h else (0, lay.sizes[g] * per)
+                for g in range(len(lay.parts))]
+        got = self._mc_exchange(X.reshape(-1), max(lay.sizes) * per * esz,
+                                want)
+        blocks = [X if g == lay.h
+                  else got[g].view((lay.sizes[g],) + tuple(X.shape[1:]))
+                  for g in range(len(lay.parts))]
+        full = torch.cat(blocks)
+        if lay.ordered:
+            return full
+        return full[self._idx(lay.perm)]
+
+    def _mc_concat(self, y: torch.Tensor) -> torch.Tensor:
+        """``y``'s rank axis (dim 0) reordered into controller order (each
+        controller's ranks contiguous)."""
+        lay = self.comm.layout
+        if lay.ordered:
+            return y
+        order = np.concatenate([list(p) for p in lay.parts])
+        return y.index_select(0, self._idx(order))
+
+    def _mc_expand(self, one: torch.Tensor, L: int) -> torch.Tensor:
+        return one.unsqueeze(0).expand((L,) + tuple(one.shape)).contiguous()
+
+    def _mc_fallback(self, op) -> bool:
+        """A fold in controller order is not one in rank order: gather
+        the rows and fold them in rank order instead."""
+        return not op.commute and not self.comm.layout.ordered
+
+    def _mcplan_allreduce(self, x, op, root):
+        alg = self._mc_alg("allreduce", x.nbytes // self.comm.size,
+                           op.commute)
+
+        def inner(X):
+            L = X.shape[0]
+            if self._mc_fallback(op):
+                return self._mc_expand(_reduce0(self._mc_gather_rows(X), op),
+                                       L)
+            # the local fold, then one partial per controller crosses
+            return self._mc_expand(self._mc_allreduce(_reduce0(X, op), op),
+                                   L)
+        return alg, inner
+
+    def _mcplan_reduce(self, x, op, root):
+        # the multihost row is the symmetric alias: every row gets the
+        # reduction, root's among them
+        ar = self._entry("allreduce", x, op, None, "_mcplan_")[1]
+        return "alias", ar
+
+    def _mcplan_bcast(self, x, op, root):
+        alg = self._mc_alg("bcast", x.nbytes // self.comm.size)
+        lay = self.comm.layout
+        g_root = next(g for g, p in enumerate(lay.parts) if root in p)
+
+        def inner(X):
+            if lay.h == g_root:
+                row = X[lay.mine.index(root)]
+            else:
+                row = X.new_empty(X.shape[1:])
+            # root's controller writes the row once; the others read it,
+            # then every local row takes it
+            return self._mc_expand(self._mc_run("_device_bcast", row,
+                                                g_root), X.shape[0])
+        return alg, inner
+
+    def _mcplan_allgather(self, x, op, root):
+        alg = self._mc_alg("allgather", x.nbytes // self.comm.size)
+
+        def inner(X):
+            return self._mc_expand(self._mc_gather_rows(X), X.shape[0])
+        return alg, inner
+
+    def _mcplan_gather(self, x, op, root):
+        return "allgather", self._entry("allgather", x, None, None,
+                                        "_mcplan_")[1]
+
+    def _mcplan_scatter(self, x, op, root):
+        lay = self.comm.layout
+        g_root = next(g for g, p in enumerate(lay.parts) if root in p)
+        n = self.comm.size
+
+        def inner(X):                          # (L, N, *s) -> (L, *s)
+            s = tuple(X.shape[2:])
+            if lay.h == g_root:
+                R = X[lay.mine.index(root)]
+                flat = self._mc_concat(R).reshape(-1)
+            else:
+                flat = X.new_empty((0,))
+            per = int(np.prod(s, dtype=np.int64))
+            want = [(0, 0)] * len(lay.parts)
+            if lay.h != g_root:
+                want[g_root] = (int(lay.offs[lay.h]) * per,
+                                int(lay.offs[lay.h + 1]) * per)
+            got = self._mc_exchange(flat, n * per * X.element_size(), want)
+            if lay.h == g_root:
+                return R[self._idx(list(lay.mine))].clone()
+            return got[g_root].view((X.shape[0],) + s)
+        return "direct", inner
+
+    def _mcplan_alltoall(self, x, op, root):
+        return "direct", self._mc_alltoall
+
+    def _mc_alltoall(self, X: torch.Tensor) -> torch.Tensor:
+        """(L, N, *s) -> (L, N, *s): out[a, i] = rank i's chunk for my
+        a-th rank. Each controller ships each other one block."""
+        lay = self.comm.layout
+        n = self.comm.size
+        L, s = X.shape[0], tuple(X.shape[2:])
+        per = int(np.prod(s, dtype=np.int64))
+        G = len(lay.parts)
+        # block g: my rows' chunks for controller g's ranks
+        send = torch.cat([X[:, self._idx(list(lay.parts[g]))]
+                          .reshape(-1) for g in range(G)])
+        want = []
+        for g in range(G):
+            lg = lay.sizes[g]
+            a = lg * int(lay.offs[lay.h]) * per
+            want.append((0, 0) if g == lay.h else (a, a + lg * L * per))
+        cap = max(lg * n for lg in lay.sizes) * per * X.element_size()
+        got = self._mc_exchange(send, cap, want)
+        # my rows' chunks for my own ranks, as the receivers see them
+        mine = X[:, self._idx(list(lay.mine))].transpose(0, 1)
+        blocks = [mine if g == lay.h else
+                  got[g].view((lay.sizes[g], L) + s).transpose(0, 1)
+                  for g in range(G)]
+        out = torch.cat(blocks, 1)         # source ranks, in parts
+        if not lay.ordered:
+            out = out[:, self._idx(lay.perm)]
+        return out.contiguous()
+
+    def _mcplan_reduce_scatter_block(self, x, op, root):
+        n = self.comm.size
+        alg = self._mc_alg("reduce_scatter_block", x.nbytes // n,
+                           op.commute)
+        if alg == "hier" and op.xla_prim != "sum":
+            alg = "direct"                     # hier rsb is the sum's
+        lay = self.comm.layout
+
+        def inner(X):                          # (L, N, *s) -> (L, *s)
+            mine = self._idx(list(lay.mine))
+            if self._mc_fallback(op):
+                return _reduce0(self._mc_gather_rows(X), op)[mine]
+            s = tuple(X.shape[2:])
+            per = int(np.prod(s, dtype=np.int64))
+            P = _reduce0(X, op)                # (N, *s): the local fold
+            want = [(0, 0) if g == lay.h else
+                    (int(lay.offs[lay.h]) * per,
+                     int(lay.offs[lay.h + 1]) * per)
+                    for g in range(len(lay.parts))]
+            got = self._mc_exchange(self._mc_concat(P).reshape(-1),
+                                    n * per * X.element_size(), want)
+            parts = torch.stack([P[mine] if g == lay.h
+                                 else got[g].view((len(lay.mine),) + s)
+                                 for g in range(len(lay.parts))])
+            return op.reduce_tree(parts, 0)    # controller (= rank) order
+        return alg, inner
+
+    def _mc_prefix(self, X, op, exclusive: bool):
+        """Scan across controllers: the local prefix, the controllers'
+        totals cross, and each folds the totals before it in front."""
+        lay = self.comm.layout
+        if not lay.ordered:
+            full = self._mc_gather_rows(X)
+            pre = _prefix(full, op)
+            if exclusive:
+                pre = torch.cat([pre[:1], pre[:-1]])
+            return pre[self._idx(list(lay.mine))]
+        pre = _prefix(X, op)
+        per = int(np.prod(X.shape[1:], dtype=np.int64))
+        want = [(0, per) if g < lay.h else (0, 0)
+                for g in range(len(lay.parts))]
+        got = self._mc_exchange(pre[-1].reshape(-1),
+                                per * X.element_size(), want)
+        incl = pre
+        if lay.h > 0:
+            before = got[0].view(X.shape[1:])
+            for g in range(1, lay.h):
+                before = op.fn(before, got[g].view(X.shape[1:]))
+            incl = op.fn(before.unsqueeze(0).expand_as(pre), pre)
+        if not exclusive:
+            return incl.contiguous()
+        first = incl[:1] if lay.h == 0 else before.unsqueeze(0)
+        return torch.cat([first, incl[:-1]])
+
+    def _mcplan_scan(self, x, op, root):
+        return "direct", lambda X: self._mc_prefix(X, op, False)
+
+    def _mcplan_exscan(self, x, op, root):
+        return "direct", lambda X: self._mc_prefix(X, op, True)
+
+    def _mc_barrier(self) -> None:
+        """Drain this controller's device, then the tier's dissemination
+        barrier: no controller leaves before every one's earlier work is
+        done."""
+        if self.comm.device.type == "cuda":
+            torch.cuda.synchronize(self.comm.device)
+        if self.comm._local:
+            t = self._mc_tier()
+            t._check()
+            t._coll_serial(lambda: t._dissemination(t._tag()))
+
     # -- collectives ------------------------------------------------------
     def allreduce(self, x, op):
+        if self._mc:
+            return self._mc_call("allreduce", x, op)
         x = self._to_dev(x)
         return self._entry("allreduce", x, op)[1](x)
 
@@ -1278,48 +1601,71 @@ class TorchCollModule:
         the selection runs and the schedule is built and warmed on
         ``example`` once, here; the returned callable is the selected
         schedule alone."""
+        if self._mc:
+            self.allreduce(example, op)        # warm
+            return lambda buf: self.allreduce(buf, op)
         x = self._to_dev(example)
         fn = self._entry("allreduce", x, op)[1]
         fn(x)                                  # warm
         return lambda buf: fn(self._to_dev(buf))
 
     def reduce(self, x, op, root: int):
+        if self._mc:
+            return self._mc_call("reduce", x, op, root)
         x = self._to_dev(x)
         return self._entry("reduce", x, op, root)[1](x)
 
     def bcast(self, x, root: int):
+        if self._mc:
+            return self._mc_call("bcast", x, None, root)
         x = self._to_dev(x)
         return self._entry("bcast", x, None, root)[1](x)
 
     def allgather(self, x):
+        if self._mc:
+            return self._mc_call("allgather", x)
         x = self._to_dev(x)
         return self._entry("allgather", x)[1](x)
 
     def gather(self, x, root: int):
+        if self._mc:
+            return self._mc_call("gather", x, None, root)
         x = self._to_dev(x)
         return self._entry("gather", x, None, root)[1](x)
 
     def scatter(self, x, root: int):
+        if self._mc:
+            return self._mc_call("scatter", x, None, root)
         x = self._to_dev(x)
         return self._entry("scatter", x, None, root)[1](x)
 
     def alltoall(self, x):
+        if self._mc:
+            return self._mc_call("alltoall", x)
         x = self._to_dev(x)
         return self._entry("alltoall", x)[1](x)
 
     def reduce_scatter_block(self, x, op):
+        if self._mc:
+            return self._mc_call("reduce_scatter_block", x, op)
         x = self._to_dev(x)
         return self._entry("reduce_scatter_block", x, op)[1](x)
 
     def scan(self, x, op):
+        if self._mc:
+            return self._mc_call("scan", x, op)
         x = self._to_dev(x)
         return self._entry("scan", x, op)[1](x)
 
     def exscan(self, x, op):
+        if self._mc:
+            return self._mc_call("exscan", x, op)
         x = self._to_dev(x)
         return self._entry("exscan", x, op)[1](x)
 
     def barrier(self) -> None:
+        if self._mc:
+            return self._mc_barrier()
         self._barrier_arrays()
         if self.comm.device.type == "cuda":
             torch.cuda.synchronize(self.comm.device)
@@ -1328,7 +1674,11 @@ class TorchCollModule:
         """The tensors backing an async barrier: the selected barrier's
         token. The event a request records after it marks every rank's
         work queued before it on the stream (the coll/nbc component owns
-        the schedule-based MPI_Ibarrier slot)."""
+        the schedule-based MPI_Ibarrier slot). Across controllers the
+        barrier completes on the controller tier before it returns."""
+        if self._mc:
+            self._mc_barrier()
+            return [torch.ones(1, dtype=torch.int32, device=self.comm.device)]
         return self._barrier_arrays()
 
 

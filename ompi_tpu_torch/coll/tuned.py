@@ -24,10 +24,12 @@ decision runs it on the world's device. A probe that fails on a CUDA
 device raises; on the CPU it is advisory and the var's default stands.
 
 The component (:class:`TunedCollComponent`, priority 60) routes each
-single-controller call: a tensor goes to coll/torch (the device), a numpy
-stacked buffer below the switch point to coll/basic (the host), a larger
-one is staged onto the device and its result copied back, so numpy in
-gives numpy out, as in the reference.
+stacked call: a tensor goes to coll/torch (the device), a numpy stacked
+buffer below the switch point to coll/basic (the host), a larger one is
+staged onto the device and its result copied back, so numpy in gives
+numpy out, as in the reference. Across controllers a numpy stack is the
+global array every controller passes: the host fold needs no exchange,
+and a staged one crosses the controller tier and comes back whole.
 """
 from __future__ import annotations
 
@@ -321,7 +323,12 @@ class TunedCollModule:
         if stage:
             x = torch.from_numpy(np.ascontiguousarray(buf)).to(
                 self.comm.device)
-            return accelerator.to_numpy(getattr(mod, func)(x, *args))
+            y = getattr(mod, func)(x, *args)
+            if self.device._mc:
+                # across controllers the result is this controller's
+                # rows; numpy out is the whole stack, as numpy came in
+                y = self.device.mc_full(y)
+            return accelerator.to_numpy(y)
         return getattr(mod, func)(buf, *args)
 
     def allreduce(self, x, op):

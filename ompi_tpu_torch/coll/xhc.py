@@ -153,8 +153,8 @@ class XhcComponent(Component):
         if _han._in_construction() or getattr(comm, "_han_inner", False):
             return None
         prio = var.var_get("coll_xhc_priority", 25)
-        if prio < 0:
-            return None
+        if prio < 0 or getattr(comm, "is_multiprocess", False):
+            return None                   # the ladder indexes every row
         spec = (var.var_get("coll_xhc_levels", "") or "").strip()
         basis = "var"
         if spec:

@@ -1,4 +1,4 @@
-"""Communicators — rank groups bound to devices, single-controller.
+"""Communicators — rank groups bound to devices.
 
 Behavioral spec: ``ompi/communicator`` — ``ompi_communicator_t`` holds a
 group, a CID, and the ``c_coll`` vtable of selected collective modules;
@@ -9,11 +9,23 @@ Single-controller model, as in the JAX package: one process drives every
 rank, and a rank's local buffer is one row of a stacked tensor of shape
 ``(N, *local)``. The stacked tensor lives on the communicator's device
 (its first device): ``init(devices=[cuda:0] * 8)`` puts 8 ranks on one
-card, ``devices=["cpu"] * 8`` puts them on the CPU. Spreading rows over
-several cards waits for the per-rank (``torch.distributed``) tier.
+card, ``devices=["cpu"] * 8`` puts them on the CPU.
 ``MPI_Comm_split`` is a row subset: a child communicator's members are
 parent ranks, and its stacked buffers have one row per member. CID
-agreement collapses to a controller-side counter.
+agreement is a controller-side counter.
+
+Multi-controller model (``core/multictl``, ``mpirun --coordinator``):
+several controller processes each drive some rows of one world, and
+every controller runs the same program (SPMD). A communicator knows the
+controller of each rank; when some rows are elsewhere it
+``is_multiprocess``, and when its rows sit on more than one controller it
+``spans_processes``. ``put``, ``stack`` and ``alloc`` then keep only this
+controller's rows (``multictl.Rows``): ``put`` and ``stack`` take the
+global host array every controller passes, and ``shard`` reads a local
+row or raises ``ERR_RANK``. Collectives cross controllers over the hidden
+controller tier; stacked pt2pt, RMA, SHMEM and the per-rank views of the
+v- and neighbor collectives raise a "single-controller" guard. CID
+agreement stays a counter that every controller advances alike.
 
 ULFM (``mpiext/ftmpi``) runs over the communicator's failure registry
 (``runtime/ft``): collectives and pt2pt that involve a failed rank raise
@@ -47,15 +59,17 @@ import torch
 
 from ompi_tpu_torch.accelerator import (LOCUS_DEVICE, check_addr,
                                         device_locality, to_numpy)
-from ompi_tpu_torch.core import convertor
+from ompi_tpu_torch.core import convertor, multictl
 from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.core.datatype import Datatype, torch_dtype
 from ompi_tpu_torch.core.errhandler import (ERR_ARG, ERR_COMM, ERR_COUNT,
-                                            ERR_OP, ERR_RANK, ERR_ROOT,
-                                            ERR_TOPOLOGY, ERRORS_ARE_FATAL,
-                                            Errhandler, MPIError)
+                                            ERR_INTERN, ERR_OP, ERR_RANK,
+                                            ERR_ROOT, ERR_TOPOLOGY,
+                                            ERRORS_ARE_FATAL, Errhandler,
+                                            MPIError)
 from ompi_tpu_torch.core.group import Group, UNDEFINED
 from ompi_tpu_torch.core.info import Info
+from ompi_tpu_torch.core.multictl import Rows
 from ompi_tpu_torch.core.request import Request, Status, event_after
 from ompi_tpu_torch.runtime import ft, spc
 from ompi_tpu_torch.utils import hooks
@@ -93,6 +107,19 @@ class Communicator:
         self.devices = tuple(torch.device(d) for d in devices)
         # where this communicator's stacked buffers live
         self.device = self.devices[0]
+        # the controller of each rank (None in a single-controller world)
+        # and the ranks this controller holds
+        self._ctl = multictl.controllers_of(group.world_ranks)
+        self._local: Tuple[int, ...] = tuple(range(group.size))
+        self._layout: Optional[multictl.Layout] = None
+        if self._ctl is not None:
+            me = multictl.me()
+            self._local = tuple(r for r, c in enumerate(self._ctl)
+                                if c == me)
+            if self._local:
+                self.device = self.devices[self._local[0]]
+            elif multictl.device() is not None:
+                self.device = multictl.device()
         self.cid = self._alloc_cid()
         self.name = name or f"comm#{self.cid}"
         self.info = info.dup() if info else Info()
@@ -144,11 +171,73 @@ class Communicator:
             from ompi_tpu_torch.core.errhandler import ERR_REVOKED
             raise MPIError(ERR_REVOKED, "communicator has been revoked")
 
+    # -- controllers ----------------------------------------------------
+    @property
+    def is_multiprocess(self) -> bool:
+        """True when some of this communicator's rows are held by another
+        controller process: its buffers are then this controller's rows
+        only (``multictl.Rows``)."""
+        return len(self._local) != self.size
+
+    @property
+    def spans_processes(self) -> bool:
+        """True when the rows live on more than one controller — the
+        topology fact that gates the hier (two-tier) rows of
+        ``coll/decision``."""
+        return self._ctl is not None and len(set(self._ctl)) > 1
+
+    @property
+    def layout(self) -> multictl.Layout:
+        """Where the ranks live, per controller (multiprocess comms)."""
+        if self._layout is None:
+            self._layout = multictl.Layout(
+                self._ctl or (0,) * self.size, multictl.me())
+        return self._layout
+
+    def controller_of(self, rank: int) -> int:
+        """The controller process that holds rank ``rank``'s row."""
+        return self._ctl[rank] if self._ctl is not None else 0
+
+    def _row_key(self) -> Tuple[int, ...]:
+        return tuple(self.group.world_ranks)
+
+    def _rows(self, local: torch.Tensor) -> Rows:
+        return Rows(local, self._local, self.size, self._row_key())
+
+    def _single_controller_only(self, what: str):
+        """The guard of everything that needs every row in this process
+        (the reference's ``_require_local_views``)."""
+        return self._err(
+            ERR_INTERN,
+            f"{what} is single-controller only: this communicator spans "
+            f"controller processes whose rows are not held here. Use the "
+            f"fixed-count collectives, or the per-rank execution model "
+            f"(mpirun --per-rank)")
+
     # -- buffer helpers -------------------------------------------------
     def put(self, host_array) -> torch.Tensor:
         """Copy a host array (or a tensor) onto this communicator's device
         in the stacked wire layout. Always a copy: the result never
-        aliases the caller's memory."""
+        aliases the caller's memory. On a multiprocess communicator the
+        argument is the global ``(N, ...)`` array every controller passes
+        and the result holds this controller's rows (``Rows``)."""
+        if self.is_multiprocess:
+            if isinstance(host_array, Rows):
+                self._check_rows(host_array)
+                return host_array.like(host_array.local.clone())
+            ndim = (host_array.ndim if hasattr(host_array, "ndim")
+                    else np.ndim(host_array))
+            if ndim < 1 or len(host_array) != self.size:
+                self._err(ERR_COUNT, f"a multi-controller buffer is the "
+                                     f"global stack with leading axis "
+                                     f"{self.size}")
+            idx = list(self._local)
+            if isinstance(host_array, torch.Tensor):
+                local = host_array[idx].to(self.device, copy=True)
+            else:
+                local = torch.tensor(np.asarray(host_array)[idx],
+                                     device=self.device)
+            return self._rows(local)
         if isinstance(host_array, torch.Tensor):
             return host_array.to(self.device, copy=True)
         return torch.tensor(np.asarray(host_array), device=self.device)
@@ -156,26 +245,59 @@ class Communicator:
     def alloc(self, local_shape: Tuple[int, ...], dtype=torch.float32,
               fill: Optional[float] = None) -> torch.Tensor:
         """Allocate a stacked buffer (size, *local_shape) on this
-        communicator's device."""
-        shape = (self.size,) + tuple(local_shape)
+        communicator's device (this controller's rows only, on a
+        multiprocess communicator)."""
+        rows = len(self._local) if self.is_multiprocess else self.size
+        shape = (rows,) + tuple(local_shape)
         dt = torch_dtype(dtype)
         if fill is None:
-            return torch.zeros(shape, dtype=dt, device=self.device)
-        return torch.full(shape, fill, dtype=dt, device=self.device)
+            t = torch.zeros(shape, dtype=dt, device=self.device)
+        else:
+            t = torch.full(shape, fill, dtype=dt, device=self.device)
+        return self._rows(t) if self.is_multiprocess else t
 
     def stack(self, per_rank: Sequence[Any]) -> torch.Tensor:
-        """Build a stacked buffer from per-rank host arrays or tensors."""
+        """Build a stacked buffer from per-rank host arrays or tensors
+        (every rank's, on every controller)."""
         if len(per_rank) != self.size:
             self._err(ERR_COUNT, "need one array per rank")
+        if self.is_multiprocess:
+            mine = [per_rank[r] for r in self._local]
+            if mine and all(isinstance(a, torch.Tensor) for a in mine):
+                return self._rows(torch.stack([a.to(self.device)
+                                               for a in mine]))
+            shape = np.shape(per_rank[0])
+            return self._rows(torch.tensor(
+                np.stack([np.asarray(a) for a in mine]) if mine
+                else np.empty((0,) + shape), device=self.device))
         if all(isinstance(a, torch.Tensor) for a in per_rank):
             return torch.stack([a.to(self.device) for a in per_rank])
         return self.put(np.stack([np.asarray(a) for a in per_rank]))
 
     def shard(self, stacked, rank: int) -> np.ndarray:
-        """Rank ``rank``'s view of a stacked buffer (host copy)."""
+        """Rank ``rank``'s view of a stacked buffer (host copy). A row
+        that another controller holds cannot be read here: it raises
+        ``ERR_RANK`` (fetch it with a collective, as MPI requires)."""
+        if isinstance(stacked, Rows):
+            row = stacked.row(rank)
+            if row is None:
+                self._err(ERR_RANK, f"rank {rank}'s row is held by "
+                                    f"controller {self.controller_of(rank)}"
+                                    f", not by controller {multictl.me()}")
+            return to_numpy(row)
         if isinstance(stacked, torch.Tensor):
             return to_numpy(stacked[rank])
         return np.array(stacked[rank])
+
+    def _check_rows(self, buf: Rows) -> Rows:
+        """The reference's ``_to_mesh`` guard: a multi-controller buffer
+        made for another communicator's rows is refused."""
+        if buf.key != self._row_key() or buf.ranks != self._local:
+            self._err(ERR_ARG, "buffer holds another communicator's rows; "
+                               "in a multi-controller world pass buffers "
+                               "made on this communicator (put/alloc/"
+                               "stack) or host arrays")
+        return buf
 
     # -- validation + dispatch -----------------------------------------
     def _coll(self, func: str):
@@ -200,6 +322,12 @@ class Communicator:
         return root
 
     def _validate_stacked(self, buf, lead: int = 1):
+        if isinstance(buf, Rows):
+            self._check_rows(buf)
+            if buf.ndim < lead:
+                self._err(ERR_COUNT, f"stacked buffer needs {lead} "
+                                     f"leading axes")
+            return buf
         if check_addr(buf) is None:
             self._err(ERR_ARG, "buffer must be a torch tensor or numpy array")
         if buf.ndim < lead or buf.shape[0] != self.size:
@@ -217,6 +345,14 @@ class Communicator:
             return buf, None
         if count is None:
             count = buf.shape[-1] // max(datatype.extent, 1)
+        if isinstance(buf, Rows):
+            # a controller packs and unpacks its own rows
+            inner, unpack_local = self._wire(buf.local, datatype, count)
+
+            def unpack_rows(y, out=None):
+                return y.like(unpack_local(
+                    y.local, out.local if isinstance(out, Rows) else None))
+            return buf.like(inner), unpack_rows
         packed = convertor.pack(buf, datatype, count)
 
         def unpack_fn(y, out=None):
@@ -234,6 +370,10 @@ class Communicator:
         is returned); otherwise the new tensor is the result."""
         if isinstance(recvbuf, torch.Tensor):
             recvbuf.copy_(torch.as_tensor(y))
+            return recvbuf
+        if isinstance(recvbuf, Rows):
+            recvbuf.local.copy_(y.local if isinstance(y, Rows)
+                                else torch.as_tensor(y)[list(recvbuf.ranks)])
             return recvbuf
         return y
 
@@ -383,6 +523,9 @@ class Communicator:
         the segments on the device, and the padded stack rides
         ``reduce_scatter_block`` — so the compressed path takes it where
         eligible, and nothing round-trips through the host."""
+        if self.is_multiprocess:
+            return self._single_controller_only("reduce_scatter (per-rank "
+                                                "result list)")
         self._validate_stacked(sendbuf)
         self._validate_op(op)
         if len(recvcounts) != self.size:
@@ -418,6 +561,10 @@ class Communicator:
         where ``gather`` gives every row an (N, *local) block."""
         self._validate_stacked(sendbuf)
         self._validate_root(root)
+        if self.is_multiprocess:
+            # root's rows cannot be collected into one controller's
+            # tensor; the stacked gather, as the reference falls back
+            return self.gather(sendbuf, root)
         self._coll("gather")                       # state checks
         if isinstance(sendbuf, torch.Tensor):
             return sendbuf.to(self.devices[root], copy=True)
@@ -433,6 +580,12 @@ class Communicator:
         if chunks.ndim < 1 or chunks.shape[0] != self.size:
             self._err(ERR_COUNT, f"chunks must have leading axis {self.size}")
         self._coll("scatter")                      # state checks
+        if self.is_multiprocess and not isinstance(chunks, np.ndarray):
+            self._err(ERR_ARG, "multi-controller scatter_root needs a host "
+                               "array replicated on every controller (a "
+                               "root-resident tensor cannot be read from "
+                               "the other controllers); use scatter() "
+                               "with the stacked sendbuf instead")
         return self.put(chunks)
 
     # -- v-forms (variable counts): pad to the max, run fixed, slice ---
@@ -441,6 +594,9 @@ class Communicator:
     # on the way back: the stacked analogue of the reference's per-peer
     # count headers. Results are tensors on the comm's device.
     def _ragged(self, per_rank: Sequence[Any], what: str):
+        if self.is_multiprocess:
+            self._single_controller_only(f"{what} (per-rank views of the "
+                                         f"stacked result)")
         if len(per_rank) != self.size:
             self._err(ERR_COUNT, f"{what} needs one entry per rank")
         return self._ragged_flat(per_rank)
@@ -518,6 +674,9 @@ class Communicator:
         for rank j; returns ``recv`` with ``recv[j][i]`` = the chunk i
         sent to j."""
         n = self.size
+        if self.is_multiprocess:
+            return self._single_controller_only("alltoallv (per-rank views "
+                                                "of the stacked result)")
         if len(send_chunks) != n:
             self._err(ERR_COUNT, "alltoallv needs one row per rank")
         for row in send_chunks:
@@ -543,6 +702,9 @@ class Communicator:
         ``send_counts[i][j]`` is the instance count; when omitted, the
         most instances that fit the chunk — the last one needs only the
         type's true extent (MPI's buffer-length rule)."""
+        if self.is_multiprocess:
+            return self._single_controller_only("alltoallw (per-rank views "
+                                                "of the stacked result)")
         packed = []
         for i, (row, trow) in enumerate(zip(send_chunks, send_types)):
             prow = []
@@ -722,6 +884,18 @@ class Communicator:
         (``pml/vprotocol``), else the plain one."""
         eng = getattr(self, "_pml_engine", None)
         if eng is None:
+            if self.is_multiprocess:
+                # the stacked matching engine hands rows over inside one
+                # process; a peer's row on another controller would be
+                # silently wrong. Cross-process pt2pt is the per-rank
+                # model's (pml/perrank over btl/tcp, sm)
+                raise MPIError(
+                    ERR_INTERN,
+                    "stacked pt2pt is single-controller only: this "
+                    "communicator spans processes whose rows are not "
+                    "held here. Use the per-rank execution model "
+                    "(mpirun --per-rank) for cross-process send/recv, or "
+                    "collectives on this communicator.")
             from ompi_tpu_torch.mca import var
             from ompi_tpu_torch.pml import vprotocol  # its var
             from ompi_tpu_torch.pml.stacked import MatchingEngine
@@ -906,21 +1080,24 @@ class Communicator:
     def split_type(self, split_type: int,
                    keys: Optional[Sequence[int]] = None):
         """MPI_Comm_split_type: group ranks by hardware locality.
-        COMM_TYPE_SHARED groups ranks whose devices share a host process
-        (``device_locality``; a torch device reads as process 0, so every
-        rank of this controller); COMM_TYPE_NUMA uses a device's NUMA
-        node where it exposes one, else its process; COMM_TYPE_HWTHREAD
-        gives every rank its own communicator; UNDEFINED yields
-        MPI_COMM_NULL everywhere."""
+        COMM_TYPE_SHARED groups ranks that share a host process (their
+        controller); COMM_TYPE_NUMA groups them by (controller, the
+        device's NUMA node where it exposes one, else its process);
+        COMM_TYPE_HWTHREAD gives every rank its own communicator;
+        UNDEFINED yields MPI_COMM_NULL everywhere."""
         if split_type == UNDEFINED:
             return [None] * self.size
         if split_type == 2:           # COMM_TYPE_HWTHREAD
             colors = list(range(self.size))
         elif split_type == 3:         # COMM_TYPE_NUMA
-            colors = [int(getattr(d, "numa_node", None)
-                          or device_locality(d)[0]) for d in self.devices]
+            doms = [(self.controller_of(r),
+                     int(getattr(d, "numa_node", None)
+                         or device_locality(d)[0]))
+                    for r, d in enumerate(self.devices)]
+            color = {k: c for c, k in enumerate(sorted(set(doms)))}
+            colors = [color[k] for k in doms]
         elif split_type == 1:         # COMM_TYPE_SHARED
-            colors = [device_locality(d)[0] for d in self.devices]
+            colors = [self.controller_of(r) for r in range(self.size)]
         else:
             self._err(ERR_ARG, f"unknown split_type {split_type}")
             return [None] * self.size
@@ -995,6 +1172,14 @@ class Communicator:
             self._err(ERR_TOPOLOGY, "no topology attached")
         return self.topo
 
+    def _nbr_topo(self):
+        """The topology of a neighbor collective, whose result is a list
+        of per-rank views."""
+        if self.is_multiprocess:
+            self._single_controller_only("neighbor collectives (per-rank "
+                                         "views of the stacked result)")
+        return self._topo()
+
     def cart_rank(self, coords: Sequence[int]) -> int:
         return self._cart().rank(coords)
 
@@ -1026,7 +1211,8 @@ class Communicator:
         if topo.size > self.size:
             self._err(ERR_ARG, "graph larger than communicator")
         devices = list(self.devices[:topo.size])
-        if reorder and topo.size > 1:
+        # a multiprocess comm's rows stay with their controllers
+        if reorder and topo.size > 1 and not self.is_multiprocess:
             from ompi_tpu_torch.topo import treematch as tm
             perm = tm.treematch_permutation(
                 tm.comm_matrix_from_graph(index, edges),
@@ -1055,7 +1241,7 @@ class Communicator:
         communicator's device by one gather (``topo/neighbor``); a numpy
         array takes the host path."""
         self._validate_stacked(sendbuf)
-        topo = self._topo()
+        topo = self._nbr_topo()
         if isinstance(sendbuf, torch.Tensor):
             from ompi_tpu_torch.topo import neighbor as nbr
             return nbr.device_neighbor_allgather(self, sendbuf)
@@ -1074,7 +1260,7 @@ class Communicator:
         chunk per in-neighbor (in neighbor order). A tensor is exchanged
         on the device by one gather, a numpy array on the host."""
         self._validate_stacked(sendbuf, lead=2)
-        topo = self._topo()
+        topo = self._nbr_topo()
         if isinstance(sendbuf, torch.Tensor):
             from ompi_tpu_torch.topo import neighbor as nbr
             return nbr.device_neighbor_alltoall(self, sendbuf)
@@ -1107,7 +1293,7 @@ class Communicator:
         """MPI_Neighbor_allgatherv: ragged contributions; rank r receives
         the concatenation of its neighbors' (variable-size) buffers in
         neighbor order."""
-        topo = self._topo()
+        topo = self._nbr_topo()
         arrs, _counts = self._ragged(per_rank, "neighbor_allgatherv")
         if isinstance(arrs[0], torch.Tensor):
             from ompi_tpu_torch.topo import neighbor as nbr
@@ -1126,7 +1312,7 @@ class Communicator:
         per in-neighbor, as a list aligned with its in-neighbor order
         (empty where the sender provided no chunk — alignment is never
         silently shifted)."""
-        topo = self._topo()
+        topo = self._nbr_topo()
         if len(send_chunks) != self.size:
             self._err(ERR_COUNT, "need one chunk row per rank")
         flat = [c for row in send_chunks for c in row]

@@ -95,6 +95,18 @@ def _ran(path: str) -> None:
     counters[path] += 1
     spc.record(path, 1)
 
+
+# bytes of the device tier, per process: "out" is what this process wrote
+# into its own slot for its peers, "in" what it read from its peers'
+# slots; read by tests and the chip smoke (the multi-controller world
+# counts its crossing bytes here)
+tier_bytes: Dict[str, int] = {"out": 0, "in": 0}
+
+
+def _moved(out: int = 0, in_: int = 0) -> None:
+    tier_bytes["out"] += out
+    tier_bytes["in"] += in_
+
 # Compressed host-tier allreduce: worlds at or below this size take the
 # direct code exchange (one parallel round, one quantization per
 # contribution); larger worlds the binomial reduce and the code-forwarding
@@ -1267,6 +1279,8 @@ class RankCommunicator:
         mine.copy_(flat)
         self._fence()
         b = chunk_bounds(flat.numel(), n, rec)
+        esz = flat.element_size()
+        own = (b[r + 1] - b[r]) * esz
         if b[r + 1] > b[r]:
             parts = torch.stack([slots.view(j, p, nbytes, flat.dtype)
                                  [b[r]:b[r + 1]] for j in range(n)])
@@ -1275,6 +1289,7 @@ class RankCommunicator:
         self._fence()
         out = torch.cat([slots.view(j, p, nbytes, flat.dtype)[b[j]:b[j + 1]]
                          for j in range(n)])
+        _moved(nbytes + own, (n - 1) * own + nbytes - own)
         return out.view(x.shape)
 
     def _device_bcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
@@ -1283,6 +1298,9 @@ class RankCommunicator:
         slots, p = self._shared(nbytes)
         if self._rank == root:
             slots.view(root, p, nbytes, flat.dtype).copy_(flat)
+            _moved(out=nbytes)
+        else:
+            _moved(in_=nbytes)
         self._fence()
         return slots.view(root, p, nbytes, flat.dtype).clone().view(x.shape)
 
@@ -1295,6 +1313,7 @@ class RankCommunicator:
         self._fence()
         g = torch.stack([slots.view(j, p, nbytes, flat.dtype)
                          for j in range(n)]).view((n,) + tuple(x.shape))
+        _moved(nbytes, (n - 1) * nbytes)
         return list(g.unbind(0))
 
     def _device_alltoall(self, chunks: Sequence[torch.Tensor]
@@ -1310,7 +1329,37 @@ class RankCommunicator:
         self._fence()
         g = torch.stack([slots.view(j, p, nbytes, flat.dtype)
                          [r * per:(r + 1) * per] for j in range(n)])
+        _moved(nbytes, (n - 1) * per * flat.element_size())
         return list(g.view((n,) + shape).unbind(0))
+
+    def _device_exchange(self, flat: torch.Tensor, cap: int,
+                         want: Sequence[Tuple[int, int]]
+                         ) -> List[Optional[torch.Tensor]]:
+        """One round of the device tier with ragged contributions: write
+        ``flat`` (this member's 1-D payload) into its slot, fence, and
+        read the element range ``want[j] = (start, stop)`` of member j's
+        slot (this member's own too). ``cap`` is the largest payload in
+        bytes any member writes, alike on every member (slot growth is
+        collective). An empty range reads nothing (None). The reads are
+        copies: the next device collective may rewrite the slots."""
+        flat = flat.detach().reshape(-1)
+        r = self._rank
+        slots, p = self._shared(max(int(cap), 1))
+        esz = flat.element_size()
+        if flat.numel():
+            slots.view(r, p, flat.numel() * esz, flat.dtype).copy_(flat)
+        self._fence()
+        out: List[Optional[torch.Tensor]] = []
+        got = 0
+        for j, (a, b) in enumerate(want):
+            if b <= a:
+                out.append(None)
+                continue
+            out.append(slots.view(j, p, b * esz, flat.dtype)[a:b].clone())
+            if j != r:
+                got += (b - a) * esz
+        _moved(flat.numel() * esz, got)
+        return out
 
     # ==================================================================
     # Communicator algebra (collective; deterministic CIDs)

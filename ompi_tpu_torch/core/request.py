@@ -57,6 +57,8 @@ class Status:
 def _tensors(tree) -> Iterator[torch.Tensor]:
     if isinstance(tree, torch.Tensor):
         yield tree
+    elif hasattr(tree, "local") and hasattr(tree, "ranks"):
+        yield tree.local                 # a multi-controller buffer
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)

@@ -157,18 +157,23 @@ class RmaWindow:
         with self._dead_lock:            # the listener or _check_dead,
             if world_rank in self._dead:  # whichever comes first
                 return
+            ep = self._epoch
+            torn = bool(ep.fenced or ep.lock_all or ep.locked
+                        or ep.pscw_access or ep.pscw_exposure)
+            # counted before the peer shows in _dead: a caller that finds
+            # it dead (and errs) while this listener still reclaims below
+            # reads the count
+            if torn:
+                _base.stats["ft_failed_epochs"] += 1
             self._dead.add(world_rank)
+        if torn:
+            _flightrec.record("rma_proc_failed",
+                              {"rank": world_rank, "win": self.name,
+                               "reason": reason})
         try:
             self._w.peer_failed(world_rank)
         except Exception:                # noqa: BLE001 — reclaim is
             pass                         # best-effort on this path
-        ep = self._epoch
-        if (ep.fenced or ep.lock_all or ep.locked or ep.pscw_access
-                or ep.pscw_exposure):
-            _base.stats["ft_failed_epochs"] += 1
-            _flightrec.record("rma_proc_failed",
-                              {"rank": world_rank, "win": self.name,
-                               "reason": reason})
 
     def _instrumented(self, kind: str, target: int, nbytes: int,
                       thunk):

@@ -25,6 +25,18 @@ among them, and ``finalize`` closes them. Unless the user set
 device at Init and publishes the result through the KV; every rank adopts
 the same value.
 
+Multi-controller (``mpi_base_distributed``, set by ``mpirun --coordinator
+host:port --num-hosts H --host-id I``): one controller process per host,
+each binding its own rows (``init(devices=[...])``), together one world.
+Host 0 hosts the job's ``TCPStore`` at the coordinator address and every
+host opens a client on it (the role of ``jax.distributed.initialize``);
+each controller publishes its rows' devices, waits at the init fence, and
+the controllers wire up the per-rank tier among themselves
+(``pml/perrank.Router``, rank = host id), over which the collectives of a
+communicator spanning controllers cross (``core/multictl``). World rank
+order is controller order. ``finalize`` fences, closes the tier and, on
+host 0, sweeps the job's shared-memory files once every host has left.
+
 The resilience and telemetry planes arm here too: the tracer and the
 telemetry plane before any communicator exists (the composers wrap only
 while they are on), and on the per-rank tier the ring heartbeat detector
@@ -73,6 +85,7 @@ _state = {
     "thread_level": THREAD_SINGLE,
     "router": None,
     "kv": None,
+    "store_server": None,            # host 0 of a multi-controller job
 }
 
 # the parent job's intercommunicator in a spawned per-rank world (the
@@ -89,11 +102,20 @@ def _register_base_vars() -> None:
                           "(set by mpirun --per-rank)")
     var.var_register("mpi", "base", "coordinator", vtype="str", default="",
                      help="host:port of the job's TCPStore (the "
-                          "coordination KV, hosted by mpirun)")
+                          "coordination KV, hosted by mpirun, or by host 0 "
+                          "of a multi-controller job)")
     var.var_register("mpi", "base", "process_id", vtype="int", default=-1,
-                     help="This process's rank in a per-rank job")
+                     help="This process's rank in a per-rank job, or its "
+                          "host id in a multi-controller job")
     var.var_register("mpi", "base", "num_processes", vtype="int",
-                     default=0, help="Ranks in a per-rank job")
+                     default=0, help="Ranks in a per-rank job, or "
+                                     "controllers in a multi-controller "
+                                     "job")
+    var.var_register("mpi", "base", "distributed", vtype="bool",
+                     default=False,
+                     help="Multi-controller world: one controller process "
+                          "per host, each binding its local rows, together "
+                          "one COMM_WORLD (set by mpirun --coordinator)")
     var.var_register("mpi", "base", "device", vtype="str", default="",
                      help="Per-rank device: empty = "
                           "cuda:(local_rank % device_count), 'cpu' = "
@@ -147,12 +169,17 @@ def init(requested: int = THREAD_SINGLE,
     devices = [torch.device(d) for d in devices]
     if not devices:
         raise MPIError(ERR_OTHER, "Init needs at least one device")
-    n = len(devices)
     accelerator.select_for_devices(devices)
     _register_component_vars()
+    if var.var_get("mpi_base_distributed", False):
+        devices, first = _init_controllers(devices)
+    else:
+        first = 0
+    n = len(devices)
 
     world = Communicator(Group(range(n)), devices, name="MPI_COMM_WORLD")
-    self_comm = Communicator(Group([0]), [devices[0]], name="MPI_COMM_SELF")
+    self_comm = Communicator(Group([first]), [devices[first]],
+                             name="MPI_COMM_SELF")
 
     INFO_ENV.set("command", os.environ.get("_", ""))
     INFO_ENV.set("maxprocs", str(n))
@@ -170,6 +197,55 @@ def init(requested: int = THREAD_SINGLE,
 # reference's bound, runtime/init.py:188); a rank that dies ends the job
 # through the launcher long before
 KV_TIMEOUT = 120.0
+
+
+def _init_controllers(local: List[torch.device]):
+    """Multi-controller bring-up (``jax.distributed.initialize`` plus the
+    modex and init fence of instance.c:547-569): host 0 hosts the store,
+    every controller publishes its rows' devices, fences, and wires the
+    controller tier. Returns the world's devices in rank order and this
+    controller's first world rank."""
+    from ompi_tpu_torch.core import multictl
+    from ompi_tpu_torch.pml.perrank import Router
+    me = int(var.var_get("mpi_base_process_id", -1))
+    hosts = int(var.var_get("mpi_base_num_processes", 0))
+    addr = var.var_get("mpi_base_coordinator", "")
+    if me < 0 or hosts <= 0 or me >= hosts or not addr:
+        raise MPIError(ERR_OTHER, "multi-controller Init needs the "
+                                  "coordinator address, this host's id and "
+                                  "the host count (launch through mpirun "
+                                  "--coordinator host:port --num-hosts H "
+                                  "--host-id I)")
+    server = None
+    if me == 0:
+        from torch.distributed import TCPStore
+        host, port = addr.rsplit(":", 1)
+        server = TCPStore(host, int(port), is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=KV_TIMEOUT))
+    kv = _Kv(addr)
+    kv.set(f"ompi_tpu_torch/mc/rows/{me}",
+           json.dumps([str(d) for d in local]))
+    if local[0].type == "cuda":
+        torch.cuda.set_device(local[0])
+    router = Router(me, hosts, kv.set, kv.get, local[0])
+    kv.fence("init", hosts)
+    router.wire_up()
+    rows = [json.loads(kv.get(f"ompi_tpu_torch/mc/rows/{h}"))
+            for h in range(hosts)]
+    kinds = {torch.device(d).type for r in rows for d in r}
+    if len(kinds) != 1:
+        raise MPIError(ERR_OTHER, f"controllers bind different device kinds "
+                                  f"{sorted(kinds)}; a world is all CUDA or "
+                                  f"all CPU")
+    ctl = [h for h in range(hosts) for _ in rows[h]]
+    devices = [torch.device(d) for r in rows for d in r]
+    multictl.configure(ctl, me, router, local[0])
+    # the staged host path is collective across controllers: host 0's
+    # probe decides the switch point for every controller
+    _adopt_stage_probe(kv, router, me, hosts, local[0])
+    _state.update(router=router, kv=kv, store_server=server)
+    return devices, sum(len(r) for r in rows[:me])
 
 
 class _Kv:
@@ -359,20 +435,44 @@ def finalize() -> None:
     telemetry.shutdown()
     router = _state["router"]
     if router is not None:
+        from ompi_tpu_torch.core import multictl, rankcomm
+        controllers = multictl.active()
+        if controllers:
+            # the hidden controller tiers fence as they free their slots
+            multictl.close()
         # later EOFs are departures, not deaths; after the fini fence no
         # peer reads this rank's slots any more, so they are freed last
         router.begin_shutdown()
         if not ft.any_failed():      # a dead rank never reaches the fence
             _state["kv"].fence("fini", router.nprocs)
-        from ompi_tpu_torch.core import rankcomm
         rankcomm.close_device_tiers()
         router.close()
         if router.device.type == "cuda":
             torch.cuda.ipc_collect()
+        if controllers:
+            _leave_controllers(router.nprocs)
     global _parent_intercomm
     _parent_intercomm = None
     _state.update(finalized=True, world=None, self=None, router=None,
-                  kv=None)
+                  kv=None, store_server=None)
+
+
+def _leave_controllers(hosts: int) -> None:
+    """The multi-controller job's last step: every host says it left;
+    host 0, whose process serves the store, waits for them all before
+    sweeping the job's shared-memory files (every host has closed its
+    own by then) and returning, so no host loses the store mid-fence."""
+    store = _state["kv"].store
+    store.add("ompi_tpu_torch/mc/left", 1)
+    if _state.get("store_server") is None:
+        return
+    deadline = time.monotonic() + KV_TIMEOUT
+    while store.add("ompi_tpu_torch/mc/left", 0) < hosts:
+        if time.monotonic() > deadline:
+            break                        # a host is gone: sweep anyway
+        time.sleep(0.01)
+    from ompi_tpu_torch.tools.mpirun import sweep_shm
+    sweep_shm(var.var_get("mpi_base_coordinator", ""))
 
 
 def initialized() -> bool:
@@ -428,7 +528,9 @@ def _reset_for_tests() -> None:
     disarmed with its histograms dropped, and the injection plane's gate
     is closed, and the lock witness is uninstalled and emptied. The
     sessions' refcount and per-rank create ordinals, the
-    DPM registry and the open per-rank ports are emptied."""
+    DPM registry and the open per-rank ports are emptied. The
+    multi-controller table and its tiers are forgotten, and the device
+    tier's byte counters zeroed."""
     global _parent_intercomm
     from ompi_tpu_torch import telemetry, trace
     from ompi_tpu_torch.coll import acoll
@@ -451,16 +553,20 @@ def _reset_for_tests() -> None:
     monitoring.reset()
     hooks._reset_drops_for_tests()
     router = _state["router"]
+    from ompi_tpu_torch.core import multictl
+    multictl._reset_for_tests()
     if router is not None:           # a test that never finalized
         rankcomm.close_device_tiers()
         router.close()
     for k in rankcomm.counters:
         rankcomm.counters[k] = 0
+    for k in rankcomm.tier_bytes:
+        rankcomm.tier_bytes[k] = 0
     tuned._reset_for_tests()
     pipeline.reset_stats()
     shmseg._reset_for_tests()
     _state.update(initialized=False, finalized=False, world=None, self=None,
-                  router=None, kv=None)
+                  router=None, kv=None, store_server=None)
     _parent_intercomm = None
     session._reset_for_tests()
     acoll._reset_for_tests()

@@ -66,7 +66,11 @@ def table(comm) -> Dict:
         "size": comm.size,
         "platform": platform,
         "devices": [f"{d.type}:{d.index or 0}" for d in devices],
-        "hosts": 1 if devices else 0,    # one process drives them
+        # controller processes driving the rows (one outside a
+        # multi-controller world)
+        "hosts": (len({comm.controller_of(r) for r in range(comm.size)})
+                  if hasattr(comm, "controller_of") else
+                  1 if devices else 0),
         "data_plane": ("torch/cuda" if platform == "gpu"
                        else "torch/host"),
         "coll": dict(per_func),

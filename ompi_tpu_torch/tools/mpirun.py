@@ -7,6 +7,12 @@ process placement. The port of ``ompi_tpu/tools/mpirun.py``.
 - Single-controller (default): ``mpirun -n N prog.py`` sets
   ``OMPI_TPU_TORCH_MCA_mpi_base_num_ranks=N`` and execs ``python prog.py``
   once; ``Init`` binds up to N visible CUDA devices as ranks.
+- Multi-controller: ``--coordinator host:port --num-hosts H --host-id I``
+  set ``mpi_base_distributed`` and the coordination vars, and ``-n L``
+  this controller's row count; each host runs its own ``mpirun``, which
+  execs the program once. Host 0's ``Init`` hosts the job's store at the
+  coordinator address, and the H controllers form one world
+  (``runtime/init``, ``core/multictl``).
 - Per-rank: ``mpirun --per-rank -n N prog.py`` takes the PRRTE daemon's
   role itself: it hosts the job's ``torch.distributed.TCPStore`` (the PMIx
   coordination service; every rank opens a client on it), fork/execs N
@@ -56,6 +62,17 @@ def build_env(args, base_env) -> dict:
         env[PREFIX + "mpi_base_num_ranks"] = str(args.n)
     for k, v in args.mca or []:
         env[PREFIX + k] = v
+    if args.coordinator:
+        env[PREFIX + "mpi_base_distributed"] = "1"
+        env[PREFIX + "mpi_base_coordinator"] = args.coordinator
+        if args.num_hosts:
+            env[PREFIX + "mpi_base_num_processes"] = str(args.num_hosts)
+        if args.host_id is not None:
+            env[PREFIX + "mpi_base_process_id"] = str(args.host_id)
+        # the controller tier maps CUDA IPC handles of whole caching-
+        # allocator blocks, which expandable segments would break
+        env.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                       "expandable_segments:False")
     return env
 
 
@@ -67,6 +84,13 @@ def parse(argv):
     ap.add_argument("--mca", nargs=2, action="append",
                     metavar=("VAR", "VALUE"),
                     help="set an MCA variable (e.g. mpi_base_device cpu)")
+    ap.add_argument("--coordinator", default="",
+                    help="host:port of the multi-controller job's store "
+                         "(host 0 hosts it)")
+    ap.add_argument("--num-hosts", type=int, default=0,
+                    help="controllers in the multi-controller job")
+    ap.add_argument("--host-id", type=int, default=None,
+                    help="this controller's index in the job")
     ap.add_argument("--per-rank", action="store_true",
                     help="one OS process per MPI rank")
     ap.add_argument("--timeout", type=float, default=0,
@@ -143,10 +167,10 @@ def run_per_rank(args, prog) -> int:
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
-        _sweep_shm(coord)
+        sweep_shm(coord)
 
 
-def _sweep_shm(coord: str) -> None:
+def sweep_shm(coord: str) -> None:
     """Remove the shared-memory files this job's ranks leaked (a killed
     rank never reaches its unlink): the sm rings, the cpu IPC segments,
     the shmseg pools and fold workspaces and the osc/shm window

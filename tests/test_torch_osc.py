@@ -25,6 +25,7 @@ from __future__ import annotations
 import glob
 import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -737,6 +738,38 @@ def test_osc_ft_dead_peer_seen_before_its_listener_ran():
         assert ei.value.error_class == ERR_PROC_FAILED
         wins[0]._ft_cb(2, "test kill")
         assert p_base.stats["ft_failed_epochs"] == before + 3
+    finally:
+        _free_all(wins)
+        p_ft._reset_for_tests()
+
+
+def test_osc_ft_torn_epoch_counted_before_the_dead_peer_shows():
+    """A listener still reclaiming a dead peer (``peer_failed``) has
+    already counted the torn epoch: a caller that finds the peer dead
+    and gets ``ERR_PROC_FAILED`` reads the count, as chip_smoke's p44
+    does right after its fence and put fail."""
+    _comms_, wins = _world(3, 4, "shm")
+    try:
+        for w in wins:
+            w.fence()
+        release = threading.Event()
+        reclaim = wins[0]._w.peer_failed
+        wins[0]._w.peer_failed = lambda wr: (release.wait(10), reclaim(wr))
+        before = p_base.stats["ft_failed_epochs"]
+        t = threading.Thread(target=wins[0]._peer_dead,
+                             args=(2, "test kill"))
+        t.start()
+        deadline = time.monotonic() + 10
+        while 2 not in wins[0]._dead:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        with pytest.raises(MPIError) as ei:
+            wins[0].put(np.ones(2, np.float32), 2)
+        assert ei.value.error_class == ERR_PROC_FAILED
+        assert p_base.stats["ft_failed_epochs"] == before + 1
+        release.set()
+        t.join(10)
+        assert p_base.stats["ft_failed_epochs"] == before + 1
     finally:
         _free_all(wins)
         p_ft._reset_for_tests()
