@@ -366,14 +366,27 @@ Phases, one or more lines each:
                 the single-controller guards and a remote row's
                 ``ERR_RANK``; 0 ``Memcpy DtoH`` records of payload size in
                 the crossing allreduce and bcast (torch.profiler, with a
-                ``.cpu()`` control); 0 flash-fold launches. Controller 0
+                ``.cpu()`` control); ``Session()``'s psets (ranks 0-7,
+                one ``mpix://shared/<controller>`` each) and the
+                allreduce SUM and bcast of comms made from
+                ``mpi://WORLD`` and ``mpix://shared/<controller>``
+                against numpy; mpisync's table (own rows ``controller``,
+                the other's ``process_<i> (unprobed)``); han, then xhc,
+                forced by priority on COMM_WORLD: allreduce SUM f32, MAX
+                f32, SUM i32 and bcast against numpy and the forced
+                direct schedule (MAX, i32 and bcast bit for bit, SUM
+                rtol 1e-5), ``HanModule`` / ``XhcModule`` providing
+                allreduce and bcast, 0 payload-sized ``Memcpy DtoH`` in
+                their allreduce (with a ``.cpu()`` control); 0
+                flash-fold launches. Controller 0
                 prints each collective's ms (a CUDA-event span that
                 includes the tier's host fences, and the host clock)
                 beside phase 4's single-controller and phase 11's
                 per-rank ms of the same call, the bytes each controller
-                wrote into and read from the tier, and each controller's
-                start-up seconds; every controller OK inside 90 s, no
-                ``otpt*`` file left. ``python3 chip_smoke.py --multictl``
+                wrote into and read from the tier, each session, han and
+                xhc call's ms beside the plain world's call of the same
+                run, and each controller's start-up seconds; every
+                controller OK inside 90 s, no ``otpt*`` file left. ``python3 chip_smoke.py --multictl``
                 runs phases 1 and 20 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
@@ -5392,6 +5405,43 @@ def _dtoh(fn) -> tuple:
     return count, (None if None in sizes else sum(sizes))
 
 
+def _dtoh_split(calls: dict) -> dict:
+    """{name: (count, bytes)} of the ``Memcpy DtoH`` records each call
+    made, all in one torch.profiler session: each call runs, and drains
+    the card, inside its own ``record_function`` range, and a memcpy
+    record of the Chrome trace counts for the range that holds its
+    start."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for name, fn in calls.items():
+            with record_function(f"dtoh:{name}"):
+                fn()
+                torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"][5:])
+              for e in events if e.get("cat") == "user_annotation"
+              and str(e.get("name", "")).startswith("dtoh:")]
+    check(sorted(n for _a, _b, n in ranges) == sorted(calls),
+          f"the profiler's ranges {sorted(n for _a, _b, n in ranges)}")
+    out = {name: [0, 0] for name in calls}
+    for e in events:
+        if e.get("cat") != "gpu_memcpy" or "DtoH" not in e.get("name", ""):
+            continue
+        owner = [n for a, b, n in ranges if a <= e["ts"] <= b]
+        check(len(owner) == 1, f"a DtoH record at {e['ts']} outside the "
+                               f"calls' ranges")
+        out[owner[0]][0] += 1
+        out[owner[0]][1] += int(e.get("args", {}).get("bytes") or 0)
+    return {name: tuple(v) for name, v in out.items()}
+
+
 def _pln_shmem(w, x, xh, smi: str) -> list:
     """17(a): ShmemCtx over the 8 PEs on cuda:0, a 32 MB fp32 heap each
     (256 MB on the card), then the atomics on an int32 heap."""
@@ -6943,23 +6993,29 @@ def _multictl_rank(t_launch: float, report: str) -> int:
         check(e.error_class == MPI.ERR_RANK, f"remote row: {e}")
     w.set_errhandler(MPI.ERRORS_ARE_FATAL)
 
+    crossing, dups = _multictl_planes(w, me, xs, x, xi, nums, same)
     # no payload crosses through the host: the allreduce and bcast that
-    # cross controllers copy nothing of payload size device-to-host
-    dtoh = {}
-    for name, fn in (("allreduce", lambda: w.allreduce(x, MPI.SUM)),
-                     ("bcast", lambda: w.bcast(x, root=6)),
-                     ("control .cpu()", lambda: x.local.cpu())):
-        cnt, nbytes = _dtoh(fn)
-        dtoh[name] = (cnt, nbytes)
+    # cross controllers, and han's and xhc's allreduce, copy nothing of
+    # payload size device-to-host. One profiler session for all of them:
+    # a controller process's later sessions can lose their memcpy
+    # records, which the .cpu() control would then show
+    dtoh = _dtoh_split({"allreduce": lambda: w.allreduce(x, MPI.SUM),
+                        "bcast": lambda: w.bcast(x, root=6),
+                        **crossing,
+                        "control .cpu()": lambda: x.local.cpu()})
     payload = LOCAL_ELEMS * 4
-    for name in ("allreduce", "bcast"):
+    for name in dtoh:
         cnt, nbytes = dtoh[name]
-        check(cnt == 0 or (nbytes is not None and nbytes < payload),
-              f"{name}: {cnt} DtoH records, {nbytes} bytes")
-    cnt, nbytes = dtoh["control .cpu()"]
-    check(cnt >= 1 and (nbytes is None or nbytes >= MC_ROWS * payload),
-          f"the .cpu() control saw {cnt} DtoH records, {nbytes} bytes")
+        if name == "control .cpu()":
+            check(cnt >= 1 and nbytes >= MC_ROWS * payload,
+                  f"the .cpu() control saw {cnt} DtoH records, {nbytes} "
+                  f"bytes")
+        else:
+            check(cnt == 0 or nbytes < payload,
+                  f"{name}: {cnt} DtoH records, {nbytes} bytes")
     nums["dtoh"] = dtoh
+    for d in dups:
+        d.free()
     nums["flash_fold"] = FA.launches - fl0
     check(nums["flash_fold"] == 0, "a flash-fold launch in phase 20")
     nums["auto"] = auto
@@ -6969,6 +7025,147 @@ def _multictl_rank(t_launch: float, report: str) -> int:
         json.dump(nums, f)
     print(f"OK multictl controller={me}", flush=True)
     return 0
+
+
+def _multictl_planes(w, me: int, xs: list, x, xi, nums: dict,
+                     same) -> tuple:
+    """Phase 20's planes on one controller: the Session psets and the
+    comms made from ``mpi://WORLD`` and ``mpix://shared/<me>``; mpisync's
+    table; han, then xhc, forced by priority on a dup of COMM_WORLD,
+    against numpy and the forced direct schedule (32 MB fp32 per rank).
+    Returns han's and xhc's crossing allreduce, for the ``Memcpy DtoH``
+    count, and their dups, to free after it."""
+    from ompi_tpu_torch.core.multictl import Rows
+    from ompi_tpu_torch.runtime.session import Session
+    from ompi_tpu_torch.tools import mpisync
+    n = w.size
+    mine = list(w._local)
+    stack = np.stack(xs)
+    s64 = stack.astype(np.float64)
+    i32 = np.stack([(a * 1000).astype(np.int32) for a in xs])
+    ms = nums.setdefault("planes_ms", {})
+
+    def rows_of(y, comm, what):
+        check(isinstance(y, Rows) == comm.is_multiprocess, what)
+        t = y.local if isinstance(y, Rows) else y
+        check(t.device == w.device, f"{what}: not on {w.device}")
+        return t.cpu().numpy()
+
+    def timed(name, fn):
+        _, m, us = _pr_timed(fn, iters=3)
+        ms[name] = (m, us)
+
+    # -- Sessions: the psets list the world's ranks, one shared pset per
+    # controller; comms from them are stacked session comms
+    sess = Session()
+    want = {"mpi://WORLD": list(range(n)), "mpi://SELF": [0]}
+    for c in range(MC_HOSTS):
+        want[f"mpix://shared/{c}"] = list(range(c * MC_ROWS,
+                                                (c + 1) * MC_ROWS))
+    check(sess._psets == want, f"Session psets {sess._psets}")
+    cw = sess.comm_create_from_group(sess.group_from_pset("mpi://WORLD"))
+    cs = sess.comm_create_from_group(
+        sess.group_from_pset(f"mpix://shared/{me}"))
+    check(type(cw).__name__ == "SessionCommunicator"
+          and cw.is_multiprocess and cw.spans_processes
+          and not cs.is_multiprocess and cs.size == MC_ROWS,
+          "the session comms")
+    xw = cw.stack(xs)
+    same(rows_of(cw.allreduce(xw, MPI.SUM), cw, "session WORLD allreduce"),
+         np.broadcast_to(s64.sum(0), (MC_ROWS, s64.shape[1])),
+         "session WORLD allreduce", 1e-5)
+    timed("session WORLD allreduce SUM f32",
+          lambda: cw.allreduce(xw, MPI.SUM))
+    same(rows_of(cw.bcast(xw, 5), cw, "session WORLD bcast"),
+         np.broadcast_to(stack[5], (MC_ROWS, stack.shape[1])),
+         "session WORLD bcast root 5")
+    timed("session WORLD bcast root 5", lambda: cw.bcast(xw, 5))
+    local = [xs[r] for r in mine]
+    xl = cs.stack(local)
+    ls64 = np.stack(local).astype(np.float64)
+    same(rows_of(cs.allreduce(xl, MPI.SUM), cs, "session shared allreduce"),
+         np.broadcast_to(ls64.sum(0), ls64.shape),
+         f"session shared/{me} allreduce", 1e-5)
+    timed(f"session shared/{me} allreduce SUM f32",
+          lambda: cs.allreduce(xl, MPI.SUM))
+    same(rows_of(cs.bcast(xl, 1), cs, "session shared bcast"),
+         np.broadcast_to(local[1], (MC_ROWS,) + local[1].shape),
+         f"session shared/{me} bcast root 1")
+    timed(f"session shared/{me} bcast root 1", lambda: cs.bcast(xl, 1))
+    del xw, xl
+    sess.finalize()
+
+    # -- mpisync: this controller's rows read its clock, the other's
+    # are unprobed
+    table = mpisync.sync_report(w, rounds=2)
+    for r, row in enumerate(table):
+        if r in mine:
+            check((row["clock"], row["offset_s"]) == ("controller", 0.0),
+                  f"mpisync rank {r}: {row}")
+        else:
+            check(row["clock"] == f"process_{1 - me} (unprobed)"
+                  and row["offset_s"] is None and row["rtt_s"] is None,
+                  f"mpisync rank {r}: {row}")
+    nums["mpisync"] = [row["clock"] for row in table]
+
+    # -- han, then xhc, forced by priority on COMM_WORLD; the vars this
+    # sets are put back to what was in force
+    saved = {k: var.var_get(k) for k in (
+        "coll_torch_allreduce_algorithm", "coll_torch_bcast_algorithm",
+        "coll_han_priority", "coll_xhc_priority")}
+    try:
+        return _multictl_forced(w, x, xi, stack, s64, i32, rows_of, same,
+                                timed, saved)
+    finally:
+        for k, v in saved.items():
+            var.var_set(k, v)
+
+
+def _multictl_forced(w, x, xi, stack, s64, i32, rows_of, same, timed,
+                     saved: dict) -> tuple:
+    """han, then xhc, forced by priority on a dup of COMM_WORLD, against
+    numpy and the forced direct schedule (``_multictl_planes``)."""
+    var.var_set("coll_torch_allreduce_algorithm", "direct")
+    var.var_set("coll_torch_bcast_algorithm", "direct")
+    direct = {"SUM f32": w.allreduce(x, MPI.SUM).local.cpu().numpy(),
+              "MAX f32": w.allreduce(x, MPI.MAX).local.cpu().numpy(),
+              "SUM i32": w.allreduce(xi, MPI.SUM).local.cpu().numpy(),
+              "bcast": w.bcast(x, 3).local.cpu().numpy()}
+    for f in ("allreduce", "bcast"):
+        k = f"coll_torch_{f}_algorithm"
+        var.var_set(k, saved[k])
+    want_np = {"SUM f32": s64.sum(0), "MAX f32": stack.max(0),
+               "SUM i32": i32.sum(0, dtype=np.int32), "bcast": stack[3]}
+    crossing, dups = {}, []
+    for comp, mod in (("han", "HanModule"), ("xhc", "XhcModule")):
+        var.var_set(f"coll_{comp}_priority", 100)
+        d = w.dup()
+        var.var_set(f"coll_{comp}_priority", -1)
+        for f in ("allreduce", "bcast"):
+            got = type(d.c_coll[f]).__name__
+            check(got == mod, f"{comp} forced: {f} provided by {got}")
+        calls = {"SUM f32": lambda: d.allreduce(x, MPI.SUM),
+                 "MAX f32": lambda: d.allreduce(x, MPI.MAX),
+                 "SUM i32": lambda: d.allreduce(xi, MPI.SUM),
+                 "bcast": lambda: d.bcast(x, 3)}
+        for name, fn in calls.items():
+            y = rows_of(fn(), d, f"{comp} {name}")
+            rtol = 1e-5 if name == "SUM f32" else 0.0
+            same(y, np.broadcast_to(want_np[name], y.shape),
+                 f"{comp} {name}", rtol)
+            if rtol:
+                ok = np.allclose(y, direct[name], rtol=rtol, atol=1e-5)
+            else:
+                ok = np.array_equal(y, direct[name])
+            check(ok, f"{comp} {name} differs from the direct schedule")
+            del y
+            label = (f"{comp} allreduce {name}" if name != "bcast"
+                     else f"{comp} bcast root 3")
+            timed(label, fn)
+        crossing[f"{comp} allreduce"] = (
+            lambda d=d: d.allreduce(x, MPI.SUM))
+        dups.append(d)
+    return crossing, dups
 
 
 def _free_port() -> int:
@@ -7061,10 +7258,27 @@ def phase_multictl(smi: str) -> int:
     for c in nums:
         d = c["dtoh"]
         phase("multictl", f"controller {c['controller']}: Memcpy DtoH "
-              f"records (count, bytes): allreduce {d['allreduce']}, bcast "
-              f"{d['bcast']}, control .cpu() {d['control .cpu()']}; "
+              f"records (count, bytes) in one profiler session: "
+              f"allreduce {d['allreduce']}, bcast {d['bcast']}, han "
+              f"allreduce {d['han allreduce']}, xhc allreduce "
+              f"{d['xhc allreduce']}, control .cpu() "
+              f"{d['control .cpu()']}; "
               f"Init {c['init_s']:.2f} s, launch to Init done "
               f"{c['up_s']:.2f} s; flash-fold launches {c['flash_fold']}")
+    ms20 = c0["ms"]
+    for name, (ms, us) in c0["planes_ms"].items():
+        base = ("bcast root 3" if "bcast" in name else
+                "allreduce MAX f32" if "MAX" in name else
+                "allreduce SUM i32" if "i32" in name else
+                "allreduce SUM f32")
+        phase("multictl", f"{name}: {ms:.3f} ms call, {us:.0f} us host, "
+              f"{mib:.0f} MiB per rank | beside the plain world's {base} "
+              f"in this phase: {ms20[base][0]:.3f} ms call | {smi}")
+    phase("multictl", f"Session psets = the world's ranks, shared/0 "
+          f"[0..3], shared/1 [4..7]; WORLD and shared comms = numpy; "
+          f"han and xhc forced: HanModule / XhcModule provide allreduce "
+          f"and bcast, = numpy and = direct (MAX, i32, bcast bit for bit, "
+          f"SUM rtol 1e-5); mpisync on controller 0: {c0['mpisync']}")
     phase("multictl", "'ms call' is a CUDA-event span on controller 0's "
           "stream that includes the tier's host fences; each controller "
           "checked its rows against numpy (float SUM/PROD/scan rtol 1e-5, "

@@ -22,11 +22,15 @@ reassembles them by index. The bml also owns the zero-copy segment plane
 is parked in a shared slot and only its descriptor (``_seg``) travels.
 
 Locality (the hwloc modex): every rank publishes its host and boot
-identity; peers that share it are same-host.
+identity; peers that share it are same-host. The environment variable
+``OMPI_TPU_TORCH_DISABLE_SM`` (any non-empty value) keeps the sm rings
+and the segment plane out of the bml, as the reference's
+``OMPI_TPU_DISABLE_SM`` does.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import queue
 import socket
 import threading
@@ -179,7 +183,10 @@ class BmlEndpoint:
                                self._ordered_sink, on_peer_lost=on_peer_lost)
         kv_set(f"ompi_tpu_torch/btl/host/{rank}", _host_identity())
         self.sm: Optional[SmEndpoint] = None
-        if var.var_get("btl_sm_enable", True) and nprocs > 1:
+        # OMPI_TPU_TORCH_DISABLE_SM (the reference's OMPI_TPU_DISABLE_SM)
+        # keeps both shared-memory planes out: tcp carries every frame
+        no_sm = bool(os.environ.get("OMPI_TPU_TORCH_DISABLE_SM"))
+        if var.var_get("btl_sm_enable", True) and nprocs > 1 and not no_sm:
             try:
                 self.sm = SmEndpoint(
                     rank, nprocs, kv_set, kv_get, self._ordered_sink,
@@ -192,7 +199,7 @@ class BmlEndpoint:
         # able to adopt whatever its own send gate says); segfree frames
         # ride the unsequenced tcp plane, as the sm doorbells do
         self.shm_seg: Optional[_shmseg.SegPlane] = None
-        if nprocs > 1:
+        if nprocs > 1 and not no_sm:
             self.shm_seg = _shmseg.SegPlane(rank, kv_set, kv_get,
                                             ctl_send=self.tcp.send_frame)
         self._same_host: Dict[int, bool] = {}

@@ -31,6 +31,7 @@ import torch
 
 from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.ft import inject as _inject
+from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.trace import core as _trace
 
 MAGIC = 0x7f4d5049          # "\x7fMPI"
@@ -47,6 +48,11 @@ _BULK_MIN = 64 << 10
 # kernel socket buffers: a bulk frame in flight must not wait for the
 # peer's reader thread to be scheduled
 _SOCK_BUF = 8 << 20
+# paced-wire catch-up credit (btl_tcp_sim_gbps): a frame whose pace sleep
+# woke late starts its wire slot where the previous slot ended, up to
+# this much wall time earlier, so the simulated rate holds in aggregate
+# and many small frames are not punished against one large frame
+_PACE_CREDIT = 0.05
 
 
 class PeerDownError(ConnectionError):
@@ -105,6 +111,14 @@ def decode_payload(desc: dict, raw) -> Any:
     return pickle.loads(raw)
 
 
+def register_params() -> None:
+    var.var_register(
+        "btl", "tcp", "sim_gbps", vtype="float", default=0.0,
+        help="When > 0, pace tcp frame sends to this many GB/s (wall-time "
+             "floor per frame): a simulated slow tier for algorithm and "
+             "compression A/Bs; 0 disables")
+
+
 class TcpEndpoint:
     """One per process: the rank's listen socket + lazy peer connections.
 
@@ -144,6 +158,16 @@ class TcpEndpoint:
         # flush-window counters, published by pml/perrank's Router as the
         # pvars btl_ctl_frames / btl_ctl_batches / btl_ctl_poke_dedup
         self.ctl_stats = {"frames": 0, "batches": 0, "poke_dedup": 0}
+        # the paced-wire mode: btl_tcp_sim_gbps > 0 floors each frame's
+        # send wall time at nbytes / rate, a simulated slow tier for
+        # algorithm and compression A/Bs on hosts whose loopback is far
+        # faster than a cross-host link. Off (0) by default: no pacing
+        # and no extra clock reads
+        register_params()
+        self._sim_bps = float(var.var_get("btl_tcp_sim_gbps", 0.0)) * 1e9
+        # per-socket pacing clocks, keyed by send-lock identity; an entry
+        # is only touched under that lock (see _pace)
+        self._pace_clock: Dict[int, float] = {}
 
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -529,8 +553,24 @@ class TcpEndpoint:
                     break
         raise PeerDownError(peer, last)
 
-    @staticmethod
-    def _sendmsg(s: socket.socket, lock: threading.Lock, header: dict,
+    def _pace(self, key: int, nbytes: int, t0: float) -> None:
+        """The paced-wire floor (btl_tcp_sim_gbps): hold the sender until
+        the frame's simulated wire slot has elapsed. Slots come from a
+        per-socket clock: a frame's slot begins where the previous one
+        ended (with at most ``_PACE_CREDIT`` of catch-up), so sleep
+        overshoot does not compound and a segment train paces at the
+        rate of one large frame. Callers hold the socket's send lock,
+        which serializes access to this key's clock."""
+        budget = nbytes / self._sim_bps
+        clock = self._pace_clock.get(key)
+        start = t0 if clock is None else max(clock, t0 - _PACE_CREDIT)
+        deadline = start + budget
+        self._pace_clock[key] = deadline
+        remain = deadline - time.perf_counter()
+        if remain > 0:
+            time.sleep(remain)
+
+    def _sendmsg(self, s: socket.socket, lock: threading.Lock, header: dict,
                  payload) -> None:
         """One frame under the socket's send lock; a bulk payload goes as
         a second sendall under the same lock, so the frame stays
@@ -539,11 +579,14 @@ class TcpEndpoint:
         nbytes = len(payload)
         head = _LEN.pack(MAGIC, len(hraw), nbytes) + hraw
         with lock:
+            t0 = time.perf_counter() if self._sim_bps > 0 else 0.0
             if nbytes >= _BULK_MIN:
                 s.sendall(head)
                 s.sendall(payload)
             else:
                 s.sendall(head + payload if nbytes else head)
+            if self._sim_bps > 0:
+                self._pace(id(lock), len(head) + nbytes, t0)
 
     def _send_batch_blocking(self, peer: int, frames) -> None:
         """One sendall for a whole flush window."""
@@ -558,8 +601,13 @@ class TcpEndpoint:
             parts.append(hraw)
             if payload:
                 parts.append(payload)
-        with self._peer_locks[peer]:
-            s.sendall(b"".join(parts))
+        msg = b"".join(parts)
+        lock = self._peer_locks[peer]
+        with lock:
+            t0 = time.perf_counter() if self._sim_bps > 0 else 0.0
+            s.sendall(msg)
+            if self._sim_bps > 0:
+                self._pace(id(lock), len(msg), t0)
 
     def close(self) -> None:
         if self._closed:

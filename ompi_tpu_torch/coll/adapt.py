@@ -14,6 +14,12 @@ the shared progress engine (a segment's round k does not wait for the
 other segments' round k) — and (b) a completion callback — user code
 runs the moment the last segment retires. The segments' results are
 joined on the communicator's device.
+
+Across controllers (``core/multictl``) a buffer is this controller's
+rows (``multictl.Rows``): the segments are column slices of those rows,
+and each runs as the communicator's own i-collective, which completes
+on the controller tier (``coll/nbc`` schedules index every rank's row,
+so they stay single-controller).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from ompi_tpu_torch.accelerator import to_device
 from ompi_tpu_torch.coll.framework import coll_framework
 from ompi_tpu_torch.coll.nbc import NbcModule, ScheduleRequest
 from ompi_tpu_torch.core import op as op_mod
+from ompi_tpu_torch.core.multictl import Rows
 from ompi_tpu_torch.core.request import Request
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.mca.base import Component
@@ -63,6 +70,9 @@ class AdaptRequest(Request):
     def test(self):
         if not self._complete:
             prog.progress()
+            for s in self._segments:
+                if not s._complete and not isinstance(s, ScheduleRequest):
+                    s.test()              # an i-collective's own request
             self._try_finish()
         return (True, self.status) if self._complete else (False, None)
 
@@ -83,25 +93,56 @@ class AdaptModule:
         self.seg = max(1, segsize_elems)
         self._nbc = NbcModule(comm)
 
+    def _operand(self, x):
+        """The stacked tensor on the comm's device, or this controller's
+        rows of a multi-controller buffer."""
+        if self.comm.is_multiprocess:
+            return self.comm._rows_of(x)
+        return to_device(x, self.comm.device)
+
     def _segments(self, x) -> List[torch.Tensor]:
-        flat = to_device(x, self.comm.device).reshape(self.comm.size, -1)
+        if isinstance(x, Rows):
+            flat = x.local.reshape(x.local.shape[0], -1)
+            segs = [x.like(flat[:, i:i + self.seg])
+                    for i in range(0, flat.shape[1], self.seg)]
+            return segs or [x.like(flat)]
+        flat = x.reshape(self.comm.size, -1)
         segs = [flat[:, i:i + self.seg]
                 for i in range(0, flat.shape[1], self.seg)]
         return segs or [flat]       # count=0 collective: one empty seg
 
     @staticmethod
-    def _assemble(orig_shape):
+    def _assemble(x):
+        if isinstance(x, Rows):
+            shape = tuple(x.local.shape)
+
+            def put_rows(parts):
+                return x.like(torch.cat([p.local for p in parts],
+                                        dim=1).reshape(shape))
+            return put_rows
+        orig_shape = tuple(x.shape)
+
         def put_together(parts):
             return torch.cat(parts, dim=1).reshape(orig_shape)
         return put_together
 
+    def _ibcast(self, seg, root):
+        if self.comm.is_multiprocess:
+            return self.comm.ibcast(seg, root)
+        return self._nbc.ibcast(seg, root)
+
+    def _iallreduce(self, seg, op):
+        if self.comm.is_multiprocess:
+            return self.comm.iallreduce(seg, op)
+        return self._nbc.iallreduce(seg, op)
+
     def ibcast_adapt(self, x, root: int = 0,
                      on_complete: Optional[Callable] = None
                      ) -> AdaptRequest:
+        x = self._operand(x)
         segs = self._segments(x)
-        reqs = [self._nbc.ibcast(s, root) for s in segs]
-        return AdaptRequest(reqs, self._assemble(tuple(x.shape)),
-                            on_complete)
+        reqs = [self._ibcast(s, root) for s in segs]
+        return AdaptRequest(reqs, self._assemble(x), on_complete)
 
     def ireduce_adapt(self, x, op: op_mod.Op = op_mod.SUM, root: int = 0,
                       on_complete: Optional[Callable] = None
@@ -109,10 +150,10 @@ class AdaptModule:
         """Reduce-to-root via segmented allreduce schedules; non-root
         rows carry the (discarded) allreduce value, as the stacked
         convention allows."""
+        x = self._operand(x)
         segs = self._segments(x)
-        reqs = [self._nbc.iallreduce(s, op) for s in segs]
-        return AdaptRequest(reqs, self._assemble(tuple(x.shape)),
-                            on_complete)
+        reqs = [self._iallreduce(s, op) for s in segs]
+        return AdaptRequest(reqs, self._assemble(x), on_complete)
 
 
 class AdaptComponent(Component):
@@ -133,8 +174,8 @@ class AdaptComponent(Component):
 
     def comm_query(self, comm):
         prio = var.var_get("coll_adapt_priority", 28)
-        if prio < 0 or getattr(comm, "is_multiprocess", False):
-            return None                   # segments index every row
+        if prio < 0:
+            return None
         return (prio, AdaptModule(comm,
                                   var.var_get("coll_adapt_segsize", 1024)))
 

@@ -135,7 +135,7 @@ class _CompressedDevice(TorchCollModule):
     def _mc_compressed(self, func: str, x, op=None):
         """The compressed schedule of ``func`` on this controller's rows;
         its tier exchanges carry codes and scales."""
-        rows = self._mc_rows(x)
+        rows = self.comm._rows_of(x)
         if not self.comm._local:
             return self._mc_call(func, rows, op)
         cobj, cblock = self._codec()

@@ -20,6 +20,19 @@ into the up-comm's stack, then a gather back down; a row crosses to
 another device only where the tiers' devices differ. The module keeps
 out of its own tiers' selection (a thread-local construction guard and
 ``_han_inner``), as the reference han refuses comms without hierarchy.
+
+Across controllers (``core/multictl``) rows are keyed by controller
+first, so a low group is one controller's rows and the leaders' up tier
+spans the controllers. Every controller builds every sub-comm (SPMD) and
+runs the low tiers that hold its rows, on those rows (``Rows.local``);
+the up tier crosses through ``coll/torch_``'s controller bodies, and the
+result comes down to this controller's rows from the leader row held
+here. Where a synthetic split (``coll_han_split``) gives a low group
+rows on several controllers, that low tier crosses too, and a group
+whose leader another controller holds takes its value by a low-tier
+bcast from the leader. No step reads a row another controller holds.
+One body serves every comm: where a comm spans no other controller,
+every row is held here and no tier crosses.
 """
 from __future__ import annotations
 
@@ -32,9 +45,10 @@ import torch
 from ompi_tpu_torch.accelerator import to_device
 from ompi_tpu_torch.coll.framework import coll_framework
 from ompi_tpu_torch.core import op as op_mod
+from ompi_tpu_torch.core.multictl import Rows
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.mca.base import Component
-from ompi_tpu_torch.utils.locality import device_key
+from ompi_tpu_torch.utils.locality import row_controllers, row_keys
 
 _tls = threading.local()
 
@@ -46,16 +60,17 @@ def _in_construction() -> bool:
 def locality_groups(comm, group_size: int = 0) -> Optional[List[List[int]]]:
     """Partition comm ranks into low-level groups. ``group_size`` > 0
     forces a synthetic split (rank // group_size); otherwise rows are
-    grouped by their CUDA device index. Returns None when the hierarchy
-    is trivial (one group, or all singleton groups)."""
+    grouped by their (controller,) CUDA device index. Returns None when
+    the hierarchy is trivial (one group, or all singleton groups)."""
     n = comm.size
-    groups: Dict[int, List[int]] = {}
+    groups: Dict[object, List[int]] = {}
     if group_size > 0:
         for r in range(n):
             groups.setdefault(r // group_size, []).append(r)
     else:
-        for r, d in enumerate(comm.devices):
-            groups.setdefault(device_key(d), []).append(r)
+        keys = row_keys(comm.devices, row_controllers(comm))
+        for r, k in enumerate(keys):
+            groups.setdefault(k, []).append(r)
     out = [sorted(g) for _k, g in sorted(groups.items())]
     if len(out) <= 1 or all(len(g) == 1 for g in out):
         return None
@@ -90,33 +105,18 @@ class Hierarchy:
             self.up = up
         finally:
             _tls.constructing = False
-        # index tensors, built once on the devices that read them
-        self._rows = [torch.tensor(g, dtype=torch.long, device=comm.device)
-                      for g in groups]
-        self._down = torch.tensor(self.group_of, dtype=torch.long,
-                                  device=self.up.device)
+        # index tensors, built once: the positions of each group's rows
+        # held here among this controller's rows (every row, where the
+        # comm spans no other controller), and the rank order of a stack
+        # in group order
+        at = {r: i for i, r in enumerate(comm._local)}
+        self.rows = [torch.tensor([at[r] for r in g if r in at],
+                                  dtype=torch.long, device=comm.device)
+                     for g in groups]
         order = np.concatenate([np.asarray(g) for g in groups])
         pos = np.empty(comm.size, np.int64)
         pos[order] = np.arange(comm.size)
-        self._pos = torch.tensor(pos, dtype=torch.long,
-                                 device=self.up.device)
-
-    def rows(self, gi: int) -> torch.Tensor:
-        return self._rows[gi]
-
-    def low_parts(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """Each low group's rows of ``x``, on that group's device."""
-        return [to_device(x.index_select(0, self.rows(gi)), low.device)
-                for gi, low in enumerate(self.low)]
-
-    def leader_stack(self, rows: List[torch.Tensor]) -> torch.Tensor:
-        """The up tier's stacked buffer from one row per group."""
-        return torch.stack([to_device(r, self.up.device) for r in rows])
-
-    def down(self, lead: torch.Tensor) -> torch.Tensor:
-        """Rank r's row = its group leader's row of ``lead``, on the
-        communicator's device."""
-        return to_device(lead.index_select(0, self._down), self.comm.device)
+        self.pos = torch.tensor(pos, dtype=torch.long, device=comm.device)
 
 
 class HanModule:
@@ -159,67 +159,160 @@ class HanModule:
                 return m
         raise RuntimeError(f"no fallback provider for {func}")
 
+    # -- the tiers, over the rows held here ----------------------------
+    # A tier comm whose rows are all held here takes a plain stacked
+    # tensor; one whose rows span controllers takes its ``Rows``.
+    @staticmethod
+    def _unwrap(y) -> torch.Tensor:
+        return y.local if isinstance(y, Rows) else y
+
+    def _low(self, X: torch.Tensor, fn):
+        """``fn(low, buf)`` on every low tier holding rows here, each
+        given its rows of ``X``; returns {group: its result rows here}."""
+        h = self.h
+        out = {}
+        for gi, low in enumerate(h.low):
+            if low._local:
+                out[gi] = self._unwrap(fn(low, low._as_buffer(to_device(
+                    X.index_select(0, h.rows[gi]), low.device))))
+        return out
+
+    def _up(self, rows: Dict[int, torch.Tensor],
+            fn) -> Dict[int, torch.Tensor]:
+        """``fn(up, buf)`` over the leaders' rows held here (``rows[gi]``
+        is group gi's leader row); returns {group: its up result row}
+        for the leaders held here."""
+        up = self.h.up
+        if not up._local:
+            return {}
+        y = self._unwrap(fn(up, up._as_buffer(torch.stack(
+            [to_device(rows[gi], up.device) for gi in up._local]))))
+        return {gi: y[i] for i, gi in enumerate(up._local)}
+
+    def _down(self, like: torch.Tensor, lead: Dict[int, torch.Tensor],
+              groups=None) -> torch.Tensor:
+        """The rows held here of the result: each row takes its group's
+        value, from the leader row held here, or by a low-tier bcast from
+        the leader where another controller holds it."""
+        h = self.h
+        dev = self.comm.device
+        out = torch.empty((len(self.comm._local),) + tuple(like.shape),
+                          dtype=like.dtype, device=dev)
+        for gi, low in enumerate(h.low):
+            if not low._local or (groups is not None and gi not in groups):
+                continue
+            if low.is_multiprocess:
+                # every controller of the group joins; the leader's
+                # controller writes its row
+                buf = low.alloc(tuple(like.shape), like.dtype)
+                if 0 in low._local:
+                    buf.local[0] = lead[gi]
+                val = low.bcast(buf, 0).local[0]
+            else:
+                val = lead[gi]
+            out.index_copy_(0, h.rows[gi], to_device(val, dev).unsqueeze(
+                0).expand((h.rows[gi].numel(),) + tuple(like.shape)))
+        return out
+
     # -- collectives ---------------------------------------------------
     def allreduce(self, x, op: op_mod.Op = op_mod.SUM):
         if self._strategy("allreduce", int(getattr(x, "nbytes", 0))) \
                 == "flat":
             return self._flat("allreduce")(x, op)
-        h = self.h
-        x = to_device(x, self.comm.device)
+        comm = self.comm
+        X = comm._local_rows(x)
+        if not comm._local:
+            return comm._as_buffer(X.clone())
         # level 1: intra-group allreduce on each low comm
-        partials = [low.allreduce(sub, op)
-                    for low, sub in zip(h.low, h.low_parts(x))]
+        part = self._low(X, lambda c, b: c.allreduce(b, op))
+        lead = {gi: p[0] for gi, p in part.items()
+                if 0 in self.h.low[gi]._local}
         # level 2: the leaders' allreduce across groups (the up tier)
-        reduced = h.up.allreduce(h.leader_stack([p[0] for p in partials]),
-                                 op)
+        red = self._up(lead, lambda c, b: c.allreduce(b, op))
         # level 3: the result goes back down the low tier
-        return h.down(reduced)
+        return comm._as_buffer(self._down(X[0], red))
 
     def bcast(self, x, root: int = 0):
         if self._strategy("bcast", int(getattr(x, "nbytes", 0))) == "flat":
             return self._flat("bcast")(x, root)
         h = self.h
-        x = to_device(x, self.comm.device)
-        root_gi = int(h.group_of[root])
-        # up tier: the root's row reaches every leader
-        lead = h.leader_stack([x[root]] * len(h.leaders))
-        lead_out = h.up.bcast(lead, root_gi)
-        # low tier: each leader's row fills its group
-        return h.down(lead_out)
+        comm = self.comm
+        X = comm._local_rows(x)
+        if not comm._local:
+            return comm._as_buffer(X.clone())
+        rg = int(h.group_of[root])
+        low = h.low[rg]
+        k = h.groups[rg].index(root)          # the root's low-tier rank
+        lead = {}
+        if low._local and low.is_multiprocess \
+                and low.controller_of(0) != low.controller_of(k):
+            # the root's row reaches its leader over its low tier first
+            y = self._unwrap(low.bcast(low._as_buffer(
+                X.index_select(0, h.rows[rg])), k))
+            if 0 in low._local:
+                lead[rg] = y[0]
+        elif 0 in low._local and root in comm._local:
+            lead[rg] = X[comm._local.index(root)]
+        for gi in h.up._local:                # only the root group's row
+            lead.setdefault(gi, X[0])         # is read
+        # up tier: the root's row reaches every leader; the low tier
+        # fills each group from its leader
+        out = self._up(lead, lambda c, b: c.bcast(b, rg))
+        return comm._as_buffer(self._down(X[0], out))
 
     def reduce(self, x, op: op_mod.Op = op_mod.SUM, root: int = 0):
         if self._strategy("reduce", int(getattr(x, "nbytes", 0))) == "flat":
             return self._flat("reduce")(x, op, root)
         h = self.h
-        x = to_device(x, self.comm.device)
-        partials = [low.allreduce(sub, op)
-                    for low, sub in zip(h.low, h.low_parts(x))]
-        root_gi = int(h.group_of[root])
-        red = h.up.reduce(h.leader_stack([p[0] for p in partials]), op,
-                          root_gi)
-        out = torch.zeros_like(x)
-        out[root] = to_device(red[root_gi], self.comm.device)
-        return out
+        comm = self.comm
+        X = comm._local_rows(x)
+        out = torch.zeros_like(X)
+        if not comm._local:
+            return comm._as_buffer(out)
+        rg = int(h.group_of[root])
+        part = self._low(X, lambda c, b: c.allreduce(b, op))
+        lead = {gi: p[0] for gi, p in part.items()
+                if 0 in h.low[gi]._local}
+        red = self._up(lead, lambda c, b: c.reduce(b, op, rg))
+        # the root group's leader holds the total; its low tier brings it
+        # to the root's row
+        val = self._down(X[0], red, groups=(rg,))
+        if root in comm._local:
+            i = comm._local.index(root)
+            out[i] = val[i]
+        return comm._as_buffer(out)
 
     def allgather(self, x):
         if self._strategy("allgather",
                           int(getattr(x, "nbytes", 0))) == "flat":
             return self._flat("allgather")(x)
         h = self.h
-        x = to_device(x, self.comm.device)
-        n = self.comm.size
-        # the low tier gathers per group; the leaders exchange their
-        # group blocks over the up tier (v-collective: group sizes may
-        # differ)
-        gathered = [low.allgather(sub)[0]
-                    for low, sub in zip(h.low, h.low_parts(x))]
-        blocks = h.up.allgatherv([to_device(g, h.up.device).reshape(-1)
-                                  for g in gathered])
-        full = blocks[0].reshape((n,) + tuple(x.shape[1:]))
-        # rows arrive in group order; permute back to rank order
-        full = to_device(full.index_select(0, h._pos), self.comm.device)
-        return full.unsqueeze(0).expand((n,) + tuple(full.shape)) \
-            .contiguous()
+        comm = self.comm
+        X = comm._local_rows(x)
+        n = comm.size
+        s = tuple(X.shape[1:])
+        if not comm._local:
+            return comm._as_buffer(X.new_empty((0, n) + s))
+        # the low tier gathers per group; the leaders exchange their group
+        # blocks, padded to the largest group, over the up tier
+        gmax = max(len(g) for g in h.groups)
+        blocks = self._low(X, lambda c, b: c.allgather(b))
+        lead = {}
+        for gi, b in blocks.items():
+            if 0 in h.low[gi]._local:
+                blk = b[0]
+                pad = blk.new_zeros((gmax - blk.shape[0],) + s)
+                lead[gi] = torch.cat([blk, pad]) if pad.shape[0] else blk
+        got = self._up(lead, lambda c, b: c.allgather(b))
+        full = None
+        if got:
+            every = to_device(next(iter(got.values())), comm.device)
+            # rows arrive in group order, (n_up, gmax, *s); permute back
+            # to rank order
+            full = torch.cat([every[gi][:len(g)] for gi, g in
+                              enumerate(h.groups)]).index_select(0, h.pos)
+        return comm._as_buffer(self._down(X.new_empty((n,) + s),
+                                          {gi: full for gi in got}))
 
     def barrier(self) -> None:
         if self._strategy("barrier", 0) == "flat":
@@ -227,8 +320,13 @@ class HanModule:
             return
         h = self.h
         for low in h.low:
-            low.barrier()
-        h.up.barrier()
+            if low._local:
+                low.barrier()
+        if h.up._local:
+            h.up.barrier()
+        for low in h.low:                 # the fan-out of a spanning group
+            if low._local and low.is_multiprocess:
+                low.barrier()
 
 
 def _dynamic_rules() -> Dict[str, List[dict]]:
@@ -254,8 +352,8 @@ class HanComponent(Component):
                               "composition component")
         var.var_register("coll", "han", "split", vtype="int", default=0,
                          help="Synthetic low-group size (0 = group rows "
-                              "by CUDA device); models the tiers where "
-                              "every row shares one device")
+                              "by controller, then CUDA device); models "
+                              "the tiers where every row shares one device")
         var.var_register("coll", "han", "dynamic_rules", vtype="str",
                          default="",
                          help="JSON rule file keyed by collective: "
@@ -265,9 +363,7 @@ class HanComponent(Component):
         if _in_construction() or getattr(comm, "_han_inner", False):
             return None                   # never recurse into own tiers
         prio = var.var_get("coll_han_priority", 35)
-        if prio < 0 or getattr(comm, "is_multiprocess", False):
-            # its tiers index every row of the stack; across controllers
-            # coll/torch's hier schedules are the two-tier path
+        if prio < 0:
             return None
         groups = locality_groups(comm, var.var_get("coll_han_split", 0))
         if groups is None:

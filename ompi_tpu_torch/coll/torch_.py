@@ -1300,12 +1300,9 @@ class TorchCollModule:
         return multictl.tier(self.comm.layout.ctrls)
 
     def _mc_run(self, body: str, *args):
-        """``body`` of the controller tier's device slots, on the tier's
-        collective context. The hidden tier's own entries are not the
-        user's collectives: no SPC count, hook or interposer sees them."""
-        t = self._mc_tier()
-        t._check()
-        return t._coll_serial(getattr(t, body), *args)
+        """``body`` of the controller tier's device slots
+        (``multictl.run``)."""
+        return multictl.run(self.comm.layout.ctrls, body, *args)
 
     def _mc_exchange(self, flat: torch.Tensor, cap: int, want):
         """One ragged round over the controller tier: write ``flat``,
@@ -1329,15 +1326,8 @@ class TorchCollModule:
             return "hier"
         return "direct"
 
-    def _mc_rows(self, x) -> Rows:
-        """A multi-controller operand: its rows, or this controller's
-        rows of the global stack every controller passes."""
-        if isinstance(x, Rows):
-            return self.comm._check_rows(x)
-        return self.comm.put(x)
-
     def _mc_call(self, func: str, x, op=None, root=None):
-        rows = self._mc_rows(x)
+        rows = self.comm._rows_of(x)
         if not self.comm._local:
             # no row here: this controller takes no part
             shape = tuple(rows.local.shape)

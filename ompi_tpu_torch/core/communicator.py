@@ -58,7 +58,8 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.accelerator import (LOCUS_DEVICE, check_addr,
-                                        device_locality, to_numpy)
+                                        device_locality, to_device,
+                                        to_numpy)
 from ompi_tpu_torch.core import convertor, multictl
 from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.core.datatype import Datatype, torch_dtype
@@ -288,6 +289,26 @@ class Communicator:
         if isinstance(stacked, torch.Tensor):
             return to_numpy(stacked[rank])
         return np.array(stacked[rank])
+
+    def _rows_of(self, x) -> Rows:
+        """A multi-controller operand: its rows (checked to be this
+        communicator's), or this controller's rows of the global stack
+        every controller passes."""
+        return self._check_rows(x) if isinstance(x, Rows) else self.put(x)
+
+    def _local_rows(self, x) -> torch.Tensor:
+        """The rows of operand ``x`` held here, as one ``(L, *s)`` tensor
+        on this communicator's device: the whole stack where every row is
+        held here, else this controller's rows (``Rows.local``)."""
+        if self.is_multiprocess:
+            return self._rows_of(x).local
+        return to_device(x, self.device)
+
+    def _as_buffer(self, local: torch.Tensor):
+        """A result's rows held here as this communicator's buffer:
+        ``Rows`` on a multiprocess communicator, else the stacked tensor
+        itself (the inverse of ``_local_rows``)."""
+        return self._rows(local) if self.is_multiprocess else local
 
     def _check_rows(self, buf: Rows) -> Rows:
         """The reference's ``_to_mesh`` guard: a multi-controller buffer

@@ -59,6 +59,11 @@ def me() -> int:
     return int(_state["me"])
 
 
+def nranks() -> int:
+    """The world's rank count (0 outside a multi-controller world)."""
+    return len(_state["ctl"] or ())
+
+
 def device() -> Optional[torch.device]:
     return _state["device"]
 
@@ -85,6 +90,46 @@ def tier(ctrls: Tuple[int, ...]):
             Group(list(ctrls)), me(), _state["router"], _state["device"],
             cid=("mc",) + tuple(ctrls), name=f"controllers{list(ctrls)}")
     return t
+
+
+def run(ctrls: Tuple[int, ...], body: str, *args):
+    """``body`` (a device-slot method of ``RankCommunicator``:
+    ``_device_exchange``, ``_device_allreduce``, ``_device_bcast``) of
+    the hidden tier over ``ctrls``, on the tier's collective context. The
+    tier's own entries are not the user's collectives: no SPC count, hook
+    or interposer sees them."""
+    t = tier(ctrls)
+    t._check()
+    return t._coll_serial(getattr(t, body), *args)
+
+
+def ship_rows(ctrls: Tuple[int, ...], counts: Sequence[Sequence[int]],
+              rows: torch.Tensor) -> List[Optional[torch.Tensor]]:
+    """Move rows between the controllers ``ctrls`` in one round of the
+    hidden tier, on the device. ``counts[g][d]`` is how many rows
+    controller ``ctrls[g]`` sends to ``ctrls[d]``, alike on every
+    controller (SPMD); ``rows`` are this controller's outgoing rows
+    ``(sum(counts[h]), *s)``, grouped by destination in controller order.
+    Returns per source g the ``(counts[g][h], *s)`` rows it sent here
+    (None where it sent none)."""
+    h = ctrls.index(me())
+    s = tuple(rows.shape[1:])
+    per = int(np.prod(s, dtype=np.int64))
+    cap = max(sum(c) for c in counts) * per * rows.element_size()
+    want = []
+    for g, c in enumerate(counts):
+        a = sum(c[:h])
+        want.append((0, 0) if g == h else (a * per, (a + c[h]) * per))
+    got = run(ctrls, "_device_exchange", rows.reshape(-1), cap, want)
+    return [None if t is None else t.view((-1,) + s) for t in got]
+
+
+def bcast(ctrls: Tuple[int, ...], x: torch.Tensor, root: int
+          ) -> torch.Tensor:
+    """Controller ``ctrls[root]``'s ``x`` on every controller of
+    ``ctrls`` (one round of the hidden tier, on the device); the others
+    pass a tensor of the same shape and dtype."""
+    return run(ctrls, "_device_bcast", x, root)
 
 
 def close() -> None:

@@ -25,9 +25,11 @@ fold, as the JAX package trains through its jnp fold. Ring attention
 (sp) folds with its own einsums. The train steps thus launch no kernel.
 
 Numerics follow the JAX package: GELU is the tanh approximation
-(``jax.nn.gelu``'s default), rmsnorm runs in float32 with eps 1e-6 inside
-the rsqrt, logits are a float32 product against ``emb``, and the loss is
-``log_softmax`` gathered at the targets.
+(``jax.nn.gelu``'s default) computed op by op in the activation dtype,
+as ``jax.nn.gelu`` rounds it (``parallel/moe.gelu``), rmsnorm runs in
+float32 with eps 1e-6 inside the rsqrt, logits are a float32 product
+against ``emb``, and the loss is ``log_softmax`` gathered at the
+targets.
 
 ``BucketedGradSync`` is the DDP path: ``sgd_train_step(grad_sync=…)``
 averages the dp gradients through bucketed persistent allreduces on a
@@ -215,8 +217,7 @@ def _mlp(x, lt: Dict, cfg: Config, tp_comm: Optional[InGraphComm],
         mine = F.one_hot(r, E).bool()[:, :, None, None]       # (R,E,1,1)
         full = torch.where(mine, out_shard[:, None], 0).reshape(R, T, D)
         return ep_comm.reduce_out(full).reshape(R, B, S, D)
-    m = F.gelu(torch.einsum("rbsd,rdf->rbsf", x, lt["w1"].to(cfg.dtype)),
-               approximate="tanh")
+    m = _moe.gelu(torch.einsum("rbsd,rdf->rbsf", x, lt["w1"].to(cfg.dtype)))
     m = torch.einsum("rbsf,rfd->rbsd", m, lt["w2"].to(cfg.dtype))
     if tp_comm is not None:
         m = tp_comm.reduce_out(m)                      # row-parallel sum

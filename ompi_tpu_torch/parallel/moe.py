@@ -14,12 +14,38 @@ at ``(0, clip(slot))``, as the JAX package's ``.at[].add`` does.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
 
 from ompi_tpu_torch.parallel.ingraph import InGraphComm
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU as ``jax.nn.gelu`` computes it: op by op in ``x``'s
+    dtype, with its constants rounded to that dtype and the cube as
+    ``(x * x) * x``. In bf16 every step rounds to bf16, where ``F.gelu``
+    computes in float32 and rounds once: the two part in the last bit of
+    about two in five elements. In float32 they agree to float32
+    rounding."""
+    c = _gelu_consts(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c[0] * (x + c[1] * (x * x * x)))))
+
+
+_GELU_CONSTS: Dict[torch.dtype, tuple] = {}
+
+
+def _gelu_consts(dtype: torch.dtype) -> tuple:
+    """sqrt(2/pi) and 0.044715 as ``dtype`` holds them, as Python floats
+    (exact in that dtype, so a scalar op rounds as a tensor op would)."""
+    c = _GELU_CONSTS.get(dtype)
+    if c is None:
+        c = _GELU_CONSTS[dtype] = tuple(
+            float(torch.tensor(v, dtype=torch.float64).to(dtype))
+            for v in (math.sqrt(2.0 / math.pi), 0.044715))
+    return c
 
 
 def moe_apply(x, params: Dict[str, Any], ep: InGraphComm, capacity: int):
@@ -54,7 +80,7 @@ def moe_apply(x, params: Dict[str, Any], ep: InGraphComm, capacity: int):
 
     # expert e receives its slots from every source rank
     recv = ep.alltoall(dispatch, split_axis=0, concat_axis=0)      # (R,n,C,D)
-    h = F.gelu(recv @ params["w1"][:, None], approximate="tanh")
+    h = gelu(recv @ params["w1"][:, None])
     y = h @ params["w2"][:, None]
     back = ep.alltoall(y, split_axis=0, concat_axis=0)             # (R,n,C,D)
 

@@ -3,8 +3,10 @@ refcounted bring-up, ``instance.c:825`` / common path ``:361-720``). The
 port of ``ompi_tpu/runtime/session.py``.
 
 A Session is an independent handle onto the runtime: it exposes process
-sets ("mpi://WORLD", "mpi://SELF", plus one per CUDA device when the
-rows span several), builds Groups from psets, and creates communicators
+sets ("mpi://WORLD", "mpi://SELF", plus one "mpix://shared/<k>" per
+shared-memory domain when the rows span several: per controller process
+in a multi-controller world, else per CUDA device), builds Groups from
+psets, and creates communicators
 from groups without touching COMM_WORLD. Each Session owns, per
 ``instance.c:361-720``'s per-instance bootstrap,
 
@@ -32,6 +34,11 @@ it never moves to the CPU on its own.
 In a per-rank job (one OS process per rank) psets enumerate processes,
 and session communicators are ``RankCommunicator``s whose CIDs are the
 tuple ``("s", tag, group, ordinal)``, which every member derives alike.
+A multi-controller job (``mpirun --coordinator``) also has a router, but
+one that joins controllers: its psets enumerate the world's ranks, as
+the reference's device psets do, and its session communicators are
+stacked ``SessionCommunicator``s whose collectives cross the controller
+tier (``core/multictl``).
 """
 from __future__ import annotations
 
@@ -179,8 +186,12 @@ class Session:
         # drawing CIDs from the (tag, group) ordinals. The router
         # (endpoints, modex) is the shared instance state the refcount
         # guards.
+        from ompi_tpu_torch.core import multictl
         from ompi_tpu_torch.runtime import init as _rt
-        self._router = _rt._state.get("router")
+        # a multi-controller world's router joins its controllers, not
+        # its ranks: such a job takes the device-pset branch below
+        self._router = (None if multictl.active()
+                        else _rt._state.get("router"))
         if self._router is None and os.environ.get(
                 var.ENV_PREFIX + "mpi_base_per_rank"):
             # a per-rank process without a live router would build
@@ -204,13 +215,24 @@ class Session:
                 "mpi://WORLD": list(range(len(self.devices))),
                 "mpi://SELF": [0],
             }
-            # one pset per shared-memory domain (CUDA device), the
-            # reference's mpix:// locality psets; none on one card
-            by_dev: Dict[int, List[int]] = {}
+            # one pset per shared-memory domain, the reference's mpix://
+            # locality psets: a controller process in a multi-controller
+            # world (the reference's process_index), else a CUDA device;
+            # none on one card
+            ctl = None
+            if multictl.active():
+                if len(self.devices) != multictl.nranks():
+                    raise MPIError(ERR_ARG,
+                                   f"a multi-controller Session holds the "
+                                   f"world's {multictl.nranks()} rows, not "
+                                   f"{len(self.devices)}")
+                ctl = multictl.controllers_of(range(len(self.devices)))
+            by_dom: Dict[int, List[int]] = {}
             for i, d in enumerate(self.devices):
-                by_dev.setdefault(_device_key(d), []).append(i)
-            if len(by_dev) > 1:
-                for k, ranks in sorted(by_dev.items()):
+                by_dom.setdefault(_device_key(d) if ctl is None else ctl[i],
+                                  []).append(i)
+            if len(by_dom) > 1:
+                for k, ranks in sorted(by_dom.items()):
                     self._psets[f"mpix://shared/{k}"] = ranks
         _instance_retain()
 

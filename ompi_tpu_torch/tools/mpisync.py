@@ -8,10 +8,14 @@ network jitter), so traces from different hosts can be aligned.
 
 Design: ranks on one controller share a clock (offset 0 by
 construction): the port's single-controller world spans one process, so
-every rank of it reads the controller's clock. What needs syncing is the
-per-rank world, where each rank is a process: ``sync_report_perrank``
-ping-pongs rank 0's clock over pt2pt. The estimator is the same mpigclock
-algorithm generalized over any remote-clock probe: ``measure_offset``
+every rank of it reads the controller's clock. In a multi-controller
+world a rank's process is the controller holding its row
+(``comm.controller_of``): the other controllers' ranks are probed
+through the caller's ``remote_clocks[controller]``, or reported
+unprobed. In the per-rank world each rank is a process:
+``sync_report_perrank`` ping-pongs rank 0's clock over pt2pt. The
+estimator is the same mpigclock algorithm generalized over any
+remote-clock probe: ``measure_offset``
 takes a callable returning the remote clock "now" and returns the
 (offset, rtt) of the best of N round trips; ``sync_report`` applies it
 to every participant of a communicator (remote controllers probed via
@@ -51,17 +55,26 @@ def sync_report(comm, rounds: int = 10,
     """Offset of every rank's clock against rank 0 (the mpisync output
     table). Ranks sharing this controller share its clock: offset is 0
     by construction and reported with rtt 0. Remote controllers (ranks
-    whose device belongs to another process) are probed through
-    ``remote_clocks[process_index]`` — a callable returning that
+    whose row another controller process holds) are probed through
+    ``remote_clocks[controller]`` — a callable returning that
     controller's "now", e.g. a coordination-service KV timestamp
     exchange. Without a probe the rank is reported ``unprobed``
     (offset None) rather than a fabricated zero."""
+    from ompi_tpu_torch.core import multictl
     rows: List[Dict] = []
-    local_proc = 0                       # the one controller process
+    # a rank's process is the controller that holds its row (the
+    # reference's process_index); one controller holds every row of a
+    # single-controller world. A comm without a controller table names
+    # each device's process_index, as the reference reads it.
+    local_proc = multictl.me()
+    ctl = getattr(comm, "controller_of", None)
     devices = list(getattr(comm, "devices", []) or [])
     for rank in range(comm.size):
-        proc = (getattr(devices[rank], "process_index", 0)
-                if rank < len(devices) else 0)
+        if ctl is not None:
+            proc = ctl(rank)
+        else:
+            proc = (getattr(devices[rank], "process_index", 0)
+                    if rank < len(devices) else 0)
         if proc == local_proc:
             rows.append({"rank": rank, "offset_s": 0.0, "rtt_s": 0.0,
                          "clock": "controller"})

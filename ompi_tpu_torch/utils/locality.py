@@ -14,21 +14,39 @@ from).
 A rank is a row of a stacked tensor: the device-locality level groups
 rows by CUDA device index (:func:`device_key`), so rows that all sit on
 one card, or on the CPU, form one group and the ladder falls through to
-the host topology.
+the host topology. In a multi-controller world a row is keyed by its
+controller process first (the reference's ``process_index``), then its
+CUDA device: two controllers sharing one card are two domains.
 """
 from __future__ import annotations
 
 import glob
 import os
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 
-def device_key(d) -> int:
+def device_key(d, controller: Optional[int] = None):
     """A row's shared-memory domain: its CUDA device index; a CPU row
-    (or anything without an index) reads as 0."""
-    if getattr(d, "type", None) == "cuda":
-        return int(d.index or 0)
-    return 0
+    (or anything without an index) reads as 0. With the row's
+    ``controller`` (a multi-controller world) the key is (controller,
+    device index)."""
+    idx = int(d.index or 0) if getattr(d, "type", None) == "cuda" else 0
+    return idx if controller is None else (int(controller), idx)
+
+
+def row_controllers(comm) -> Optional[Sequence[int]]:
+    """The controller of each of ``comm``'s rows, or None outside a
+    multi-controller world."""
+    if getattr(comm, "_ctl", None) is None:
+        return None
+    return [comm.controller_of(r) for r in range(comm.size)]
+
+
+def row_keys(devices, controllers: Optional[Sequence[int]] = None) -> list:
+    """:func:`device_key` of every row."""
+    if controllers is None:
+        return [device_key(d) for d in devices]
+    return [device_key(d, c) for d, c in zip(devices, controllers)]
 
 
 def _read_int(path: str) -> Optional[int]:
@@ -77,12 +95,13 @@ def _balanced_factor(n: int) -> Optional[int]:
     return best
 
 
-def ladder_sizes(nranks: int,
-                 devices=None) -> Tuple[Optional[List[int]], str]:
+def ladder_sizes(nranks: int, devices=None,
+                 controllers: Optional[Sequence[int]] = None
+                 ) -> Tuple[Optional[List[int]], str]:
     """(group sizes innermost-first, basis) for an n-rank hierarchical
     ladder. Preference order mirrors the reference's hwloc walk:
 
-    1. device locality (rows per CUDA device);
+    1. device locality (rows per (controller,) CUDA device);
     2. OS topology (cpus per L3, L3s per NUMA, NUMA per package —
        mapped proportionally onto the rank count);
     3. a synthesized balanced factorization when both are trivial,
@@ -92,8 +111,7 @@ def ladder_sizes(nranks: int,
         return None, "trivial"
     if devices is not None:
         groups: dict = {}
-        for d in devices:
-            k = device_key(d)
+        for k in row_keys(devices, controllers):
             groups[k] = groups.get(k, 0) + 1
         if len(groups) > 1 and max(groups.values()) > 1:
             return [max(groups.values())], "device-locality"

@@ -5,8 +5,8 @@ reference's ``TcpEndpoint`` and on the port's with the same frames, and
 both must observe the same thing. The port's repairs show here: its
 ``ctl_stats`` counters (frames, batches, deduped pokes), a full ctl
 queue failing its link exactly once, and ``close`` never blocking on a
-full queue. The reference's ``test_sim_gbps_paces_frame_sends`` has no
-mirror: the port leaves the paced-wire floor out by design.
+full queue. ``test_sim_gbps_paces_frame_sends`` mirrors the reference's
+test of the paced-wire floor (``btl_tcp_sim_gbps``) through both.
 """
 import importlib
 import queue
@@ -174,3 +174,38 @@ def test_ctl_batch_flush_window_dedupes_pokes(pkg):
     finally:
         a.close()
         b.close()
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_sim_gbps_paces_frame_sends(pkg):
+    """btl_tcp_sim_gbps floors a frame's send wall time at nbytes / rate;
+    0 (the default) adds nothing: the reference's test, through both."""
+    var = importlib.import_module(f"{pkg}.mca.var")
+    kv = {}
+    got = threading.Event()
+    payload = b"x" * (1 << 20)                 # 1 MB
+
+    var.var_register("btl", "tcp", "sim_gbps", vtype="float",
+                     default=0.0)
+    var.var_set("btl_tcp_sim_gbps", 0.1)       # 100 MB/s -> >= 10 ms
+    try:
+        a = _pair(pkg, kv, 0, lambda h, p: None)
+        b = _pair(pkg, kv, 1, lambda h, p: got.set())
+        try:
+            assert a._sim_bps == 0.1e9
+            t0 = time.perf_counter()
+            a.send_frame(1, {"kind": "bulk"}, payload)
+            sent_s = time.perf_counter() - t0
+            assert got.wait(10)
+            assert sent_s >= len(payload) / 0.1e9 * 0.9, sent_s
+        finally:
+            a.close()
+            b.close()
+    finally:
+        var.var_set("btl_tcp_sim_gbps", 0.0)
+    # default-off endpoints carry no pacing state
+    c = _pair(pkg, {}, 0, lambda h, p: None)
+    try:
+        assert c._sim_bps == 0.0
+    finally:
+        c.close()

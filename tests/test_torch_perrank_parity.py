@@ -41,6 +41,7 @@ the bml's ordered sink, the sm ring, the matching engine over a loopback
 pair of endpoints, the device tier's chunk arithmetic, and the IPC
 handle kinds' failure paths.
 """
+import json
 import os
 import pickle
 import signal
@@ -273,6 +274,90 @@ def test_parity_with_reference(tmp_path, n):
             elif not np.allclose(b, a, rtol=1e-6, atol=0):
                 bad.append((r, key, float(np.max(np.abs(a - b)))))
     assert not bad, bad
+
+
+# -- OMPI_TPU_TORCH_DISABLE_SM: the reference's OMPI_TPU_DISABLE_SM ------
+NOSM_BODY = """
+import json
+out_dir = sys.argv[1]
+MPI.Init()
+w = MPI.get_comm_world()
+r = w.rank()
+if TAG == "ref":
+    from ompi_tpu.runtime.init import _state
+else:
+    from ompi_tpu_torch.runtime.init import _state
+ep = _state["router"].endpoint
+# small (tcp), ring-sized (sm when it is up) and ring-busting frames
+sizes = [1, (256 << 10) // 8, 1, (8 << 20) // 8, (256 << 10) // 8]
+if r == 0:
+    for i, sz in enumerate(sizes):
+        w.send(np.full(sz, i, dtype=np.int64), 1, tag=3)
+else:
+    for i, sz in enumerate(sizes):
+        data, st = w.recv(0, tag=3)
+        assert int(data[0]) == i and data.size == sz, (i, data.size)
+w.barrier()
+with open(os.path.join(out_dir, f"{TAG}_nosm_{r}.json"), "w") as f:
+    json.dump({"sm": ep.sm is not None, "shm_seg": ep.shm_seg is not None,
+               "stats": {k: ep.stats[k] for k in ("sm", "tcp")}}, f)
+MPI.Finalize()
+print(f"OK nosm rank={r}", flush=True)
+"""
+
+
+def _nosm_job(launcher, header, tag, out_dir, mca, env):
+    out_dir = out_dir / tag
+    out_dir.mkdir()
+    prog = out_dir / "nosm.py"
+    prog.write_text(header + textwrap.dedent(NOSM_BODY))
+    cmd = [sys.executable, launcher, "--per-rank", "-n", "2",
+           "--timeout", str(JOB_LIMIT - 5)]
+    for k, v in mca:
+        cmd += ["--mca", k, v]
+    cmd += [str(prog), str(out_dir)]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=_REPO,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=JOB_LIMIT)
+    except subprocess.TimeoutExpired:
+        out, err = "", "killed at the job's limit"
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    assert proc.returncode == 0 and out.count("OK nosm") == 2, \
+        (launcher, proc.returncode, out, err[-4000:])
+    head = "ref" if header is REF_HEADER else "port"
+    return [json.loads((out_dir / f"{head}_nosm_{r}.json").read_text())
+            for r in range(2)]
+
+
+def test_disable_sm_keeps_sm_out_of_the_bml(tmp_path):
+    """With its DISABLE_SM variable set, each package's per-rank bml
+    holds neither the sm rings nor the segment plane and tcp carries
+    every frame; unset, the port's bml holds both and the ring-sized
+    frames take sm (the control)."""
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("JAX_", "XLA_", "OMPI_TPU_"))}
+    mca = [("btl_sm_min_bytes", str(32 << 10))]     # no routing probe
+    ref = _nosm_job(REF_MPIRUN, REF_HEADER, "ref", tmp_path, mca,
+                    {**base, "OMPI_TPU_DISABLE_SM": "1"})
+    port_mca = mca + [("mpi_base_device", "cpu")]
+    port = _nosm_job(PORT_MPIRUN, PORT_HEADER, "port", tmp_path, port_mca,
+                     {**base, "OMPI_TPU_TORCH_DISABLE_SM": "1"})
+    ctl = _nosm_job(PORT_MPIRUN, PORT_HEADER, "ctl", tmp_path, port_mca,
+                    base)
+    for r in range(2):
+        assert ref[r]["sm"] is port[r]["sm"] is False, (ref[r], port[r])
+        assert ref[r]["shm_seg"] is port[r]["shm_seg"] is False
+        assert ctl[r]["sm"] is ctl[r]["shm_seg"] is True, ctl[r]
+    assert ref[0]["stats"]["sm"] == port[0]["stats"]["sm"] == 0
+    assert ref[0]["stats"]["tcp"] >= 5 and port[0]["stats"]["tcp"] >= 5
+    assert ctl[0]["stats"]["sm"] >= 2, ctl[0]
 
 
 # -- in-process pieces --------------------------------------------------

@@ -11,6 +11,24 @@ rtol 1e-5, params rtol 2e-4 / atol 2e-6 after one step; the dryrun's
 step-1 / step-2 losses rtol 1e-4 / 2e-3 (``__graft_entry__.py:143-146``).
 Replicated leaves must agree across ranks within 1e-9.
 
+bf16 (``Config.dtype``'s default in both packages) is held on the dp=1
+step and the dp=2 stacked step at the same widths, against the JAX
+package run op by op (eager; for dp=2 each rank's ``value_and_grad`` on
+its half of the batch, averaged as the step's pmean averages them): each
+op then rounds its output to bf16, where ``jit`` lets XLA keep float32
+between fused ops at its own choice of places. The forward rounds the
+same values at the same ops in both packages (GELU included: the port's
+``moe.gelu`` rounds every step, as ``jax.nn.gelu`` does), so the loss
+differs only by float32 reduction order: rtol 2^-21. The backward
+does not round at the same points: a torch autograd kernel in bf16
+computes a derivative (tanh's, say) in float32 and rounds once, where
+JAX's VJP rounds each op the derivative is made of. So each element of
+the step's update (new - old) is held within 4 bf16 ulps of the sum of
+its own size and its leaf's largest update, 4 * 2^-8 * (|u| + max|u|).
+A control holds the port's float32 step against the same bf16
+reference and asserts that it misses both limits, so the limits tell a
+bf16 step from a float32 one. The test prints its gaps (``-s``).
+
 The DDP step (``sgd_train_step(grad_sync=BucketedGradSync(...))``) on a
 dp=8 rank mesh is held against a reference built from JAX functions:
 each rank's ``jax.value_and_grad(loss_fn)`` on its batch shard, the
@@ -181,6 +199,100 @@ def test_pp2_train_step_matches_jax():
     np.testing.assert_allclose(float(mesh.unshard(got_loss, P())),
                                float(want_loss), **LOSS_TOL)
     _close_trees(mesh.unshard(got_p, spec), want_p, **PARAM_TOL)
+
+
+BF16_LOSS_RTOL = 2.0 ** -21
+BF16_UPDATE_ULPS = 4.0
+
+
+def _bf16_gaps(got_p, got_loss, want_p, want_loss, before):
+    """(the loss's relative gap, the largest gap of an update element in
+    units of 2^-8 * (|u| + max|u|) over its leaf) between a port step
+    and the JAX package's; the module docstring gives their limits."""
+    assert len(tree_leaves(got_p)) == len(jax.tree_util.tree_leaves(want_p))
+    ulps = []
+
+    def one(a, b, p0):
+        p0 = np.asarray(p0, np.float32)
+        u_got = a.detach().float().numpy() - p0
+        u = np.asarray(b, np.float32) - p0
+        ulp = 2.0 ** -8 * (np.abs(u) + np.abs(u).max())
+        ulps.append(float(np.max(np.abs(u_got - u) / ulp)))
+    tree_map(one, got_p, want_p, before)
+    loss = abs(float(got_loss) - float(want_loss)) / abs(float(want_loss))
+    return loss, max(ulps)
+
+
+def test_gelu_rounds_as_jax():
+    """``parallel/moe.gelu`` equals ``jax.nn.gelu`` bit for bit in bf16
+    and to float32 rounding in float32; ``F.gelu``, which rounds once,
+    is the control that parts from it in bf16 (the count is printed)."""
+    x = (np.random.default_rng(7).standard_normal(1024) * 2).astype(
+        np.float32)
+    for jdt, tdt in ((jnp.bfloat16, torch.bfloat16),
+                     (jnp.float32, torch.float32)):
+        want = np.asarray(jax.nn.gelu(jnp.asarray(x, jdt)), np.float32)
+        xt = torch.from_numpy(x).to(tdt)
+        got = moe.gelu(xt).float().numpy()
+        once = torch.nn.functional.gelu(xt, approximate="tanh").float()
+        if tdt is torch.bfloat16:
+            np.testing.assert_array_equal(got, want)
+            parted = int((once.numpy() != want).sum())
+            print(f"bf16: F.gelu parts from jax.nn.gelu in {parted} of "
+                  f"{x.size} elements; moe.gelu in 0")
+            assert parted > 0
+        else:
+            # tanh's float32 implementations differ by an ulp or two:
+            # 1e-6 is two ulps of the largest output here (about 6)
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_bf16_train_step_matches_jax(dp):
+    """The dp=1 step and the dp=2 stacked step in bf16, against the JAX
+    package's op-by-op step; the port's float32 step is the control that
+    must miss both limits (the module docstring gives them; the gaps are
+    printed)."""
+    jcfg = JT.Config(**SMALL, dtype=jnp.bfloat16)
+    params = _np(JT.init_params(jax.random.PRNGKey(3), jcfg))
+    tok = np.random.default_rng(3).integers(0, SMALL["vocab"],
+                                            (4, SMALL["seq"] + 1))
+    batch = (tok[:, :-1], tok[:, 1:])
+    jb = tuple(jnp.asarray(b, jnp.int32) for b in batch)
+    if dp == 1:
+        want_p, want_loss = JT.sgd_train_step(params, jb, jcfg, 1e-2)
+
+        def port(dtype):
+            return TT.sgd_train_step(
+                TT.params_from_jax(params, device="cpu"), _t(batch),
+                TT.Config(**SMALL, dtype=dtype), 1e-2)
+    else:
+        # the JAX package's dp step per rank, op by op: value_and_grad on
+        # the rank's half of the batch, the pmean of the losses and of
+        # the gradients (psum / 2), then SGD
+        vg = [jax.value_and_grad(JT.loss_fn)(
+            params, *(b[2 * r:2 * r + 2] for b in jb), jcfg)
+            for r in range(2)]
+        want_loss = (vg[0][0] + vg[1][0]) / 2
+        want_p = jax.tree_util.tree_map(
+            lambda p, g0, g1: p - 1e-2 * ((g0 + g1) / 2), params,
+            vg[0][1], vg[1][1])
+        mesh = Mesh((2,), ("dp",), "cpu")
+        tspecs = tree_map(lambda _: P(), params)
+
+        def port(dtype):
+            new_p, loss = TT.sgd_train_step(
+                mesh.shard(params, tspecs),
+                mesh.shard(_t(batch), (P("dp"), P("dp"))),
+                TT.Config(**SMALL, dtype=dtype), 1e-2,
+                InGraphComm("dp", 2, mesh))
+            return mesh.unshard(new_p, tspecs), mesh.unshard(loss, P())
+    bf = _bf16_gaps(*port(torch.bfloat16), want_p, want_loss, params)
+    f32 = _bf16_gaps(*port(torch.float32), want_p, want_loss, params)
+    print(f"dp={dp}: bf16 loss {bf[0]:.3g}, update {bf[1]:.3g} ulps; "
+          f"float32 control loss {f32[0]:.3g}, update {f32[1]:.3g} ulps")
+    assert bf[0] <= BF16_LOSS_RTOL and bf[1] <= BF16_UPDATE_ULPS, bf
+    assert f32[0] > BF16_LOSS_RTOL and f32[1] > BF16_UPDATE_ULPS, f32
 
 
 def _replicated_grad_divergence(mesh, params, specs, loss):
