@@ -386,8 +386,32 @@ Phases, one or more lines each:
                 wrote into and read from the tier, each session, han and
                 xhc call's ms beside the plain world's call of the same
                 run, and each controller's start-up seconds; every
-                controller OK inside 90 s, no ``otpt*`` file left. ``python3 chip_smoke.py --multictl``
-                runs phases 1 and 20 alone.
+                controller OK inside 150 s (phases 20 and 21), no
+                ``otpt*`` file left. ``python3 chip_smoke.py --multictl``
+                runs phases 1, 20 and 21 alone.
+21. schedules — in phase 20's job, after its checks: every explicit
+                schedule of ``coll/torch`` forced on the spanning
+                COMM_WORLD (27: ring, Bruck, trees, pairwise, recursive
+                doubling, ...) at 1 MB fp32 per rank, SUM f32, MAX f32
+                and SUM i32 for the reducing collectives, root 7 for the
+                root forms; each held bit for bit against the same
+                schedule on an 8-row single-controller comm on
+                ``cuda:0`` made in the controller process (within rtol
+                1e-5 where the reference's rules demote it to direct),
+                against numpy as phase 20, ``selected`` against the
+                reference's rules, and each controller's tier bytes out
+                against what the steps' index arrays move off it; the
+                ring and ring_segmented allreduce, ring allgather,
+                pairwise alltoall and binomial bcast at 32 MB per rank,
+                each timed beside direct in the same run (CUDA-event
+                span with the host fences), 0 payload-sized ``Memcpy
+                DtoH`` in them (counted in phase 20's one profiler
+                session); nbc's ring iallreduce with controller 1 late
+                (first its test() calls, then its start), equal bit for
+                bit to the blocking ring, each test() under 50 ms; 0
+                flash-fold launches; the phase aimed under 90 s.
+                ``python3 chip_smoke.py --algorithms`` runs phases 1 and
+                8 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -6756,7 +6780,7 @@ def phase_cabi_job(smi: str, world: tuple) -> int:
 # -- phase 20 ----------------------------------------------------------
 MC_HOSTS = 2                   # controller processes
 MC_ROWS = 4                    # rows each controller holds on cuda:0
-MC_JOB_TIMEOUT = 90            # seconds the job may take
+MC_JOB_TIMEOUT = 150           # seconds the job may take (phases 20, 21)
 MC_SEED = 2000
 # phase 20's call -> (phase 4's name, phase 11's name) of the same call
 MC_PEERS = {
@@ -6909,7 +6933,7 @@ def _multictl_rank(t_launch: float, report: str) -> int:
     nums["ms"]["barrier"] = (ms, us)
 
     # hier forced, and direct forced: across controllers both name the
-    # one exchange (coll/torch_'s ``_mc_alg``), so ``selected`` reports
+    # one exchange (coll/torch_'s one-exchange bodies), so ``selected`` reports
     # the forced name and the results are the same bits
     hd = []
     for func, fn in (
@@ -6994,6 +7018,7 @@ def _multictl_rank(t_launch: float, report: str) -> int:
     w.set_errhandler(MPI.ERRORS_ARE_FATAL)
 
     crossing, dups = _multictl_planes(w, me, xs, x, xi, nums, same)
+    crossing.update(_multictl_schedules(w, me, dev, nums))
     # no payload crosses through the host: the allreduce and bcast that
     # cross controllers, and han's and xhc's allreduce, copy nothing of
     # payload size device-to-host. One profiler session for all of them:
@@ -7283,9 +7308,384 @@ def phase_multictl(smi: str) -> int:
           "stream that includes the tier's host fences; each controller "
           "checked its rows against numpy (float SUM/PROD/scan rtol 1e-5, "
           "the rest exact), the guards, a spanning split; no otpt* file "
-          f"left; phase 20 took {time.perf_counter() - t0:.1f} s "
+          f"left; phases 20 and 21 took {time.perf_counter() - t0:.1f} s "
           f"(limit {MC_JOB_TIMEOUT}) | {smi}")
-    return sum(c["flash_fold"] for c in nums)
+    _report_schedules(nums, smi)
+    return sum(c["flash_fold"] + c["sched"]["flash_fold"] for c in nums)
+
+
+def _report_schedules(nums: list, smi: str) -> None:
+    """Phase 21's lines, from both controllers' reports."""
+    mib = LOCAL_ELEMS * 4 / 2 ** 20
+    cases = {}
+    for c in nums:
+        for key, v in c["sched"]["cases"].items():
+            name = " ".join(key.split()[:2])
+            cases.setdefault(name, []).append(
+                (c["controller"], key[len(name):].strip() or "-", v))
+    for name, per in cases.items():
+        runs = sorted({v["ran"] for _c, _k, v in per})
+        outs = "; ".join(f"c{c} {k} {v['out']} B" for c, k, v in per)
+        bits = all(v.get("bitwise", True) for _c, _k, v in per)
+        phase("schedules", f"{name} forced (ran {', '.join(runs)}): "
+              f"{'bit for bit' if bits else 'within rtol 1e-5 (direct)'} "
+              f"against the 8-row single-controller comm, = numpy; tier "
+              f"bytes out = the steps' index arrays: {outs}")
+    for name, t in nums[0]["sched"]["ms"].items():
+        alg = name.split()[1]
+        ms, us, _out = t[alg]
+        dms, dus, _dout = t["direct"]
+        outs = ", ".join(f"c{c['controller']} {alg} "
+                         f"{c['sched']['ms'][name][alg][2] / 1e6:.1f} MB, "
+                         f"direct {c['sched']['ms'][name]['direct'][2] / 1e6:.1f}"
+                         f" MB" for c in nums)
+        phase("schedules", f"{name} at {mib:.0f} MiB per rank: {ms:.3f} ms "
+              f"call, {us:.0f} us host | direct {dms:.3f} ms call, "
+              f"{dus:.0f} us host ({ms / dms:.2f}x) | tier bytes out "
+              f"{outs} | {smi}")
+    for c in nums:
+        s = c["sched"]
+        d = c["dtoh"]
+        sched_dtoh = {k: d[k] for k in d if k in s["ms"]}
+        phase("schedules", f"controller {c['controller']}: {s['cases_n']} "
+              f"(collective, schedule, op) cases at 1 MiB per rank and 2 "
+              f"barriers, {s['bitwise']} bit for bit (the rest demoted to "
+              f"direct), float SUM max abs err from numpy "
+              f"{s['worst']:.3g}; nbc ring iallreduce with controller "
+              f"{MC_HOSTS - 1} late = the blocking ring bit for bit: "
+              + ", ".join(f"late {m}: {v['polls']} test() calls, longest "
+                          f"{v['max_poll_ms']:.3f} ms, done in "
+                          f"{v['done_ms']:.1f} ms"
+                          for m, v in s["nbc"].items())
+              + f"; Memcpy DtoH (count, bytes) of the {mib:.0f} MiB "
+              f"crossings {sched_dtoh}, control .cpu() "
+              f"{d['control .cpu()']}; flash-fold launches "
+              f"{s['flash_fold']}; phase 21 took {s['s']:.1f} s (aim "
+              f"{SCHED_PHASE_S} s) | {smi}")
+
+
+# -- phase 21 ----------------------------------------------------------
+# The explicit schedules across controllers, in phase 20's job: every
+# ring, tree and Bruck schedule forced on the spanning world.
+SCHED_ELEMS = 1 << 18          # 1 MB of fp32 per rank for the checks
+SCHED_ROOT = 7                 # the root forms' root (controller 1's)
+SCHEDULES = tuple((f, a) for f in ("allreduce", "reduce_scatter_block",
+                                   "allgather", "bcast", "reduce", "gather",
+                                   "scatter", "alltoall", "scan", "barrier")
+                  for a in ALGORITHMS[f][1:]
+                  if a not in ("direct", "alias", "hier", "allgather"))
+# timed at 32 MB per rank, each beside direct in the same run
+SCHED_TIMED = (("allreduce", "ring"), ("allreduce", "ring_segmented"),
+               ("allgather", "ring"), ("alltoall", "pairwise"),
+               ("bcast", "binomial"))
+SCHED_PHASE_S = 90             # what the phase aims to finish within
+
+
+def _sched_oracle(n: int, dev):
+    """An n-row single-controller comm on ``dev`` inside a controller
+    process, made as phase 8 makes its cpu_world: while it is built the
+    controller table is set aside, so its rows are all this process's
+    and its collectives run the stacked schedules."""
+    from ompi_tpu_torch.core import multictl
+    saved = multictl._state["ctl"]
+    multictl._state["ctl"] = None
+    try:
+        return MPI.Communicator(MPI.Group(range(n)), [dev] * n,
+                                name="sched_oracle")
+    finally:
+        multictl._state["ctl"] = saved
+
+
+def _sched_step_bytes(step: dict, ctl_of: list, h: int) -> int:
+    """The bytes one crossing step writes off controller ``h``, from its
+    index arrays: a take ships each distinct (source, slice) it owes
+    another controller once per destination controller; an all-rows step
+    writes this controller's rows once; an all-to-all writes each other
+    controller its rows' blocks for that controller's ranks."""
+    if step["kind"] == "take":
+        pos = step["pos"] if step["pos"] is not None else \
+            [None] * len(step["dst"])
+        owed = {(ctl_of[d], s, repr(p)) for d, s, p in
+                zip(step["dst"], step["src"], pos)
+                if ctl_of[s] == h and ctl_of[d] != h}
+        return len(owed) * sum(step["item"])
+    rows = ctl_of.count(h)
+    if step["kind"] == "rows":
+        return rows * step["item"]
+    return rows * (len(ctl_of) - rows) * step["item"]
+
+
+class _SchedSteps:
+    """Records the steps that cross the controller tier (takes of the
+    rank axis, all-rows and all-to-all rounds) while it is entered."""
+
+    def __init__(self):
+        from ompi_tpu_torch.coll.torch_ import TorchCollModule
+        from ompi_tpu_torch.core import multictl
+        self.steps: list = []
+        self._mod, self._take = TorchCollModule, multictl.Take
+        self._saved = (multictl.Take.__call__,
+                       TorchCollModule._mc_gather_rows,
+                       TorchCollModule._mc_alltoall)
+
+    def __enter__(self):
+        take_call, rows, a2a = self._saved
+        steps = self.steps
+
+        def item(pos, x):
+            if pos is None:
+                return int(np.prod(x.shape[1:])) * x.element_size()
+            d = pos.shape[1] if pos.ndim == 2 else 1
+            return d * int(np.prod(x.shape[2:])) * x.element_size()
+
+        def take(tk, *xs):
+            out = take_call(tk, *xs)
+            if tk.cross:
+                steps.append({"kind": "take", "dst": tk.dst.tolist(),
+                              "src": tk.src.tolist(),
+                              "pos": None if tk.pos is None
+                              else tk.pos.tolist(),
+                              "item": [item(tk.pos, x) for x in xs]})
+            return out
+
+        def all_rows(mod, X):
+            steps.append({"kind": "rows", "item": int(np.prod(
+                X.shape[1:])) * X.element_size()})
+            return rows(mod, X)
+
+        def all_to_all(mod, X):
+            steps.append({"kind": "a2a", "item": int(np.prod(
+                X.shape[2:])) * X.element_size()})
+            return a2a(mod, X)
+        self._take.__call__ = take
+        self._mod._mc_gather_rows = all_rows
+        self._mod._mc_alltoall = all_to_all
+        return self
+
+    def __exit__(self, *exc):
+        (self._take.__call__, self._mod._mc_gather_rows,
+         self._mod._mc_alltoall) = self._saved
+
+
+def _sched_call(comm, func, buf, op, root):
+    args = (buf,) + ((op,) if op is not None else ()) + \
+        ((root,) if root is not None else ())
+    return getattr(comm, func)(*args)
+
+
+def _multictl_schedules(w, me: int, dev, nums: dict) -> dict:
+    """Phase 21 on one controller: every explicit schedule forced on the
+    spanning world (1 MB per rank; SUM, MAX and SUM int32 for the
+    reducing collectives; root 7 for the root forms), held bit for bit
+    against the same schedule on an 8-row single-controller comm on the
+    same device, against numpy, ``selected`` against the reference's
+    rules and the tier bytes against the steps' index arrays; the five
+    big schedules timed at 32 MB beside direct; the ring iallreduce with
+    one controller late. Returns the 32 MB crossings, for phase 20's
+    ``Memcpy DtoH`` session."""
+    from ompi_tpu_torch.core import rankcomm
+    t0 = time.perf_counter()
+    fl0 = FA.launches
+    n = w.size
+    mine = list(w._local)
+    ctl_of = [w.controller_of(r) for r in range(n)]
+    oracle = _sched_oracle(n, dev)
+    rng = np.random.default_rng(MC_SEED + 21)
+    xf = rng.standard_normal((n, SCHED_ELEMS)).astype(np.float32)
+    xi = rng.integers(-1000, 1000, (n, SCHED_ELEMS)).astype(np.int32)
+    wide_f = xf.reshape(n, n, SCHED_ELEMS // n)
+    wide_i = xi.reshape(n, n, SCHED_ELEMS // n)
+    kinds = {"SUM f32": (MPI.SUM, False), "MAX f32": (MPI.MAX, False),
+             "SUM i32": (MPI.SUM, True)}
+    out = nums.setdefault("sched", {"cases": {}, "ms": {}})
+    cases = bitwise = 0
+    worst = 0.0
+
+    def expect(func, opname, x):
+        """numpy's result of ``func`` on the global ``x`` (root's row
+        alone for reduce and gather)."""
+        a = x.astype(np.float64) if x.dtype == np.float32 else x
+        red = {"SUM": lambda v: v.sum(0, dtype=a.dtype),
+               "MAX": lambda v: v.max(0)}.get(opname)
+        return {
+            "allreduce": lambda: np.broadcast_to(red(a), a.shape),
+            "reduce": lambda: red(a),
+            "reduce_scatter_block": lambda: red(a),
+            "scan": lambda: (np.cumsum(a, 0, dtype=a.dtype)
+                             if opname == "SUM"
+                             else np.maximum.accumulate(a, 0)),
+            "bcast": lambda: np.broadcast_to(x[SCHED_ROOT], x.shape),
+            "allgather": lambda: np.broadcast_to(x, (n,) + x.shape),
+            "gather": lambda: x,
+            "scatter": lambda: x[SCHED_ROOT],
+            "alltoall": lambda: np.swapaxes(x, 0, 1)}[func]()
+
+    with _SchedSteps() as rec:
+        for func, alg in SCHEDULES:
+            var_name = f"coll_torch_{func}_algorithm"
+            if func == "barrier":
+                var.var_set(var_name, alg)
+                rec.steps.clear()
+                b0 = dict(rankcomm.tier_bytes)
+                w.barrier()
+                moved = rankcomm.tier_bytes["out"] - b0["out"]
+                ran = w._coll("barrier").selected("barrier")
+                check(ran == alg == oracle._coll("barrier").selected(
+                    "barrier"), f"barrier {alg} ran {ran}")
+                owed = sum(_sched_step_bytes(s, ctl_of, me)
+                           for s in rec.steps)
+                check(rec.steps and moved == owed,
+                      f"barrier {alg}: {moved} B out, steps owe {owed}")
+                out["cases"][f"barrier {alg}"] = {"ran": ran, "out": moved}
+                var.var_set(var_name, "auto")
+                continue
+            reducing = func in ("allreduce", "reduce_scatter_block",
+                                "reduce", "scan")
+            wide = func in ("scatter", "alltoall", "reduce_scatter_block")
+            root = SCHED_ROOT if func in ALG_ROOTED else None
+            for kind in (kinds if reducing else ("f32",)):
+                op, is_int = kinds[kind] if reducing else (None, False)
+                x = (wide_i if wide else xi) if is_int else \
+                    (wide_f if wide else xf)
+                key = f"{func} {alg} {kind}"
+                var.var_set(var_name, alg)
+                buf = w.put(x)
+                rec.steps.clear()
+                b0 = dict(rankcomm.tier_bytes)
+                y = _sched_call(w, func, buf, op, root)
+                moved = rankcomm.tier_bytes["out"] - b0["out"]
+                steps = list(rec.steps)
+                yo = _sched_call(oracle, func, oracle.put(x), op, root)
+                ran = w._coll(func).selected(func, buf, op, root)
+                ran_o = oracle._coll(func).selected(func, oracle.put(x), op,
+                                                    root)
+                var.var_set(var_name, "auto")
+                want_name = _alg_expected(func, alg, n, op)
+                check(ran == ran_o == want_name,
+                      f"{key}: ran {ran}, the oracle {ran_o}, the "
+                      f"reference's rules {want_name}")
+                got = y.local
+                ref = yo[torch.as_tensor(mine, device=yo.device)]
+                explicit = ran not in ("direct", "alias", "allgather")
+                same = torch.equal(got, ref)
+                if explicit:
+                    check(same, f"{key}: differs from the single-controller "
+                                f"comm's bits")
+                else:
+                    check(bool(torch.allclose(got.double(), ref.double(),
+                                              rtol=1e-5, atol=1e-5)),
+                          f"{key}: differs from the single-controller comm")
+                bitwise += same
+                cases += 1
+                # numpy: float SUM rtol 1e-5, the rest exact (PERF.md 2)
+                want = expect(func, kind.split()[0] if reducing else None, x)
+                host = got.cpu().numpy()
+                if func in ("reduce", "gather"):
+                    pair = ((host[mine.index(root)], want) if root in mine
+                            else None)
+                else:
+                    pair = (host, np.asarray(want)[mine])
+                if pair is not None and kind == "SUM f32":
+                    err = float(np.max(np.abs(pair[0] - pair[1])))
+                    worst = max(worst, err)
+                    check(np.allclose(*pair, rtol=1e-5, atol=1e-5),
+                          f"{key}: max abs err {err:.3g} from numpy")
+                elif pair is not None:
+                    check(np.array_equal(*pair), f"{key}: differs from "
+                                                 f"numpy")
+                if explicit:
+                    owed = sum(_sched_step_bytes(s, ctl_of, me)
+                               for s in steps)
+                    check(steps and moved == owed,
+                          f"{key}: {moved} B out, its steps owe {owed}")
+                out["cases"][key] = {"ran": ran, "out": moved,
+                                     "bitwise": bool(same)}
+                del y, yo, got, ref
+    oracle.free()
+
+    # the five big schedules at 32 MB per rank, each beside direct
+    xs = _mc_inputs(n)
+    x32 = w.stack(xs)
+    per = LOCAL_ELEMS // n
+    y32 = w.stack([a.reshape(n, per) for a in xs])
+    args = {"allreduce": (x32, MPI.SUM, None), "allgather": (x32, None, None),
+            "alltoall": (y32, None, None), "bcast": (x32, None, SCHED_ROOT)}
+    crossing = {}
+    for func, alg in SCHED_TIMED:
+        buf, op, root = args[func]
+        var_name = f"coll_torch_{func}_algorithm"
+        res = {}
+        for a in (alg, "direct"):
+            var.var_set(var_name, a)
+            check(w._coll(func).selected(func, buf, op, root) == a,
+                  f"{func} {a} at 32 MB")
+            b0 = dict(rankcomm.tier_bytes)
+            y = _sched_call(w, func, buf, op, root)
+            moved = rankcomm.tier_bytes["out"] - b0["out"]
+            if dev.type == "cuda":
+                _, ms, us = _pr_timed(
+                    lambda: _sched_call(w, func, buf, op, root), iters=3)
+            else:
+                ms = us = None
+            res[a] = (y.local, ms, us, moved)
+        var.var_set(var_name, "auto")
+        a, b = res[alg][0], res["direct"][0]
+        if op is None:
+            check(torch.equal(a, b), f"{func} {alg} differs from direct")
+        else:
+            check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)),
+                  f"{func} {alg} differs from direct at 32 MB")
+        out["ms"][f"{func} {alg}"] = {k: list(v[1:]) for k, v in
+                                       res.items()}
+        del res, a, b
+
+        def crossing_call(func=func, alg=alg, buf=buf, op=op, root=root):
+            var.var_set(f"coll_torch_{func}_algorithm", alg)
+            try:
+                return _sched_call(w, func, buf, op, root)
+            finally:
+                var.var_set(f"coll_torch_{func}_algorithm", "auto")
+        crossing[f"{func} {alg}"] = crossing_call
+
+    # nbc's ring iallreduce, one controller late: (a) the last controller
+    # sleeps before its first test(); (b) it starts its request late.
+    # The others' test() returns at once; the result is the blocking
+    # ring's bits
+    small = w.put(xf[:, :37].copy())
+    var.var_set("coll_torch_allreduce_algorithm", "ring")
+    blocking = w.allreduce(small, MPI.SUM).local
+    var.var_set("coll_torch_allreduce_algorithm", "auto")
+    late = me == MC_HOSTS - 1
+    nbc = {}
+    for mode in ("test", "start"):
+        if late and mode == "start":
+            time.sleep(0.5)
+        t1 = time.perf_counter()
+        req = w.iallreduce(small, MPI.SUM)
+        check(isinstance(req, ScheduleRequest), "iallreduce is nbc's")
+        if late and mode == "test":
+            time.sleep(0.5)
+        polls = []
+        while True:
+            tp = time.perf_counter()
+            done = req.test()[0]
+            polls.append(time.perf_counter() - tp)
+            if done:
+                break
+            check(time.perf_counter() - t1 < 30, "nbc iallreduce hung")
+        check(torch.equal(req.get().local, blocking),
+              f"nbc ring iallreduce ({mode} late) differs from the "
+              f"blocking ring")
+        check(max(polls) < 0.05, f"a test() took {max(polls):.3f} s")
+        nbc[mode] = {"polls": len(polls), "max_poll_ms": max(polls) * 1e3,
+                     "done_ms": (time.perf_counter() - t1) * 1e3}
+    out["nbc"] = nbc
+    out["flash_fold"] = FA.launches - fl0
+    check(out["flash_fold"] == 0, "a flash-fold launch in phase 21")
+    out["cases_n"], out["bitwise"], out["worst"] = cases, bitwise, worst
+    out["s"] = time.perf_counter() - t0
+    check(out["s"] <= SCHED_PHASE_S, f"phase 21 took {out['s']:.1f} s")
+    return crossing
 
 
 def main() -> int:
@@ -7359,6 +7759,16 @@ def main() -> int:
         MPI.Finalize()
         torch.cuda.empty_cache()
         phase_cabi_job(smi, cab)
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--algorithms" in sys.argv:
+        smi, kind = phase_device()
+        MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
+        phase_algorithms(MPI.get_comm_world(), smi)
+        MPI.Finalize()
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,

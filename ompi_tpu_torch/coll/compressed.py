@@ -21,8 +21,9 @@ memo holds only compressed schedules), on the stacked tensor:
   ``inner_q``): the controller's rows are summed full width, and only
   the scattered chunks that cross the controller tier are quantized, then
   folded in fixed controller order. Where controllers hold unequal row
-  counts (no hier tiers) each controller's whole partial crosses as one
-  quantized row; the reference runs its compressed ring there.
+  counts (no hier tiers) the quantized segmented ring runs over the rank
+  axis, as the reference's does: each hop's codes and scales cross the
+  controller tier where the ring crosses a controller boundary.
 - allgather: quantize each row once, gather codes and scales, dequantize
   per row (across controllers the codes cross the controller tier).
 - reduce_scatter_block: quantize per row, all-to-all the codes,
@@ -150,19 +151,21 @@ class _CompressedDevice(TorchCollModule):
 
     def _mc_allreduce_q(self, g, op, cobj, cblock) -> Callable:
         low, _high = self._groups()
+        if low is None:
+            # ragged controllers: the segmented ring over the rank axis,
+            # every hop's codes and scales crossing (the reference's
+            # schedule where hier does not apply)
+            return self._allreduce_fn(g, op)
         H = len(self.comm.layout.parts)
         total = int(np.prod(g.shape[1:]))
-        glen = len(low[0]) if low is not None else 1
+        glen = len(low[0])
         chunk = -(-total // glen)
         itemsize = g.element_size()
 
         def inner(X):
             dt = X.dtype
-            if low is not None:
-                # rank k of the controller holds its chunk k
-                part = _chunks(X, glen, chunk).sum(0, dtype=dt)
-            else:
-                part = X.reshape(X.shape[0], -1).sum(0, dtype=dt)[None]
+            # rank k of the controller holds its chunk k
+            part = _chunks(X, glen, chunk).sum(0, dtype=dt)
             qc, qs = cobj.torch_quant_rows(part, cblock)
             gc = self._mc_run("_device_allgather", qc)
             gs = self._mc_run("_device_allgather", qs)

@@ -257,8 +257,6 @@ def _bucket_spec(comm, data, op) -> Optional[Tuple]:
     n = comm.size
     if getattr(data, "ndim", 0) < 1 or data.shape[0] != n:
         return None
-    if getattr(comm, "is_multiprocess", False):
-        return None                      # a bucket flattens every row
     try:
         dt = torch_dtype(data.dtype)
     except TypeError:
@@ -267,6 +265,20 @@ def _bucket_spec(comm, data, op) -> Optional[Tuple]:
         return None
     shape = tuple(data.shape)
     dev = comm.device
+    if getattr(comm, "is_multiprocess", False):
+        # across controllers a member is this controller's rows: the
+        # bucket flattens them to (L, -1), and the fused allreduce runs
+        # across the controllers
+        rows = comm._rows_of(data)
+
+        def payload():
+            return rows.local.reshape(rows.local.shape[0], -1)
+
+        def epilogue(flat):
+            return rows.like(flat.reshape(rows.local.shape))
+
+        return ((op.uid, str(dt)), payload, epilogue,
+                int(data.nbytes) // max(n, 1))
 
     def payload():
         return torch.as_tensor(data, device=dev).reshape(n, -1)
@@ -295,7 +307,7 @@ def _decide(comm, func: str, nbytes: int) -> str:
     multihost rows on a communicator spanning controllers, as the
     reference's plans record it (the var pins and the dynamic rules are
     the running module's to apply). A plan binds what the one-shot call
-    runs; bucket fusion stays off across controllers."""
+    runs."""
     return decision.decide(func, comm.size, nbytes,
                            bool(getattr(comm, "spans_processes", False)),
                            None, decision.platform_key(comm.device))
@@ -516,6 +528,11 @@ class BucketFuser:
     def __init__(self, comm):
         self.comm = comm
         self._per_rank = bool(getattr(comm, "is_per_rank", False))
+        # the idle sweep flushes when this process's engine spins, which
+        # is no point of the program order other processes share: only
+        # a comm whose rows all sit in this process takes it
+        self._sweep = not self._per_rank and not getattr(
+            comm, "is_multiprocess", False)
         self._lock = threading.RLock()
         # key -> [(member_req, payload_fn, epilogue, nbytes)]
         self._items: Dict[Tuple, List[Tuple]] = {}
@@ -537,7 +554,7 @@ class BucketFuser:
             self._bytes[key] = self._bytes.get(key, 0) + int(nbytes)
             self._ops[key] = op
             full = self._bytes[key] >= bucket_bytes()
-            if not self._per_rank and not self._cb_registered:
+            if self._sweep and not self._cb_registered:
                 prog.register(self._progress_cb, low_priority=True)
                 self._cb_registered = True
         if full:
@@ -606,9 +623,11 @@ class BucketFuser:
                 req._deliver(ep(fused[off:off + ln]), None)
                 off += ln
             return
-        parts = [pf() for _req, pf, _ep, _nb in items]     # (n, w_i)
-        fused = self.comm._coll("allreduce").allreduce(
-            parts[0] if len(parts) == 1 else torch.cat(parts, dim=1), op)
+        parts = [pf() for _req, pf, _ep, _nb in items]     # (L, w_i)
+        comm = self.comm
+        fused = comm._local_rows(comm._coll("allreduce").allreduce(
+            comm._as_buffer(parts[0] if len(parts) == 1
+                            else torch.cat(parts, dim=1)), op))
         outs, off = [], 0
         for (_req, _pf, ep, _nb), part in zip(items, parts):
             w = part.shape[1]

@@ -58,22 +58,24 @@ or another rank's row.
 
 **Across controllers** (``core/multictl``; the reference's multi-process
 mesh): on a communicator whose rows sit in several controller processes,
-a buffer is this controller's rows (``multictl.Rows``) and every
-collective is a local stage over those rows on the controller's device,
-one exchange over the hidden controller tier (``RankCommunicator``'s
-device slots: CUDA IPC on the card, shared memory on the CPU), and a
-local stage that writes each local row. Reductions fold locally before
-they cross, so a controller ships one partial, never all its rows
-(allreduce, reduce, reduce_scatter_block, scan). ``_groups`` are the
-controllers' rank sets (``low``) and one rank per controller (``high``),
-and ``auto`` reads ``coll/decision``'s multihost rows. Across
-controllers ``hier`` and ``direct`` are one exchange: after the local
-stage a controller holds one partial (or its own rows), which is all
-that the hier schedule's scattered chunks would carry over the slow
-tier, so ``selected`` reports ``hier`` where the rows pick it and the
-one body runs. The explicit single-controller schedules (ring, trees,
-Bruck, ...) are programs over every rank's row; across controllers they
-run as that two-stage direct form, which is what ``selected`` reports.
+a buffer is this controller's rows (``multictl.Rows``). The explicit
+schedules run there as on one controller, written once over the rank
+axis (:class:`_Axis`): a step that takes other ranks' rows (a ``roll``,
+an index, a tree round) is a ``multictl.Take``, which reads the rows
+held here and takes the others in one round of the hidden controller
+tier (``RankCommunicator``'s device slots: CUDA IPC on the card, shared
+memory on the CPU); a step whose sources all sit with their
+destinations makes no round, and a controller ships only what another
+asks for. So a forced schedule runs and is what ``selected`` reports,
+after the same demotions as on one controller, and gives the bits the
+stacked schedule gives. ``direct`` and ``hier`` are one exchange:
+reductions fold locally before they cross, so a controller ships one
+partial, never all its rows (allreduce, reduce, reduce_scatter_block,
+scan), and after the local stage a controller holds what the hier
+schedule's scattered chunks would carry over the slow tier, so
+``selected`` reports ``hier`` where the multihost rows pick it and the
+one body runs. ``_groups`` are the controllers' rank sets (``low``) and
+one rank per controller (``high``).
 """
 from __future__ import annotations
 
@@ -226,6 +228,179 @@ class _LruCache(OrderedDict):
             del self[next(iter(self))]
 
 
+class _Axis:
+    """The rank axis a schedule steps along: every rank's row of a
+    single-controller comm, or this controller's rows of a comm spanning
+    controllers. The schedules are written once over it: its steps take
+    rows from other ranks (the reference's ``ppermute``), gather every
+    row (``all_gather``) or every rank's column for its own rank
+    (``all_to_all``).
+
+    On one controller each step is the stacked tensor's own index or
+    roll, the op the schedule ran before it was written over the axis.
+    Across controllers a step is a planned ``multictl.Take``: rows held
+    here are an ``index_select``, the others come in one tier round, and
+    a step whose sources all sit with their destinations makes none.
+    ``mine`` are the comm ranks of the rows held here (ascending), and
+    per-rank index arrays of the schedules are cut to them (``col``,
+    ``rows_of``)."""
+
+    def __init__(self, mod: "TorchCollModule"):
+        self._mod = mod
+        self.n = mod.comm.size
+        self.multi = mod._mc
+        self.mine = (np.asarray(mod.comm.layout.mine, np.int64)
+                     if self.multi else np.arange(self.n))
+        self.lr = (mod._idx(np.arange(len(self.mine))) if self.multi
+                   else mod._rows())
+
+    def col(self, a) -> torch.Tensor:
+        """A per-rank index array (ranks on its last axis), at the ranks
+        held here, on the device."""
+        return self._mod._idx(np.asarray(a)[..., self.mine])
+
+    def rows_of(self, a) -> torch.Tensor:
+        """A per-rank array (ranks on its first axis) at the ranks held
+        here, on the device."""
+        return self._mod._idx(np.asarray(a)[self.mine])
+
+    def below(self, k: int) -> int:
+        """How many of the rows held here belong to ranks below ``k``."""
+        return int(np.count_nonzero(self.mine < k))
+
+    def loc(self, rank: int) -> Optional[int]:
+        """Rank ``rank``'s row position here (None: not held here)."""
+        if not self.multi:
+            return rank
+        hit = np.nonzero(self.mine == rank)[0]
+        return int(hit[0]) if len(hit) else None
+
+    def _take(self, dst, src, pos=None) -> multictl.Take:
+        comm = self._mod.comm
+        return multictl.Take(comm.layout, self.n, dst, src, pos,
+                             comm.device)
+
+    def shift(self, k: int) -> Callable:
+        """Row r takes row r - k (mod n): ``roll(k, 0)``. Called with
+        several tensors of the same rows, they move together (one tier
+        round)."""
+        if not self.multi:
+            def roll(*xs):
+                if len(xs) == 1:
+                    return xs[0].roll(k, 0)
+                return tuple(x.roll(k, 0) for x in xs)
+            return roll
+        r = np.arange(self.n)
+        return self._take(r, (r - k) % self.n)
+
+    def get(self, src, dst=None, pos=None,
+            single: Optional[Callable] = None) -> Callable:
+        """Item k takes rank ``src[k]``'s row (its slice ``pos[k]`` along
+        the row's first axis, where given); ``dst`` defaults to every
+        rank in order, so the result's rows are the rows held here. On
+        one controller ``single`` (the stacked form) runs where given,
+        else ``x[src]`` (``x[src, pos]``)."""
+        if not self.multi:
+            if single is not None:
+                return single
+            S = self._mod._idx(src)
+            if pos is None:
+                return lambda x: x[S]
+            P = self._mod._idx(pos)
+            return lambda x: x[S, P]
+        return self._take(np.arange(self.n) if dst is None else dst, src,
+                          pos)
+
+    def get_many(self, srcs, dst=None, pos=None) -> Callable:
+        """``get`` of several source arrays over the same ``dst`` (and
+        ``pos``), in one tier round; returns one tensor per array."""
+        if not self.multi:
+            gets = [self.get(s, pos=pos) for s in srcs]
+            return lambda x: [g(x) for g in gets]
+        d = np.arange(self.n) if dst is None else np.asarray(dst)
+        k = len(srcs)
+        take = self._take(np.tile(d, k), np.concatenate(srcs),
+                          None if pos is None else np.concatenate(
+                              [np.asarray(pos)] * k))
+
+        def run(x):
+            return list(take(x).chunk(k))
+        return run
+
+    def pull(self, dst, src, pos=None, single=None) -> Callable:
+        """An in-place step ``buf[dst] = buf[src]`` (at ``pos`` where
+        given: a vector takes one slice per item, a matrix ``(m, d)`` d
+        slices), or ``buf[dst] = fn(buf[dst], buf[src])`` when called as
+        ``step(buf, fn)``. ``single`` overrides the stacked form's
+        (dst index, src index) pair."""
+        mod = self._mod
+        if not self.multi:
+            if single is not None:
+                D, S = single
+            else:
+                D, S = (mod._idx(dst),), (mod._idx(src),)
+                if pos is not None:
+                    P = mod._idx(pos)
+                    if P.dim() == 2:
+                        D, S = (D[0][:, None],), (S[0][:, None],)
+                    D, S = D + (P,), S + (P,)
+
+            def step(buf, fn=None):
+                v = buf[S]
+                buf[D] = v if fn is None else fn(buf[D], v)
+            return step
+        dst = np.asarray(dst, np.int64).reshape(-1)
+        take = self._take(dst, src, pos)
+        held = np.isin(dst, self.mine)
+        at = np.searchsorted(self.mine, dst[held])
+        D = (mod._idx(at),)
+        if pos is not None:
+            P = np.asarray(pos, np.int64)[held]
+            D = ((D[0][:, None], mod._idx(P)) if P.ndim == 2
+                 else D + (mod._idx(P),))
+        some = bool(held.any())
+
+        def step(buf, fn=None):
+            v = take(buf)
+            if some:
+                buf[D] = v if fn is None else fn(buf[D], v)
+        return step
+
+    def all_rows(self) -> Callable:
+        """Every rank's row in rank order (an ``all_gather``): each
+        controller ships its rows once."""
+        if not self.multi:
+            return lambda x: x
+        return self._mod._mc_gather_rows
+
+    def reduce_cols(self, red: Callable, cols=None) -> Callable:
+        """For each rank r held here, ``red`` over every rank's column
+        ``cols[r]`` (default r) of an ``(L, n, *s)`` tensor (a
+        ``psum_scatter``): on one controller ``red(x)[cols]``. Across
+        controllers the columns cross in one all-to-all round, and ``red``
+        runs on an ``(n, n, *s)`` tensor holding them at the columns they
+        hold on one controller (zeros elsewhere): a reduction's order may
+        depend on where an element sits in its tensor (vectorized body or
+        tail), so this gives one controller's bits."""
+        mod = self._mod
+        C = None if cols is None else mod._idx(cols)
+        if not self.multi:
+            if C is None:
+                return red
+            return lambda x: red(x)[C]
+        at = mod._idx((np.arange(self.n) if cols is None
+                       else np.asarray(cols))[self.mine])
+
+        def run(x):
+            if C is not None:
+                x = x[:, C]
+            y = mod._mc_alltoall(x).transpose(0, 1)     # (n, L, *s)
+            full = y.new_zeros((self.n, self.n) + tuple(y.shape[2:]))
+            full[:, at] = y
+            return red(full)[at]
+        return run
+
+
 class TorchCollModule:
     def __init__(self, comm):
         self.comm = comm
@@ -236,6 +411,7 @@ class TorchCollModule:
         # the comm's rows are fixed when it is built: a multiprocess
         # comm takes the cross-controller schedules
         self._mc = bool(getattr(comm, "is_multiprocess", False))
+        self._ax: Optional[_Axis] = None
 
     # -- helpers ---------------------------------------------------------
     def _to_dev(self, x) -> torch.Tensor:
@@ -247,7 +423,7 @@ class TorchCollModule:
     def _idx(self, a) -> torch.Tensor:
         """A host index array as an int64 tensor on the device (built
         once per schedule, never per call)."""
-        return torch.as_tensor(np.asarray(a, dtype=np.int64),
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
                                device=self.comm.device)
 
     def _rows(self) -> torch.Tensor:
@@ -353,9 +529,8 @@ class TorchCollModule:
         allgather, which select their own."""
         if func == "barrier":
             return self._barrier_alg()
-        if self._mc:
-            return self._entry(func, _meta(x), op, root, "_mcplan_")[2]
-        return self._entry(func, self._to_dev(x), op, root)[2]
+        x = _meta(x) if self._mc else self._to_dev(x)
+        return self._entry(func, x, op, root)[2]
 
     # -- allreduce schedules ----------------------------------------------
     def _ring_allreduce_inner(self, op, n, shape, codec=None):
@@ -363,7 +538,8 @@ class TorchCollModule:
         then n-1 allgather steps over the flattened rows padded to n
         chunks; any op (the chunk combine is ``op.fn``). A rank's partial
         of step t is what it sends in step t+1, so the reduce-scatter
-        carries it instead of a whole buffer.
+        carries it instead of a whole buffer. Across controllers a step
+        ships one chunk per controller boundary.
 
         ``codec`` (a ``(Codec, block)`` pair, from ``coll/compressed``)
         quantizes every hop: in the reduce-scatter each rank's outgoing
@@ -373,41 +549,43 @@ class TorchCollModule:
         dequantized image, and the codes are forwarded losslessly through
         the allgather steps, so every rank ends bitwise identical. Blocks
         are padded per chunk row, as ``jnp_quant`` pads each chunk."""
+        ax = self._axis()
         total = int(np.prod(shape))
         chunk = -(-total // n)
         r = np.arange(n)
         t = np.arange(n - 1)[:, None]
-        rows = self._rows()
-        tgt = self._idx((r - t - 1) % n)         # step t combines here
-        own = self._idx((r + 1) % n)             # fully reduced chunk
-        ag = self._idx((r - t) % n)              # allgather slot, step t
+        rows = ax.lr
+        mine = ax.col(r)
+        tgt = ax.col((r - t - 1) % n)            # step t combines here
+        own = ax.col((r + 1) % n)                # fully reduced chunk
+        ag = ax.col((r - t) % n)                 # allgather slot, step t
+        step = ax.shift(1)
         if codec is not None:
             cobj, cblock = codec
 
         def inner(b):
             buf = _chunks(b, n, chunk)
-            acc = buf[rows, rows]                # chunk r goes first
+            acc = buf[rows, mine]                # chunk r goes first
             for s in range(n - 1):
                 if codec is None:
-                    recvd = acc.roll(1, 0)
+                    recvd = step(acc)
                 else:
-                    qc, qs = cobj.torch_quant_rows(acc, cblock)
-                    recvd = cobj.torch_dequant_rows(
-                        qc.roll(1, 0), qs.roll(1, 0), chunk, acc.dtype,
-                        cblock)
+                    qc, qs = step(*cobj.torch_quant_rows(acc, cblock))
+                    recvd = cobj.torch_dequant_rows(qc, qs, chunk,
+                                                    acc.dtype, cblock)
                 acc = op.fn(buf[rows, tgt[s]], recvd)
             out = buf.new_empty(buf.shape)
             if codec is None:
                 out[rows, own] = acc
                 for s in range(n - 1):
-                    acc = acc.roll(1, 0)
+                    acc = step(acc)
                     out[rows, ag[s]] = acc
             else:
                 qc, qs = cobj.torch_quant_rows(acc, cblock)
                 out[rows, own] = cobj.torch_dequant_rows(qc, qs, chunk,
                                                          acc.dtype, cblock)
                 for s in range(n - 1):
-                    qc, qs = qc.roll(1, 0), qs.roll(1, 0)
+                    qc, qs = step(qc, qs)
                     out[rows, ag[s]] = cobj.torch_dequant_rows(
                         qc, qs, chunk, acc.dtype, cblock)
             return out.reshape(b.shape[0], -1)[:, :total].reshape(b.shape)
@@ -435,18 +613,19 @@ class TorchCollModule:
         """Recursive doubling (coll/xla.py:542-560): log2(n) exchanges
         with partner r ^ d, each pair combining (lower rank, higher
         rank), so every rank holds the same bits. Power-of-two sizes."""
+        ax = self._axis()
         rounds = []
         r = np.arange(n)
         d = 1
         while d < n:
-            rounds.append((self._idx(np.minimum(r, r ^ d)),
-                           self._idx(np.maximum(r, r ^ d))))
+            rounds.append(ax.get_many([np.minimum(r, r ^ d),
+                                       np.maximum(r, r ^ d)]))
             d *= 2
 
         def inner(b):
             x = b
-            for lo, hi in rounds:
-                x = op.fn(x[lo], x[hi])
+            for pair in rounds:
+                x = op.fn(*pair(x))
             return b.clone() if x is b else x
         return inner
 
@@ -454,13 +633,15 @@ class TorchCollModule:
         """Rabenseifner's redscat+allgather (coll/xla.py:562-580): each
         rank reduces 1/n of the buffer, then the chunks are gathered.
         Sums only (selection demotes others)."""
+        ax = self._axis()
         chunk = -(-int(np.prod(shape)) // n)
+        scatter = ax.reduce_cols(lambda y: _reduce0(y, op))
+        gather = ax.all_rows()
 
         def inner(b):
-            part = _reduce0(_chunks(b, n, chunk), op)   # part[r]: rank r's
-            return _to_all(part.reshape(-1), b.shape)
+            part = scatter(_chunks(b, n, chunk))        # part[r]: rank r's
+            return _to_all(gather(part).reshape(-1), b.shape)
         return inner
-
     def _hier_allreduce_inner(self, op, low, high, codec=None):
         """Two-level (coll/xla.py:319-398): reduce-scatter within each low
         group, a reduce-scatter + allgather of the scattered chunk over
@@ -523,8 +704,11 @@ class TorchCollModule:
         alg = self._algorithm("allreduce", x.nbytes // n, op.commute)
         if alg == "rabenseifner" and op.xla_prim != "sum":
             alg = "direct"
-        if alg not in ALGORITHMS["allreduce"][2:]:
+        if alg not in ALGORITHMS["allreduce"][2:] or (
+                alg == "hier" and self._groups()[0] is None):
             alg = "direct"
+        if self._mc and alg in ("direct", "hier"):
+            return alg, self._mc_allreduce_body(op)
         # nseg is part of the schedule's identity: a segsize change
         # builds a new one
         nseg = (self._nseg(x.nbytes // (n * n))
@@ -553,14 +737,17 @@ class TorchCollModule:
         op.fn(acc[dst], acc[src])``; then root's row takes rank 0's
         accumulator when ``root`` is given. Every row keeps its partial,
         as in the reference."""
-        rounds = [(self._idx(d), self._idx(s)) for d, s in rounds]
+        ax = self._axis()
+        steps = [ax.pull(d, s) for d, s in rounds]
+        last = (ax.pull([root], [0], single=((root,), (0,))) if root
+                else None)
 
         def inner(b):
             acc = b.clone()
-            for dst, src in rounds:
-                acc[dst] = op.fn(acc[dst], acc[src])
-            if root:
-                acc[root] = acc[0]
+            for step in steps:
+                step(acc, op.fn)
+            if last is not None:
+                last(acc)
             return acc
         return inner
 
@@ -598,10 +785,10 @@ class TorchCollModule:
 
     def _collect_rounds(self, n, root):
         """Binomial collect toward root (the gather side of
-        coll/xla.py:1093-1164): per round, (dst ranks, src ranks,
-        positions) with ``buf[dst, pos] = buf[src, pos]`` — at distance
-        d, virtual rank vs = d (mod 2d) hands its d positions [vs,
-        vs+d) to vs-d."""
+        coll/xla.py:1093-1164): per round, the step ``buf[dst, pos] =
+        buf[src, pos]`` — at distance d, virtual rank vs = d (mod 2d)
+        hands its d positions [vs, vs+d) to vs-d."""
+        ax = self._axis()
         npad = _npad2(n)
         rounds = []
         d = 1
@@ -609,9 +796,8 @@ class TorchCollModule:
             vs = np.arange(d, n, 2 * d)
             if len(vs):
                 pos = vs[:, None] + np.arange(d)[None, :]
-                rounds.append((self._idx((vs - d + root) % n)[:, None],
-                               self._idx((vs + root) % n)[:, None],
-                               self._idx(pos)))
+                rounds.append(ax.pull((vs - d + root) % n,
+                                      (vs + root) % n, pos))
             d *= 2
         return rounds
 
@@ -621,21 +807,28 @@ class TorchCollModule:
         v = (r - root) mod n, then the chunks collect into root along a
         binomial tree. Sums only; root's row significant, the others
         zero."""
+        ax = self._axis()
         total = int(np.prod(shape))
         chunk = -(-total // n)
         npad = _npad2(n)
-        v = self._idx((np.arange(n) - root) % n)
-        rows = self._rows()
+        vr = (np.arange(n) - root) % n
+        v = ax.col(vr)
+        rows = ax.lr
         rounds = self._collect_rounds(n, root)
+        at = ax.loc(root)
+        # rank r's part: chunk v_r summed over every rank
+        scatter = ax.reduce_cols(
+            lambda y: torch.sum(y, dim=0, dtype=y.dtype), vr)
 
         def inner(b):
-            part = torch.sum(_chunks(b, n, chunk), dim=0, dtype=b.dtype)
+            part = scatter(_chunks(b, n, chunk))
             buf = b.new_empty((b.shape[0], npad, chunk))
-            buf[rows, v] = part[v]                 # rank r holds chunk v_r
-            for dst, src, pos in rounds:
-                buf[dst, pos] = buf[src, pos]
+            buf[rows, v] = part                    # rank r holds chunk v_r
+            for step in rounds:
+                step(buf)
             out = torch.zeros_like(b)
-            out[root] = buf[root, :n].reshape(-1)[:total].view(shape)
+            if at is not None:
+                out[at] = buf[at, :n].reshape(-1)[:total].view(shape)
             return out
         return inner
 
@@ -652,6 +845,9 @@ class TorchCollModule:
         elif alg == "rabenseifner_root" and op.xla_prim == "sum" and n > 1:
             def build():
                 return self._rabenseifner_root_reduce_inner(n, root, shape)
+        elif self._mc:
+            # the alias: every row gets the reduction, root's among them
+            return "alias", self._entry("allreduce", x, op)[1]
         else:
             # the alias, a demotion, or an unknown name: allreduce
             return "alias", lambda b: self.allreduce(b, op)
@@ -661,13 +857,16 @@ class TorchCollModule:
     def _tree_bcast(self, root, rounds):
         """Root's row, then ``rounds`` of (dst rows, src rows) row
         copies; every other row is written exactly once."""
-        rounds = [(self._idx(d), self._idx(s)) for d, s in rounds]
+        ax = self._axis()
+        steps = [ax.pull(d, s) for d, s in rounds]
+        at = ax.loc(root)
 
         def inner(b):
             out = torch.empty_like(b)
-            out[root] = b[root]
-            for dst, src in rounds:
-                out[dst] = out[src]
+            if at is not None:
+                out[at] = b[at]
+            for step in steps:
+                step(out)
             return out
         return inner
 
@@ -706,23 +905,25 @@ class TorchCollModule:
         down the rank chain in ``nseg`` segments; at round t, virtual rank
         vr >= 1 takes segment t - vr + 1 from its predecessor. nseg == 1
         is the chain."""
+        ax = self._axis()
         total = int(np.prod(shape))
         seg = -(-total // nseg)
         rounds = []
         for t in range(n - 2 + nseg):
             v = np.array([v for v in range(1, n) if 0 <= t - v + 1 < nseg])
             if len(v):
-                rounds.append((self._idx((v + root) % n),
-                               self._idx((v - 1 + root) % n),
-                               self._idx(t - v + 1)))
+                rounds.append(ax.pull((v + root) % n, (v - 1 + root) % n,
+                                      t - v + 1))
+        at = ax.loc(root)
 
         def inner(b):
             buf = b.new_empty((b.shape[0], nseg * seg))
-            buf[root, :total] = b[root].reshape(-1)
-            buf[root, total:] = 0
+            if at is not None:
+                buf[at, :total] = b[at].reshape(-1)
+                buf[at, total:] = 0
             segs = buf.view(b.shape[0], nseg, seg)
-            for dst, src, k in rounds:
-                segs[dst, k] = segs[src, k]
+            for step in rounds:
+                step(segs)
             return buf[:, :total].reshape(b.shape)
         return inner
 
@@ -732,10 +933,17 @@ class TorchCollModule:
         reference scatters with a psum over a root-masked stack; its
         added zeros change no value but -0.0, and the port moves the
         chunks."""
+        ax = self._axis()
         chunk = -(-int(np.prod(shape)) // n)
+        r = np.arange(n)
+        scatter = ax.get(np.full(n, root), pos=r, single=lambda b: _chunks(
+            b[root:root + 1], n, chunk)[0])               # (n, chunk)
+        gather = ax.all_rows()
+        pre = (lambda b: _chunks(b, n, chunk)) if ax.multi else \
+            (lambda b: b)
 
         def inner(b):
-            part = _chunks(b[root:root + 1], n, chunk)[0]   # (n, chunk)
+            part = gather(scatter(pre(b)))
             return _to_all(part.reshape(-1), b.shape)
         return inner
 
@@ -769,8 +977,11 @@ class TorchCollModule:
             alg = "direct"                 # arithmetic dtypes only
         if alg in ("chain", "pipeline") and n == 1:
             alg = "direct"
-        if alg not in ALGORITHMS["bcast"][2:]:
+        if alg not in ALGORITHMS["bcast"][2:] or (
+                alg == "hier" and self._groups()[0] is None):
             alg = "direct"
+        if self._mc and alg in ("direct", "hier"):
+            return alg, self._mc_bcast_body(root)
         nseg = (1 if alg == "chain"
                 else self._nseg(x.nbytes // n) if alg == "pipeline" else 0)
         shape = tuple(x.shape[1:])
@@ -794,16 +1005,19 @@ class TorchCollModule:
     def _ring_allgather_inner(self, n):
         """Ring (coll/xla.py:582-604): n-1 neighbor shifts, each rank
         forwarding the block it received the step before."""
+        ax = self._axis()
         r = np.arange(n)
-        slot = self._idx((r - np.arange(n - 1)[:, None] - 1) % n)
-        rows = self._rows()
+        slot = ax.col((r - np.arange(n - 1)[:, None] - 1) % n)
+        rows = ax.lr
+        mine = ax.col(r)
+        step = ax.shift(1)
 
         def inner(b):
             out = b.new_empty((b.shape[0], n) + b.shape[1:])
-            out[rows, rows] = b
+            out[rows, mine] = b
             cur = b
             for s in range(n - 1):
-                cur = cur.roll(1, 0)
+                cur = step(cur)
                 out[rows, slot[s]] = cur
             return out
         return inner
@@ -812,19 +1026,20 @@ class TorchCollModule:
         """Bruck (coll/xla.py:605-623): ceil(log2 n) rounds doubling the
         forwarded block count (a partial last round for any n), then a
         rotation from relative to absolute rank order."""
+        ax = self._axis()
         r = np.arange(n)
         rounds = []
         have = 1
         while have < n:
-            rounds.append((self._idx((r + have) % n), min(have, n - have)))
+            rounds.append((ax.get((r + have) % n), min(have, n - have)))
             have += min(have, n - have)
-        rows = self._rows()
-        final = self._idx((r[None, :] - r[:, None]) % n)
+        rows = ax.lr
+        final = ax.rows_of((r[None, :] - r[:, None]) % n)
 
         def inner(b):
             buf = b.unsqueeze(1)           # blocks ordered r, r+1, ...
-            for src, take in rounds:
-                buf = torch.cat([buf, buf[:, :take][src]], 1)
+            for step, take in rounds:
+                buf = torch.cat([buf, step(buf[:, :take])], 1)
             return buf[rows[:, None], final]
         return inner
 
@@ -833,23 +1048,24 @@ class TorchCollModule:
         writes each received block straight into its absolute slot,
         guided by the bitmap of held blocks (simulated here when the
         schedule is built, since it depends on n alone)."""
+        ax = self._axis()
         have = np.eye(n, dtype=bool)
         rounds = []
         dist = 1
         while dist < n:
             rhave = np.roll(have, -dist, axis=0)    # rhave[j] = have[j+d]
             dst, col = np.nonzero(rhave & ~have)
-            rounds.append((self._idx(dst), self._idx(col),
-                           self._idx((dst + dist) % n)))
+            rounds.append(ax.pull(dst, (dst + dist) % n, col))
             have |= rhave
             dist *= 2
-        rows = self._rows()
+        rows = ax.lr
+        mine = ax.col(np.arange(n))
 
         def inner(b):
             out = b.new_empty((b.shape[0], n) + b.shape[1:])
-            out[rows, rows] = b
-            for dst, col, src in rounds:   # the bitmap fills every slot
-                out[dst, col] = out[src, col]
+            out[rows, mine] = b
+            for step in rounds:            # the bitmap fills every slot
+                step(out)
             return out
         return inner
 
@@ -857,6 +1073,7 @@ class TorchCollModule:
         """Neighbor exchange (coll/xla.py:775-820; even n): round 0 pairs
         exchange their block, each later round ships the two blocks
         learned last round to the alternating other neighbor."""
+        ax = self._axis()
         owned = [[r] for r in range(n)]
         rounds = []
         for t in range(n // 2):
@@ -872,27 +1089,32 @@ class TorchCollModule:
                             for r in range(n)]
                 sendsets = [owned[r][-2:] for r in range(n)]
             ridx = [sendsets[peer[r]] for r in range(n)]
-            rounds.append((self._idx(peer)[:, None], self._idx(ridx)))
+            rounds.append(ax.pull(np.arange(n), peer, np.asarray(ridx)))
             owned = [owned[r] + [c for c in ridx[r] if c not in owned[r]]
                      for r in range(n)]
-        rows = self._rows()
+        rows = ax.lr
+        mine = ax.col(np.arange(n))
 
         def inner(b):
             out = b.new_empty((b.shape[0], n) + b.shape[1:])
-            out[rows, rows] = b
-            for peer, ridx in rounds:
-                out[rows[:, None], ridx] = out[peer, ridx]
+            out[rows, mine] = b
+            for step in rounds:
+                step(out)
             return out
         return inner
 
     def _two_procs_allgather_inner(self):
         """two_procs (coll/xla.py:821-834): one exchange; rank 0 stacks
         [me, peer], rank 1 [peer, me]."""
+        ax = self._axis()
+        swap = ax.get([1, 0], single=lambda b: b.flip(0))
+        first = ax.below(1)                # rows of rank 0 held here
+
         def inner(b):
-            other = b.flip(0)
+            other = swap(b)
             mine = torch.stack([b, other], 1)
             swapped = torch.stack([other, b], 1)
-            return torch.cat([mine[:1], swapped[1:]])
+            return torch.cat([mine[:first], swapped[first:]])
         return inner
 
     def _hier_allgather_inner(self, low, high):
@@ -921,8 +1143,11 @@ class TorchCollModule:
         alg = self._algorithm("allgather", x.nbytes // n)
         if ((alg == "sparbit" and n == 1)
                 or (alg == "two_procs" and n != 2)
-                or alg not in ALGORITHMS["allgather"][2:]):
+                or alg not in ALGORITHMS["allgather"][2:]
+                or (alg == "hier" and self._groups()[0] is None)):
             alg = "direct"
+        if self._mc and alg in ("direct", "hier"):
+            return alg, self._mc_allgather_body
 
         def build():
             if alg == "hier":
@@ -946,20 +1171,23 @@ class TorchCollModule:
         """Binomial gather (coll/xla.py:1132-1164): log2(n) rounds of
         block-doubling copies toward root. Root's row significant, the
         others zero."""
+        ax = self._axis()
         npad = _npad2(n)
-        v = self._idx((np.arange(n) - root) % n)
+        v = ax.col((np.arange(n) - root) % n)
         idx = self._idx((np.arange(n) - root) % n)   # vrank -> rank rows
-        rows = self._rows()
+        rows = ax.lr
         rounds = self._collect_rounds(n, root)
+        at = ax.loc(root)
 
         def inner(b):
             s = b.shape[1:]
             buf = b.new_empty((b.shape[0], npad) + s)
             buf[rows, v] = b
-            for dst, src, pos in rounds:
-                buf[dst, pos] = buf[src, pos]
+            for step in rounds:
+                step(buf)
             out = b.new_zeros((b.shape[0], n) + s)
-            out[root] = buf[root, idx]
+            if at is not None:
+                out[at] = buf[at, idx]
             return out
         return inner
 
@@ -967,26 +1195,28 @@ class TorchCollModule:
         """Binomial scatter (coll/xla.py:1165-1197): root's n blocks fan
         out in log2(n) block-halving rounds; at distance d, virtual rank
         vs = 0 (mod 2d) hands positions [vs+d, vs+2d) to vs+d."""
+        ax = self._axis()
         npad = _npad2(n)
-        v = self._idx((np.arange(n) - root) % n)
+        v = ax.col((np.arange(n) - root) % n)
         order = self._idx((np.arange(npad) + root) % n)  # rank -> vrank
-        rows = self._rows()
+        rows = ax.lr
         rounds = []
         d = npad // 2
         while d >= 1:
             vs = np.array([u for u in range(0, n, 2 * d) if u + d < n])
             if len(vs):
                 pos = vs[:, None] + d + np.arange(d)[None, :]
-                rounds.append((self._idx((vs + d + root) % n)[:, None],
-                               self._idx((vs + root) % n)[:, None],
-                               self._idx(pos)))
+                rounds.append(ax.pull((vs + d + root) % n, (vs + root) % n,
+                                      pos))
             d //= 2
+        at = ax.loc(root)
 
         def inner(b):
             buf = b.new_empty((b.shape[0], npad) + b.shape[2:])
-            buf[root] = b[root, order]
-            for dst, src, pos in rounds:
-                buf[dst, pos] = buf[src, pos]
+            if at is not None:
+                buf[at] = b[at, order]
+            for step in rounds:
+                step(buf)
             return buf[rows, v]
         return inner
 
@@ -994,7 +1224,10 @@ class TorchCollModule:
         n = self.comm.size
         alg = self._algorithm("gather", x.nbytes // n)
         if alg != "binomial" or n == 1:
-            return "allgather", self.allgather   # alias (and unknown names)
+            # alias (and unknown names)
+            if self._mc:
+                return "allgather", self._entry("allgather", x)[1]
+            return "allgather", self.allgather
         return alg, self._built(
             ("gather", alg, tuple(x.shape[1:]), None, root),
             lambda: self._binomial_gather_inner(n, root))
@@ -1003,6 +1236,8 @@ class TorchCollModule:
         n = self.comm.size
         alg = self._algorithm("scatter", x.nbytes // n)
         if alg != "binomial" or n == 1:
+            if self._mc:
+                return "direct", self._mc_scatter_body(root)
             return "direct", lambda b: b[root].clone()
         return alg, self._built(
             ("scatter", alg, tuple(x.shape[1:]), None, root),
@@ -1012,16 +1247,18 @@ class TorchCollModule:
     def _pairwise_alltoall_inner(self, n):
         """Pairwise exchange (coll/xla.py:880-900): in round t, rank r
         sends its block for r+t and receives from r-t."""
+        ax = self._axis()
         r = np.arange(n)
-        rows = self._rows()
-        rounds = [(t, self._idx((r + t) % n), self._idx((r - t) % n))
+        rows = ax.lr
+        mine = ax.col(r)
+        rounds = [(ax.shift(t), ax.col((r + t) % n), ax.col((r - t) % n))
                   for t in range(1, n)]
 
         def inner(b):
             out = torch.empty_like(b)
-            out[rows, rows] = b[rows, rows]
-            for t, send, slot in rounds:
-                out[rows, slot] = b[rows, send].roll(t, 0)
+            out[rows, mine] = b[rows, mine]
+            for step, send, slot in rounds:
+                out[rows, slot] = step(b[rows, send])
             return out
         return inner
 
@@ -1029,21 +1266,26 @@ class TorchCollModule:
         """Bruck (coll/xla.py:1014-1038): rotate each row's blocks by the
         rank, in round k ship every block whose index has bit k set to
         rank r+k, then un-rotate and reverse into source order."""
+        ax = self._axis()
         r = np.arange(n)
-        rows = self._rows()
-        first = self._idx((r[:, None] + r[None, :]) % n)
-        last = self._idx((r[:, None] - r[None, :]) % n)
+        rows = ax.lr
+        first = ax.rows_of((r[:, None] + r[None, :]) % n)
+        last = ax.rows_of((r[:, None] - r[None, :]) % n)
         rounds = []
         k = 1
         while k < n:
             cols = np.array([i for i in range(n) if i & k])
-            rounds.append((self._idx(cols), self._idx((r - k) % n)[:, None]))
+            src = (r - k) % n
+            rounds.append(ax.pull(
+                r, src, np.tile(cols, (n, 1)),
+                single=((slice(None), self._idx(cols)),
+                        (self._idx(src)[:, None], self._idx(cols)))))
             k <<= 1
 
         def inner(b):
             y = b[rows[:, None], first]        # y[r, i]: data for r+i
-            for cols, src in rounds:
-                y[:, cols] = y[src, cols]
+            for step in rounds:
+                step(y)
             return y[rows[:, None], last]
         return inner
 
@@ -1053,6 +1295,8 @@ class TorchCollModule:
         if (alg == "bruck" and n == 1) or \
                 alg not in ALGORITHMS["alltoall"][2:]:
             alg = "direct"
+        if self._mc and alg == "direct":
+            return alg, self._mc_alltoall
 
         def build():
             if alg == "pairwise":
@@ -1068,28 +1312,32 @@ class TorchCollModule:
         """Ring (coll/xla.py:901-929): n-1 accumulating shifts; rank r
         ends owning reduced chunk r. The partial a rank combines in step
         t is what it sends in step t+1."""
+        ax = self._axis()
         r = np.arange(n)
-        rows = self._rows()
-        first = self._idx((r - 1) % n)
-        tgt = self._idx((r - np.arange(n - 1)[:, None] - 2) % n)
+        rows = ax.lr
+        first = ax.col((r - 1) % n)
+        tgt = ax.col((r - np.arange(n - 1)[:, None] - 2) % n)
+        step = ax.shift(1)
 
         def inner(b):
             acc = b[rows, first]
             for s in range(n - 1):
-                acc = op.fn(b[rows, tgt[s]], acc.roll(1, 0))
+                acc = op.fn(b[rows, tgt[s]], step(acc))
             return acc
         return inner
 
     def _halving_rounds(self, n):
         """Per round of vector halving over ranks 0..n-1 (n a power of
-        two): (lower rank of the pair, upper rank, kept half)."""
+        two): the step that takes (lower rank's, upper rank's) half of
+        the pair, the half the rank keeps (its block's half)."""
+        ax = self._axis()
         r = np.arange(n)
         rounds = []
         d = n // 2
         while d >= 1:
-            rounds.append((self._idx(np.minimum(r, r ^ d)),
-                           self._idx(np.maximum(r, r ^ d)),
-                           self._idx((r & d) != 0)))
+            rounds.append(ax.get_many([np.minimum(r, r ^ d),
+                                       np.maximum(r, r ^ d)], r,
+                                      ((r & d) != 0).astype(np.int64)))
             d //= 2
         return rounds
 
@@ -1097,9 +1345,9 @@ class TorchCollModule:
     def _halve(op, x, rounds):
         """Vector halving: each pair folds (lower rank's half, upper
         rank's half) of the half the rank keeps (its block's half)."""
-        for lo, hi, half in rounds:
+        for pair in rounds:
             xs = x.reshape((x.shape[0], 2, x.shape[1] // 2) + x.shape[2:])
-            x = op.fn(xs[lo, half], xs[hi, half])
+            x = op.fn(*pair(xs))
         return x
 
     def _rhalving_rsb_inner(self, op, n):
@@ -1115,20 +1363,28 @@ class TorchCollModule:
         proxy (rank - n2), the core halves a zero-padded 2*n2-block
         vector, and core rank q ships blocks 2q and 2q+1 to their
         owners."""
+        ax = self._axis()
         n2 = 1
         while n2 * 2 <= n:
             n2 *= 2
         rem = n - n2
         rounds = self._halving_rounds(n2)
+        if rem:
+            fold = ax.pull(np.arange(rem), np.arange(n2, n),
+                           single=((slice(None, rem),), (slice(n2, n),)))
+            core = ax.below(n2)                # core rows held here
+            j = np.arange(n)
+            home = ax.get(j // 2, pos=j % 2, single=lambda x: x.reshape(
+                (2 * n2,) + x.shape[2:])[:n])
 
         def inner(b):
             if not rem:
                 return self._halve(op, b, rounds)[:, 0]
-            x = b.new_zeros((n, 2 * n2) + b.shape[2:])
+            x = b.new_zeros((b.shape[0], 2 * n2) + b.shape[2:])
             x[:, :n] = b
-            x[:rem] = op.fn(x[:rem], x[n2:n])
-            x = self._halve(op, x[:n2], rounds)        # (n2, 2, *s)
-            return x.reshape((2 * n2,) + x.shape[2:])[:n]
+            fold(x, op.fn)
+            x = self._halve(op, x[:core], rounds)      # (n2, 2, *s)
+            return home(x)
         return inner
 
     def _hier_rsb_inner(self, low, high):
@@ -1151,10 +1407,13 @@ class TorchCollModule:
         n = self.comm.size
         alg = self._algorithm("reduce_scatter_block", x.nbytes // n,
                               op.commute)
-        if ((alg == "hier" and op.xla_prim != "sum")
+        if ((alg == "hier" and (op.xla_prim != "sum"
+                                or self._groups()[0] is None))
                 or (alg in ("recursive_halving", "butterfly") and n == 1)
                 or alg not in ALGORITHMS["reduce_scatter_block"][2:]):
             alg = "direct"
+        if self._mc and alg in ("direct", "hier"):
+            return alg, self._mc_rsb_body(op)
 
         def build():
             if alg == "hier":
@@ -1175,14 +1434,23 @@ class TorchCollModule:
         ranks >= d fold the running value of rank r-d in front of their
         own (order-preserving, any n). The exclusive form shifts it up
         one rank; rank 0 keeps its own value, as the direct lowering."""
+        ax = self._axis()
+        rounds = []
+        d = 1
+        while d < n:
+            r = np.arange(d, n)
+            rounds.append((ax.get(r - d, r, single=(
+                lambda a, d=d: a[:n - d])), ax.below(d)))
+            d *= 2
+        shift = ax.get(np.maximum(np.arange(n) - 1, 0), single=(
+            lambda a: torch.cat([a[:1], a[:-1]])))
+
         def inner(b):
             acc = b
-            d = 1
-            while d < n:
-                acc = torch.cat([acc[:d], op.fn(acc[:n - d], acc[d:])])
-                d *= 2
+            for prev, k in rounds:
+                acc = torch.cat([acc[:k], op.fn(prev(acc), acc[k:])])
             if exclusive:
-                return torch.cat([acc[:1], acc[:-1]])
+                return shift(acc)
             return acc
         return inner
 
@@ -1191,6 +1459,8 @@ class TorchCollModule:
         alg = self._algorithm("scan", x.nbytes // n, op.commute)
         if alg != "recursive_doubling" or n == 1:
             alg = "direct"
+        if self._mc and alg == "direct":
+            return alg, lambda X: self._mc_prefix(X, op, exclusive)
 
         def build():
             if alg == "recursive_doubling":
@@ -1212,25 +1482,29 @@ class TorchCollModule:
     def _tree_barrier_inner(self, n):
         """Tree (coll/xla.py:835-859): binomial fan-in of token sums to
         rank 0, then binomial fan-out of the release."""
+        ax = self._axis()
         fan_in, fan_out = [], []
         d = 1
         while d < n:
             dst = np.array([r for r in range(n)
                             if r % (2 * d) == 0 and r + d < n])
-            fan_in.append((self._idx(dst), self._idx(dst + d)))
+            fan_in.append(ax.pull(dst, dst + d))
             d *= 2
         d >>= 1
         while d >= 1:
             dst = np.array([r for r in range(n) if r % (2 * d) == d])
-            fan_out.append((self._idx(dst), self._idx(dst - d)))
+            fan_out.append(ax.pull(dst, dst - d))
             d >>= 1
+
+        def add(a, b):
+            return a + b
 
         def inner(t):
             t = t.clone()
-            for dst, src in fan_in:
-                t[dst] = t[dst] + t[src]
-            for dst, src in fan_out:
-                t[dst] = t[src]
+            for step in fan_in:
+                step(t, add)
+            for step in fan_out:
+                step(t)
             return t
         return inner
 
@@ -1238,11 +1512,16 @@ class TorchCollModule:
         """Dissemination (coll/xla.py:1065-1078): in round k each rank
         signals rank r + 2^k; token sums make every arrival a data
         dependency."""
+        ax = self._axis()
+        steps = []
+        d = 1
+        while d < n:
+            steps.append(ax.shift(d))
+            d *= 2
+
         def inner(t):
-            d = 1
-            while d < n:
-                t = t + t.roll(d, 0)
-                d *= 2
+            for step in steps:
+                t = t + step(t)
             return t
         return inner
 
@@ -1260,18 +1539,23 @@ class TorchCollModule:
         return inner
 
     def _barrier_alg(self) -> str:
-        if self._mc:
-            return self._mc_alg("barrier", 4)
         alg = self._algorithm("barrier", 4)
         if (alg == "tree" and self.comm.size == 1) or \
-                alg not in ALGORITHMS["barrier"][2:]:
+                alg not in ALGORITHMS["barrier"][2:] or (
+                    alg == "hier" and self._groups()[0] is None):
             alg = "direct"
         return alg
 
     def _barrier_arrays(self):
         """The barrier's token collective, staged once per algorithm (the
-        token and the schedule), so a call is its launches alone."""
+        token and the schedule), so a call is its launches alone. Across
+        controllers the token schedules step over this controller's rows
+        and cross the controller tier; direct and hier are the tier's own
+        barrier."""
         alg = self._barrier_alg()
+        if self._mc and alg in ("direct", "hier"):
+            self._mc_barrier()
+            return [torch.ones(1, dtype=torch.int32, device=self.comm.device)]
         st = self._barrier_tokens.get(alg)
         if st is None:
             n = self.comm.size
@@ -1284,18 +1568,31 @@ class TorchCollModule:
             else:
                 def fn(t):
                     return t.sum(dtype=t.dtype).expand(n).contiguous()
-            token = torch.ones(n, dtype=torch.int32, device=self.comm.device)
-            fn(token)                          # warm
+            token = torch.ones(len(self._axis().mine), dtype=torch.int32,
+                               device=self.comm.device)
+            if not self._mc:
+                fn(token)                      # warm
             st = self._barrier_tokens[alg] = (token, fn)
         token, fn = st
+        if self._mc and self.comm.device.type == "cuda":
+            # no controller leaves before its earlier work is done
+            torch.cuda.synchronize(self.comm.device)
         return [fn(token)]
 
-
     # -- across controllers (core/multictl) --------------------------------
-    # Every plan below maps this controller's rows (``Rows.local``) to its
-    # rows of the result; the tier exchanges are collective over the
-    # controllers holding rows, which all build the same plan from the
-    # global shapes (SPMD).
+    # On a comm spanning controllers every plan maps this controller's
+    # rows (``Rows.local``) to its rows of the result, and every
+    # controller holding rows builds the same plan from the global shapes
+    # (SPMD). The explicit schedules above step over the rank axis
+    # (``_axis``); the bodies below are direct and hier, which are one
+    # exchange: the local stage leaves one partial (or this controller's
+    # rows) per controller, which is all that the hier schedule's
+    # scattered chunks would carry over the slow tier.
+    def _axis(self) -> _Axis:
+        if self._ax is None:
+            self._ax = _Axis(self)
+        return self._ax
+
     def _mc_tier(self):
         return multictl.tier(self.comm.layout.ctrls)
 
@@ -1313,19 +1610,6 @@ class TorchCollModule:
         """The controllers' partials folded in controller order."""
         return self._mc_run("_device_allreduce", part, op)
 
-    def _mc_alg(self, func: str, nbytes: int, commute: bool = True) -> str:
-        """The algorithm ``selected`` reports across controllers: ``hier``
-        where the decision rows pick it and the tiers allow it, else
-        ``direct`` (reduce and gather are the multihost rows' aliases,
-        allreduce and allgather). Both name the same exchange: the local
-        stage already leaves one partial (or this controller's rows) per
-        controller, which is what the hier schedule's scattered chunks
-        add up to, so one body serves both."""
-        alg = self._algorithm(func, nbytes, commute)
-        if alg == "hier" and self._groups()[0] is not None:
-            return "hier"
-        return "direct"
-
     def _mc_call(self, func: str, x, op=None, root=None):
         rows = self.comm._rows_of(x)
         if not self.comm._local:
@@ -1336,7 +1620,7 @@ class TorchCollModule:
             elif func in ("scatter", "reduce_scatter_block"):
                 shape = (0,) + shape[2:]
             return rows.like(rows.local.new_empty(shape))
-        fn = self._entry(func, _meta(rows), op, root, "_mcplan_")[1]
+        fn = self._entry(func, _meta(rows), op, root)[1]
         return rows.like(fn(rows.local))
 
     def mc_full(self, rows: Rows) -> torch.Tensor:
@@ -1379,10 +1663,7 @@ class TorchCollModule:
         the rows and fold them in rank order instead."""
         return not op.commute and not self.comm.layout.ordered
 
-    def _mcplan_allreduce(self, x, op, root):
-        alg = self._mc_alg("allreduce", x.nbytes // self.comm.size,
-                           op.commute)
-
+    def _mc_allreduce_body(self, op):
         def inner(X):
             L = X.shape[0]
             if self._mc_fallback(op):
@@ -1391,16 +1672,9 @@ class TorchCollModule:
             # the local fold, then one partial per controller crosses
             return self._mc_expand(self._mc_allreduce(_reduce0(X, op), op),
                                    L)
-        return alg, inner
+        return inner
 
-    def _mcplan_reduce(self, x, op, root):
-        # the multihost row is the symmetric alias: every row gets the
-        # reduction, root's among them
-        ar = self._entry("allreduce", x, op, None, "_mcplan_")[1]
-        return "alias", ar
-
-    def _mcplan_bcast(self, x, op, root):
-        alg = self._mc_alg("bcast", x.nbytes // self.comm.size)
+    def _mc_bcast_body(self, root):
         lay = self.comm.layout
         g_root = next(g for g, p in enumerate(lay.parts) if root in p)
 
@@ -1413,20 +1687,12 @@ class TorchCollModule:
             # then every local row takes it
             return self._mc_expand(self._mc_run("_device_bcast", row,
                                                 g_root), X.shape[0])
-        return alg, inner
+        return inner
 
-    def _mcplan_allgather(self, x, op, root):
-        alg = self._mc_alg("allgather", x.nbytes // self.comm.size)
+    def _mc_allgather_body(self, X):
+        return self._mc_expand(self._mc_gather_rows(X), X.shape[0])
 
-        def inner(X):
-            return self._mc_expand(self._mc_gather_rows(X), X.shape[0])
-        return alg, inner
-
-    def _mcplan_gather(self, x, op, root):
-        return "allgather", self._entry("allgather", x, None, None,
-                                        "_mcplan_")[1]
-
-    def _mcplan_scatter(self, x, op, root):
+    def _mc_scatter_body(self, root):
         lay = self.comm.layout
         g_root = next(g for g, p in enumerate(lay.parts) if root in p)
         n = self.comm.size
@@ -1447,28 +1713,32 @@ class TorchCollModule:
             if lay.h == g_root:
                 return R[self._idx(list(lay.mine))].clone()
             return got[g_root].view((X.shape[0],) + s)
-        return "direct", inner
-
-    def _mcplan_alltoall(self, x, op, root):
-        return "direct", self._mc_alltoall
+        return inner
 
     def _mc_alltoall(self, X: torch.Tensor) -> torch.Tensor:
         """(L, N, *s) -> (L, N, *s): out[a, i] = rank i's chunk for my
-        a-th rank. Each controller ships each other one block."""
+        a-th rank. Each controller ships each other one block: its rows'
+        chunks for that controller's ranks."""
         lay = self.comm.layout
         n = self.comm.size
         L, s = X.shape[0], tuple(X.shape[2:])
         per = int(np.prod(s, dtype=np.int64))
         G = len(lay.parts)
+        others = [g for g in range(G) if g != lay.h]
         # block g: my rows' chunks for controller g's ranks
-        send = torch.cat([X[:, self._idx(list(lay.parts[g]))]
-                          .reshape(-1) for g in range(G)])
+        send = torch.cat([X[:, self._idx(list(lay.parts[g]))].reshape(-1)
+                          for g in others]) if others else X.new_empty(0)
         want = []
         for g in range(G):
-            lg = lay.sizes[g]
-            a = lg * int(lay.offs[lay.h]) * per
-            want.append((0, 0) if g == lay.h else (a, a + lg * L * per))
-        cap = max(lg * n for lg in lay.sizes) * per * X.element_size()
+            # controller g's block for me follows its blocks for the
+            # controllers before me
+            before = sum(lay.sizes[d] for d in range(G)
+                         if d != g and d < lay.h)
+            a = lay.sizes[g] * before * per
+            want.append((0, 0) if g == lay.h
+                        else (a, a + lay.sizes[g] * L * per))
+        cap = max(lg * (n - lg) for lg in lay.sizes) * per * \
+            X.element_size()
         got = self._mc_exchange(send, cap, want)
         # my rows' chunks for my own ranks, as the receivers see them
         mine = X[:, self._idx(list(lay.mine))].transpose(0, 1)
@@ -1480,12 +1750,8 @@ class TorchCollModule:
             out = out[:, self._idx(lay.perm)]
         return out.contiguous()
 
-    def _mcplan_reduce_scatter_block(self, x, op, root):
+    def _mc_rsb_body(self, op):
         n = self.comm.size
-        alg = self._mc_alg("reduce_scatter_block", x.nbytes // n,
-                           op.commute)
-        if alg == "hier" and op.xla_prim != "sum":
-            alg = "direct"                     # hier rsb is the sum's
         lay = self.comm.layout
 
         def inner(X):                          # (L, N, *s) -> (L, *s)
@@ -1505,7 +1771,7 @@ class TorchCollModule:
                                  else got[g].view((len(lay.mine),) + s)
                                  for g in range(len(lay.parts))])
             return op.reduce_tree(parts, 0)    # controller (= rank) order
-        return alg, inner
+        return inner
 
     def _mc_prefix(self, X, op, exclusive: bool):
         """Scan across controllers: the local prefix, the controllers'
@@ -1533,12 +1799,6 @@ class TorchCollModule:
             return incl.contiguous()
         first = incl[:1] if lay.h == 0 else before.unsqueeze(0)
         return torch.cat([first, incl[:-1]])
-
-    def _mcplan_scan(self, x, op, root):
-        return "direct", lambda X: self._mc_prefix(X, op, False)
-
-    def _mcplan_exscan(self, x, op, root):
-        return "direct", lambda X: self._mc_prefix(X, op, True)
 
     def _mc_barrier(self) -> None:
         """Drain this controller's device, then the tier's dissemination
@@ -1654,8 +1914,6 @@ class TorchCollModule:
         return self._entry("exscan", x, op)[1](x)
 
     def barrier(self) -> None:
-        if self._mc:
-            return self._mc_barrier()
         self._barrier_arrays()
         if self.comm.device.type == "cuda":
             torch.cuda.synchronize(self.comm.device)
@@ -1666,9 +1924,6 @@ class TorchCollModule:
         work queued before it on the stream (the coll/nbc component owns
         the schedule-based MPI_Ibarrier slot). Across controllers the
         barrier completes on the controller tier before it returns."""
-        if self._mc:
-            self._mc_barrier()
-            return [torch.ones(1, dtype=torch.int32, device=self.comm.device)]
         return self._barrier_arrays()
 
 

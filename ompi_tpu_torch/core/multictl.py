@@ -124,6 +124,120 @@ def ship_rows(ctrls: Tuple[int, ...], counts: Sequence[Sequence[int]],
     return [None if t is None else t.view((-1,) + s) for t in got]
 
 
+class Take:
+    """A gather along a multiprocess communicator's rank axis, planned
+    once from global index arrays (alike on every controller) and applied
+    to this controller's rows.
+
+    Item ``k`` is "comm rank ``dst[k]`` takes rank ``src[k]``'s row", or,
+    with ``pos``, only part of it along the row's first axis: the slice
+    ``pos[k]`` (an int, or a row of ``pos`` of shape ``(m, d)``). Applied
+    to ``X`` (this controller's rows ``(L, *s)``, in rank order), it
+    returns the items whose ``dst`` is held here, in item order. Items
+    whose source is held here are an ``index_select`` of ``X``; the
+    others come in one round of the controller tier
+    (:func:`ship_rows`), in which a controller writes only the slices
+    another controller asks for, each once per destination controller. A
+    take whose sources all sit with their destinations makes no round.
+    Several tensors of the same rows (codes and scales) cross in one
+    round as bytes."""
+
+    def __init__(self, lay: Layout, n: int, dst, src, pos=None,
+                 device=None):
+        dst = np.asarray(dst, dtype=np.int64).reshape(-1)
+        src = np.asarray(src, dtype=np.int64).reshape(-1)
+        m = len(dst)
+        self.ctrls = lay.ctrls
+        nc = len(lay.parts)
+        at = np.zeros(n, np.int64)                 # rank -> controller
+        loc = np.full(n, -1, np.int64)             # rank -> local row
+        for g, part in enumerate(lay.parts):
+            at[list(part)] = g
+        loc[list(lay.mine)] = np.arange(len(lay.mine))
+        if pos is not None:
+            pos = np.asarray(pos, dtype=np.int64)
+        self.dst, self.src, self.pos = dst, src, pos
+        mat = pos is not None and pos.ndim == 2
+        keys = [(int(s),) if pos is None else
+                (int(s),) + tuple(np.atleast_1d(pos[k]).tolist())
+                for k, s in enumerate(src)]
+
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int64),
+                                   device=device)
+
+        def sel(items):
+            # the index of X's slices for ``items`` (keys)
+            rows = loc[[k[0] for k in items]]
+            if pos is None:
+                return (dev(rows),)
+            cols = np.asarray([k[1:] for k in items], np.int64).reshape(
+                len(items), pos.shape[1] if mat else 1)
+            if mat:
+                return dev(rows)[:, None], dev(cols)
+            return dev(rows), dev(cols[:, 0])
+        h = lay.h
+        gd, gs = at[dst], at[src]
+        here = np.nonzero(gd == h)[0]
+        self.m_here = len(here)
+        # the slices each (source, destination) pair ships: distinct, in
+        # order of first need; every controller lists them alike
+        ships = [[{} for _ in range(nc)] for _ in range(nc)]
+        for k in range(m):
+            if gs[k] != gd[k]:
+                box = ships[gs[k]][gd[k]]
+                box.setdefault(keys[k], len(box))
+        self.counts = [[len(ships[g][d]) for d in range(nc)]
+                       for g in range(nc)]
+        self.cross = any(any(c) for c in self.counts)
+        lk = here[gs[here] == h]                   # local-source items
+        self.l_sel = sel([keys[k] for k in lk])
+        self.l_out = dev(np.searchsorted(here, lk))
+        self.s_sel = sel([key for d in range(nc) if d != h
+                          for key in ships[h][d]])
+        self.r_out, self.r_idx = [], []
+        for g in range(nc):
+            ks = here[gs[here] == g] if g != h else here[:0]
+            self.r_out.append(dev(np.searchsorted(here, ks)))
+            self.r_idx.append(dev([ships[g][h][keys[k]] for k in ks]))
+
+    def __call__(self, *xs: torch.Tensor):
+        """The items held here of each of ``xs`` (a tensor for one, a
+        tuple for several)."""
+        outs = [x[self.l_sel] for x in xs]
+        if self.cross:
+            sends = [x[self.s_sel] for x in xs]
+            if len(xs) == 1:
+                got = ship_rows(self.ctrls, self.counts, sends[0])
+                parts = [got]
+            else:
+                # one round for every tensor: each slice crosses as bytes
+                k = sends[0].shape[0]
+                flat = [s.reshape(k, -1) for s in sends]
+                widths = [f.shape[1] * f.element_size() for f in flat]
+                got = ship_rows(self.ctrls, self.counts, torch.cat(
+                    [f.view(torch.uint8) for f in flat], 1))
+                parts = []
+                at = 0
+                for f, s, w in zip(flat, sends, widths):
+                    parts.append([None if t is None else
+                                  t[:, at:at + w].contiguous().reshape(-1)
+                                  .view(f.dtype).view((-1,) + s.shape[1:])
+                                  for t in got])
+                    at += w
+            full = []
+            for x, loc, got in zip(xs, outs, parts):
+                item = tuple(loc.shape[1:])
+                o = loc.new_empty((self.m_here,) + item)
+                o[self.l_out] = loc
+                for g, t in enumerate(got):
+                    if t is not None and self.r_idx[g].numel():
+                        o[self.r_out[g]] = t[self.r_idx[g]]
+                full.append(o)
+            outs = full
+        return outs[0] if len(xs) == 1 else tuple(outs)
+
+
 def bcast(ctrls: Tuple[int, ...], x: torch.Tensor, root: int
           ) -> torch.Tensor:
     """Controller ``ctrls[root]``'s ``x`` on every controller of

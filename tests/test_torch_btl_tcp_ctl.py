@@ -132,6 +132,11 @@ def test_ctl_flood_no_false_peer_down(pkg):
         assert lost == [], "a live peer's ctl flood reported it down"
         assert got == list(range(n)), "ctl batching broke ordering"
         st = a.ctl_stats                     # the window coalesced
+        # the sender counts a batch after its sendall returns, which the
+        # receiver may beat: wait for the counter the assertion reads
+        deadline = time.monotonic() + 10
+        while st["frames"] < n and time.monotonic() < deadline:
+            time.sleep(0.01)
         assert st["frames"] == n, st
         assert 0 < st["batches"] < n, st
     finally:

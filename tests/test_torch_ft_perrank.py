@@ -331,8 +331,16 @@ P34_KILL = """
         assert time.monotonic() < deadline, world.get_failed()
         time.sleep(0.05)
     # -- revoke propagates from one revoker to every survivor -----------
+    # the revoker waits until every survivor has taken its error: a
+    # revoke that overtook a slow survivor's allreduce would turn its
+    # error into ERR_REVOKED
     if r == 0:
+        for peer in range(1, n):
+            if peer != victim:
+                world.recv(source=peer, tag=77)
         MPI.MPIX_Comm_revoke(world)
+    else:
+        world.send(np.zeros(1), 0, tag=77)
     deadline = time.monotonic() + 10
     while not MPI.MPIX_Comm_is_revoked(world):
         assert time.monotonic() < deadline, "revoke did not propagate"
