@@ -408,8 +408,19 @@ Phases, one or more lines each:
                 DtoH`` in them (counted in phase 20's one profiler
                 session); nbc's ring iallreduce with controller 1 late
                 (first its test() calls, then its start), equal bit for
-                bit to the blocking ring, each test() under 50 ms; 0
-                flash-fold launches; the phase aimed under 90 s.
+                bit to the blocking ring, each test() under 50 ms; C9's
+                programs on fresh dups A and B of the world, controller 0
+                calling in one order and controller 1 in the other ((a)
+                ``B.i<func>`` then the blocking ``A.<func>``; (b) both
+                nonblocking, waited in start order) for iallreduce SUM
+                f32, ibcast root 7 and iallgather at 1 MB per rank and a
+                (b) iallreduce pair at 32 MB per rank, each result bit
+                for bit its comm's blocking call, the pair's CUDA-event
+                span beside the same two calls one after the other, and
+                each controller's live tiers, workers and slot bytes
+                before the dups, with them and after their ``free``
+                (the same as before, or the phase fails); 0 flash-fold
+                launches; the phase aimed under 90 s.
                 ``python3 chip_smoke.py --algorithms`` runs phases 1 and
                 8 alone.
 
@@ -7362,6 +7373,24 @@ def _report_schedules(nums: list, smi: str) -> None:
               f"{d['control .cpu()']}; flash-fold launches "
               f"{s['flash_fold']}; phase 21 took {s['s']:.1f} s (aim "
               f"{SCHED_PHASE_S} s) | {smi}")
+    for c in nums:
+        c9 = c["sched"]["c9"]
+        sp = c9["spans_ms"]
+
+        def live(v):
+            return (f"{v['tiers']} tiers, {v['workers']} workers, "
+                    f"{v['slot_bytes'] / 2 ** 20:.1f} MiB of slots")
+        phase("schedules", f"controller {c['controller']}: C9 on dups A "
+              f"(x) and B (2x), controller 0 in one order and controller 1 "
+              f"in the other, each result = its comm's blocking call bit "
+              f"for bit: {', '.join(c9['cases'])} (1 MiB per rank but the "
+              f"last); the 32 MiB (b) pair's span "
+              + ", ".join(f"{v:.3f}" for v in sp["pair"])
+              + " ms against the same two calls one after the other "
+              + ", ".join(f"{v:.3f}" for v in sp["seq"])
+              + f" ms (CUDA events, in turns); live before the dups "
+              f"{live(c9['live_before'])}, with them {live(c9['live_dups'])}"
+              f", after their free {live(c9['live_after'])} | {smi}")
 
 
 # -- phase 21 ----------------------------------------------------------
@@ -7680,12 +7709,116 @@ def _multictl_schedules(w, me: int, dev, nums: dict) -> dict:
         nbc[mode] = {"polls": len(polls), "max_poll_ms": max(polls) * 1e3,
                      "done_ms": (time.perf_counter() - t1) * 1e3}
     out["nbc"] = nbc
+    del small, blocking
+    out["c9"] = _multictl_c9(w, me, dev, xf, np.stack(xs))
     out["flash_fold"] = FA.launches - fl0
     check(out["flash_fold"] == 0, "a flash-fold launch in phase 21")
     out["cases_n"], out["bitwise"], out["worst"] = cases, bitwise, worst
     out["s"] = time.perf_counter() - t0
     check(out["s"] <= SCHED_PHASE_S, f"phase 21 took {out['s']:.1f} s")
     return crossing
+
+
+def _c9_call(comm, func, buf, nb):
+    """``func`` (``i<func>`` with ``nb``) on ``comm``: SUM for allreduce,
+    root 7 for bcast."""
+    f = ("i" if nb else "") + func
+    if func == "bcast":
+        return getattr(comm, f)(buf, SCHED_ROOT)
+    if func == "allreduce":
+        return getattr(comm, f)(buf, MPI.SUM)
+    return getattr(comm, f)(buf)
+
+
+def _multictl_c9(w, me: int, dev, xf, x32: np.ndarray) -> dict:
+    """Phase 21's C9 programs on one controller: on fresh dups ``A``
+    (input x) and ``B`` (2x) of the spanning world, controller 0 calls in
+    one order and controller 1 in the other: (a) ``B.i<func>`` then the
+    blocking ``A.<func>``; (b) ``A.i<func>`` and ``B.i<func>``, waited in
+    start order. iallreduce SUM f32, ibcast root 7 and iallgather at 1
+    MiB per rank, and a (b) iallreduce pair at 32 MiB per rank; each
+    result bit for bit the same comm's blocking call. The 32 MiB pair's
+    CUDA-event span beside the same two calls one after the other (same
+    order everywhere), and the live tiers before and after the dups'
+    ``free``."""
+    from ompi_tpu_torch.core import multictl
+    first = me == 0
+    out = {"cases": [], "live_before": multictl.live()}
+    dups = []
+
+    def pair(func, mode, xa_host, label=""):
+        A, B = w.dup(), w.dup()
+        dups.extend((A, B))
+        xa, xb = A.put(xa_host), B.put(xa_host * 2)
+        blk_a = _c9_call(A, func, xa, False).local
+        blk_b = _c9_call(B, func, xb, False).local
+        if mode == "a":
+            if first:
+                rb = _c9_call(B, func, xb, True)
+                ya = _c9_call(A, func, xa, False)
+            else:
+                ya = _c9_call(A, func, xa, False)
+                rb = _c9_call(B, func, xb, True)
+            yb = rb.get()
+            reqs = [rb]
+        else:
+            order = [("A", A, xa), ("B", B, xb)]
+            if not first:
+                order.reverse()
+            reqs = [_c9_call(c, func, x, True) for _n, c, x in order]
+            got = dict(zip([nm for nm, _c, _x in order],
+                           [r.get() for r in reqs]))
+            ya, yb = got["A"], got["B"]
+        check(all(isinstance(r, ScheduleRequest) for r in reqs),
+              f"C9 ({mode}) {func}: the nonblocking calls are nbc's")
+        check(torch.equal(ya.local, blk_a) and torch.equal(yb.local, blk_b),
+              f"C9 ({mode}) {func}: a comm's result differs from its own "
+              f"blocking call")
+        out["cases"].append(f"({mode}) {func}{label}")
+        return A, B, xa, xb
+
+    for mode in ("a", "b"):
+        for func in ("allreduce", "bcast", "allgather"):
+            pair(func, mode, xf)
+    # the (b) pair at 32 MiB per rank: its span against the same two
+    # calls one after the other, in turns (one after the other, pair,
+    # pair, one after the other)
+    A, B, xa, xb = pair("allreduce", "b", x32, " 32 MiB")
+
+    def seq():
+        return [A.iallreduce(xa, MPI.SUM).get(),
+                B.iallreduce(xb, MPI.SUM).get()]
+
+    def both():
+        order = [(A, xa), (B, xb)] if first else [(B, xb), (A, xa)]
+        return [r.get() for r in [c.iallreduce(x, MPI.SUM)
+                                  for c, x in order]]
+    spans = {"seq": [], "pair": []}
+    for kind in ("seq", "pair", "pair", "seq"):
+        fn = seq if kind == "seq" else both
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            e1.synchronize()
+            spans[kind].append(e0.elapsed_time(e1))
+        else:
+            fn()
+    out["spans_ms"] = spans
+    out["live_dups"] = multictl.live()
+    for d in dups:
+        d.free()
+    out["live_after"] = multictl.live()
+    check(out["live_after"] == out["live_before"],
+          f"C9: tiers left after the dups' free: {out['live_after']} "
+          f"against {out['live_before']} before")
+    check(out["live_dups"]["tiers"] == out["live_before"]["tiers"]
+          + len(dups), f"C9: {out['live_dups']['tiers']} tiers with "
+          f"{len(dups)} dups live")
+    return out
 
 
 def main() -> int:

@@ -44,6 +44,7 @@ import torch
 
 from ompi_tpu_torch.accelerator import to_device
 from ompi_tpu_torch.coll.framework import coll_framework
+from ompi_tpu_torch.core import multictl
 from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.core.multictl import Rows
 from ompi_tpu_torch.mca import var
@@ -89,9 +90,17 @@ class Hierarchy:
         for gi, g in enumerate(groups):
             self.group_of[np.asarray(g)] = gi
         colors = [int(self.group_of[r]) for r in range(comm.size)]
+        # built lazily, inside a collective that may run on a tier's
+        # worker while the user's thread creates comms on the same parent:
+        # the sub-comms' tier keys derive from the parent's and the
+        # hidden comms it made so far, never from its creation ordinal
+        key = getattr(comm, "_tier_key", None)
+        base = (None if key is None else multictl.child_key(
+            key, "han", len(comm.__dict__.get("_inner_comms", ()))))
         _tls.constructing = True   # han never claims its own tiers
         try:
-            subs = comm.split(colors)
+            subs = (comm.split(colors) if base is None
+                    else comm.split(colors, _key=base))
             self.low = []
             for g in groups:
                 sub = subs[g[0]]
@@ -99,12 +108,18 @@ class Hierarchy:
                 self.low.append(sub)
             self.leaders = [g[0] for g in groups]
             from ompi_tpu_torch.core.group import Group
-            up = comm.create(Group([comm.group.world_ranks[r]
-                                    for r in self.leaders]))
+            lead = Group([comm.group.world_ranks[r] for r in self.leaders])
+            up = (comm.create(lead) if base is None
+                  else comm.create(lead, _key=multictl.child_key(base, "up")))
             up._han_inner = True
             self.up = up
         finally:
             _tls.constructing = False
+        # freed with the parent (Communicator.free): every sub-comm the
+        # split made, in color order, then the up tier
+        made = {id(c): c for c in subs if c is not None}
+        comm.__dict__.setdefault("_inner_comms", []).extend(
+            list(made.values()) + [up])
         # index tensors, built once: the positions of each group's rows
         # held here among this controller's rows (every row, where the
         # comm spans no other controller), and the rank order of a stack

@@ -30,12 +30,13 @@ with ``opal_progress`` (``coll_libnbc_component.c:555-601``); the user's
 - Across controllers (a comm whose rows sit in several controller
   processes) the rounds step over this controller's rows along
   ``coll/torch``'s rank axis: a round that takes another controller's
-  rows is one round of the hidden controller tier. The rounds run on
-  that tier's collective worker, queued when the request starts, so
-  every controller runs them in the order the comm's requests were
-  started; ``test()`` reads whether they ran and never waits on another
-  controller. The fused round dispatches the blocking cross-controller
-  lowering.
+  rows is one round of the comm's own hidden controller tier. The rounds
+  run on that tier's collective worker, queued when the request starts,
+  so every controller runs them in the order the comm's requests were
+  started, and two comms' requests started in opposite orders run on
+  two workers; ``test()`` reads whether they ran and never waits on
+  another controller. The fused round dispatches the blocking
+  cross-controller lowering.
 """
 from __future__ import annotations
 
@@ -80,14 +81,15 @@ class ScheduleRequest(Request):
         self._scopes = var.current_scopes()
         module._ensure_progress_cb()
         module._active.append(self)
-        # across controllers the rounds run on the controller tier's
-        # collective worker, queued in the order the comm's requests were
-        # started (alike on every controller); test() only reads ``_ran``
+        # across controllers the rounds run on the collective worker of
+        # the comm's own controller tier, queued in the order the comm's
+        # requests were started (alike on every controller); test() only
+        # reads ``_ran``
         self._ran: Optional[threading.Event] = None
         self._failed: Optional[BaseException] = None
         if module.comm.is_multiprocess and self._rounds:
             self._ran = threading.Event()
-            multictl.tier(module.comm.layout.ctrls)._coll_submit(self._run_all)
+            multictl.submit(module.comm.layout, self._run_all)
         elif not self._rounds:
             self._seal()
 
@@ -124,8 +126,10 @@ class ScheduleRequest(Request):
             return 0
         if self._ran is not None:
             if not self._ran.is_set():
-                # the tier's worker runs it: a polling caller yields the
-                # interpreter to it instead of spinning against it
+                # the tier's worker runs it: a polling caller releases
+                # the held tasks (multictl.hold) and yields the
+                # interpreter to the worker instead of spinning against it
+                multictl.release()
                 time.sleep(0)
                 return 0
             if self._failed is not None:
@@ -157,6 +161,7 @@ class ScheduleRequest(Request):
 
     def wait(self):
         if self._ran is not None:
+            multictl.release()
             self._ran.wait()
         # drain the dispatch queue, then block on the completion event
         while not self._complete and self._rounds:

@@ -49,6 +49,9 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch.coll import decision
+from ompi_tpu_torch.coll.nbc import NbcModule, ScheduleRequest
+from ompi_tpu_torch.core import multictl
+from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.core.datatype import torch_dtype
 from ompi_tpu_torch.core.errhandler import MPIError
 from ompi_tpu_torch.core.request import Request, event_after
@@ -218,6 +221,16 @@ class PersistentCollRequest(Request):
                     and 0 < p.nbytes <= bucket_bytes()):
                 self._inner_req = fuser_of(p.comm).enqueue(
                     p.bucket_key, p.payload, p.epilogue, p.nbytes, p.op)
+            elif p.fn is not None and _crosses(p.comm):
+                # across controllers the launch is a one-round schedule on
+                # the comm's tier worker: a Start never blocks on the
+                # other controllers, so starts on two comms in opposite
+                # orders both finish
+                mod = p.comm.__dict__.get("_start_nbc")
+                if mod is None:
+                    mod = p.comm._start_nbc = NbcModule(p.comm)
+                self._inner_req = ScheduleRequest(mod, None,
+                                                  [lambda _s: p._call()])
             elif p.fn is not None:
                 # direct plan: the launch's output and event ARE the
                 # completion state — no inner request
@@ -232,6 +245,12 @@ class PersistentCollRequest(Request):
             # start raising, so a waitall over a plan batch surfaces it
             self.fail(e)
         return self
+
+
+def _crosses(comm) -> bool:
+    """A stacked comm whose collectives cross controllers (on the comm's
+    own controller tier)."""
+    return bool(getattr(comm, "is_multiprocess", False))
 
 
 def _bucket_spec(comm, data, op) -> Optional[Tuple]:
@@ -487,6 +506,8 @@ class _BucketMemberReq(Request):
     def test(self):
         if not self._complete:
             if not self._delivered.is_set():
+                if self._fuser._cross:
+                    multictl.release()
                 prog.progress()
             if self._delivered.is_set() and (self._event is None
                                              or self._event.query()):
@@ -523,11 +544,25 @@ class BucketFuser:
     threshold, Startall, a wait), so every rank fuses the same buckets;
     the progress engine's idle sweep is the stacked tier's alone, and a
     per-rank flush runs on the comm's collective worker, drawing its
-    sequence tag in issue order."""
+    sequence tag in issue order.
+
+    Across controllers (a multiprocess comm) a flush point is not one of
+    the comm's call order everywhere (a wait is not), so the controllers
+    agree on each bucket's members instead. The first member after a
+    drain queues a held drain on the comm's tier worker
+    (``multictl.hold``), in the comm's call order; any crossing, wait or
+    flush releases it (``multictl.release``), closing it at the members
+    enqueued so far. The drain then fuses them in rounds: each takes the
+    first pending member's key and as many of that key's members as
+    every controller holds (one MIN round of the tier), so the fused
+    allreduces meet alike whatever each controller's release points,
+    and every member is fused before the comm's next crossing runs.
+    These flushes count as ``idle``."""
 
     def __init__(self, comm):
         self.comm = comm
         self._per_rank = bool(getattr(comm, "is_per_rank", False))
+        self._cross = not self._per_rank and _crosses(comm)
         # the idle sweep flushes when this process's engine spins, which
         # is no point of the program order other processes share: only
         # a comm whose rows all sit in this process takes it
@@ -539,6 +574,10 @@ class BucketFuser:
         self._bytes: Dict[Tuple, int] = {}
         self._ops: Dict[Tuple, Any] = {}
         self._cb_registered = False
+        # across controllers: members enqueued, and whether a held drain
+        # waits on the comm's tier (a member's ``_seq`` is its ordinal)
+        self._seq = 0
+        self._held = False
         _live_fusers.add(self)
 
     def pending_bytes(self) -> int:
@@ -557,9 +596,55 @@ class BucketFuser:
             if self._sweep and not self._cb_registered:
                 prog.register(self._progress_cb, low_priority=True)
                 self._cb_registered = True
+            opened = self._cross and not self._held
+            if self._cross:
+                req._seq = self._seq
+                self._seq += 1
+                self._held = True
+        if opened:
+            multictl.hold(self.comm.layout, self._drain, self._close)
         if full:
             self.flush_key(key, "bytes")
         return req
+
+    def _close(self) -> int:
+        """At the release of the held drain: the members it may fuse
+        (those enqueued so far); the next member opens another."""
+        with self._lock:
+            self._held = False
+            return self._seq
+
+    def _drain(self, cut: int) -> None:
+        """On the comm's tier worker: fuse the members enqueued before
+        ``cut``, in rounds of one key whose member count every controller
+        agrees on (the MIN over the controllers of what each holds)."""
+        while True:
+            with self._lock:
+                heads = [(v[0][0]._seq, k) for k, v in self._items.items()
+                         if v and v[0][0]._seq < cut]
+                if not heads:
+                    return
+                key = min(heads)[1]
+                mine = sum(1 for it in self._items[key] if it[0]._seq < cut)
+            try:
+                m = int(multictl.run(self.comm.layout, "_device_allreduce",
+                                     torch.tensor([mine], dtype=torch.int64,
+                                                  device=self.comm.device),
+                                     op_mod.MIN)[0])
+            except Exception as e:  # noqa: BLE001 — each member raises it
+                with self._lock:
+                    for v in self._items.values():
+                        while v and v[0][0]._seq < cut:
+                            v.pop(0)[0]._fail(e)
+                return
+            with self._lock:
+                items = self._items[key][:m]
+                del self._items[key][:m]
+                nbytes = sum(it[3] for it in items)
+                self._bytes[key] -= nbytes
+                op = self._ops[key]
+            self._account(items, nbytes, "idle")
+            self._fuse(items, op, nbytes, "idle")
 
     def _progress_cb(self) -> int:
         n = self.flush("idle")
@@ -576,13 +661,27 @@ class BucketFuser:
 
     def flush_key(self, key, reason: str) -> int:
         """Flush one bucket as ONE fused collective; returns the number
-        of collectives launched (0 when already empty)."""
+        of collectives launched (0 when already empty). Across
+        controllers: release the held drain, which fuses on the tier's
+        worker (0)."""
+        if self._cross:
+            multictl.release()
+            return 0
         with self._lock:
             items = self._items.pop(key, None)
             total = self._bytes.pop(key, 0)
             op = self._ops.get(key)
         if not items:
             return 0
+        self._account(items, total, reason)
+        if self._per_rank:
+            self.comm._coll_submit(
+                lambda: self._fuse(items, op, total, reason))
+        else:
+            self._fuse(items, op, total, reason)
+        return 1
+
+    def _account(self, items: List[Tuple], total: int, reason: str) -> None:
         _count("coll_bucket_flushes")
         _count(f"coll_bucket_flush_{reason}")
         _count("coll_bucket_fused_members", len(items))
@@ -590,25 +689,20 @@ class BucketFuser:
                    {"reason": reason, "members": len(items),
                     "bytes": total})
 
-        def run():
-            tok = (_trace.begin("coll.bucket_flush",
-                                cid=getattr(self.comm, "cid", None),
-                                reason=reason, members=len(items),
-                                nbytes=total)
-                   if _trace.active else None)
-            try:
-                self._launch_fused(items, op)
-            except Exception as e:  # noqa: BLE001 — each member raises it
-                for req, _pf, _ep, _nb in items:
-                    req._fail(e)
-            finally:
-                if tok is not None:
-                    _trace.end(tok)
-        if self._per_rank:
-            self.comm._coll_submit(run)
-        else:
-            run()
-        return 1
+    def _fuse(self, items: List[Tuple], op, total: int, reason: str) -> None:
+        tok = (_trace.begin("coll.bucket_flush",
+                            cid=getattr(self.comm, "cid", None),
+                            reason=reason, members=len(items),
+                            nbytes=total)
+               if _trace.active else None)
+        try:
+            self._launch_fused(items, op)
+        except Exception as e:  # noqa: BLE001 — each member raises it
+            for req, _pf, _ep, _nb in items:
+                req._fail(e)
+        finally:
+            if tok is not None:
+                _trace.end(tok)
 
     def _launch_fused(self, items: List[Tuple], op) -> None:
         if self._per_rank:

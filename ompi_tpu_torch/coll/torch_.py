@@ -1593,13 +1593,10 @@ class TorchCollModule:
             self._ax = _Axis(self)
         return self._ax
 
-    def _mc_tier(self):
-        return multictl.tier(self.comm.layout.ctrls)
-
     def _mc_run(self, body: str, *args):
         """``body`` of the controller tier's device slots
         (``multictl.run``)."""
-        return multictl.run(self.comm.layout.ctrls, body, *args)
+        return multictl.run(self.comm.layout, body, *args)
 
     def _mc_exchange(self, flat: torch.Tensor, cap: int, want):
         """One ragged round over the controller tier: write ``flat``,
@@ -1807,7 +1804,8 @@ class TorchCollModule:
         if self.comm.device.type == "cuda":
             torch.cuda.synchronize(self.comm.device)
         if self.comm._local:
-            t = self._mc_tier()
+            multictl.release()           # a held bucket drain goes first
+            t = multictl.tier(self.comm.layout)
             t._check()
             t._coll_serial(lambda: t._dissemination(t._tag()))
 

@@ -162,7 +162,7 @@ class XhcModule:
             if cross is None:
                 continue
             counts, send, folds = cross
-            got = multictl.ship_rows(self.comm.layout.ctrls, counts,
+            got = multictl.ship_rows(self.comm.layout, counts,
                                      X.index_select(0, send))
             for lead, members in folds:
                 rows = torch.stack([X[i] if src < 0 else got[src][i]
@@ -181,7 +181,7 @@ class XhcModule:
         g = lay.ctrls.index(comm.controller_of(src))
         row = (X[comm._local.index(src)] if g == lay.h
                else X.new_empty(X.shape[1:]))
-        return multictl.bcast(lay.ctrls, row, g)
+        return multictl.bcast(lay, row, g)
 
     def _fan_down(self, X: torch.Tensor, one: torch.Tensor):
         """Every row held here takes ``one``, as the comm's buffer."""
@@ -216,7 +216,7 @@ class XhcModule:
         counts[g_top][g_root] = 1
         send = (up[comm._local.index(self._top)].unsqueeze(0)
                 if lay.h == g_top else up[:0])
-        got = multictl.ship_rows(lay.ctrls, counts, send)
+        got = multictl.ship_rows(lay, counts, send)
         if lay.h == g_root:
             out[comm._local.index(root)] = got[g_top][0]
         return comm._as_buffer(out)

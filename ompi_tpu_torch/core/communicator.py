@@ -22,10 +22,15 @@ controller of each rank; when some rows are elsewhere it
 ``spans_processes``. ``put``, ``stack`` and ``alloc`` then keep only this
 controller's rows (``multictl.Rows``): ``put`` and ``stack`` take the
 global host array every controller passes, and ``shard`` reads a local
-row or raises ``ERR_RANK``. Collectives cross controllers over the hidden
-controller tier; stacked pt2pt, RMA, SHMEM and the per-rank views of the
-v- and neighbor collectives raise a "single-controller" guard. CID
-agreement stays a counter that every controller advances alike.
+row or raises ``ERR_RANK``. Collectives cross controllers over the
+communicator's own hidden controller tier, named by its *tier key*
+(derived, without a round, from the parent's key, the creation call's
+ordinal on the parent and a split's color: ``multictl.child_key``);
+stacked pt2pt, RMA, SHMEM and the per-rank views of the v- and neighbor
+collectives raise a "single-controller" guard. The CID stays a
+process-local counter: a controller may create comms the others do not
+(a dup of its own ``split_type`` comm), so CIDs need not agree across
+controllers, and nothing that crosses is keyed by one.
 
 ULFM (``mpiext/ftmpi``) runs over the communicator's failure registry
 (``runtime/ft``): collectives and pt2pt that involve a failed rank raise
@@ -101,7 +106,8 @@ class Communicator:
     def __init__(self, group: Group, devices: Sequence[Any], *,
                  name: str = "", parent: Optional["Communicator"] = None,
                  info: Optional[Info] = None,
-                 errhandler: Optional[Errhandler] = None):
+                 errhandler: Optional[Errhandler] = None,
+                 tier_key: Optional[str] = None):
         if len(devices) != group.size:
             raise MPIError(ERR_ARG, "devices must match group size")
         self.group = group
@@ -121,6 +127,15 @@ class Communicator:
                 self.device = self.devices[self._local[0]]
             elif multictl.device() is not None:
                 self.device = multictl.device()
+        # the tier key (multi-controller worlds only): the one given, a
+        # child's of the parent's, or a parentless comm's root key
+        self._tier_key: Optional[str] = None
+        self._create_seq = 0                     # creation calls made
+        if self._ctl is not None:
+            if tier_key is None and getattr(parent, "_tier_key", None):
+                tier_key = parent._child_key()
+            self._tier_key = tier_key or multictl.root_key(
+                group.world_ranks, name)
         self.cid = self._alloc_cid()
         self.name = name or f"comm#{self.cid}"
         self.info = info.dup() if info else Info()
@@ -189,11 +204,24 @@ class Communicator:
 
     @property
     def layout(self) -> multictl.Layout:
-        """Where the ranks live, per controller (multiprocess comms)."""
+        """Where the ranks live, per controller, and the tier key their
+        crossings use (multiprocess comms)."""
         if self._layout is None:
             self._layout = multictl.Layout(
-                self._ctl or (0,) * self.size, multictl.me())
+                self._ctl or (0,) * self.size, multictl.me(),
+                self._tier_key)
         return self._layout
+
+    def _child_key(self) -> Optional[str]:
+        """The tier key of the next communicator this one creates: draws
+        the next creation ordinal. None outside a multi-controller
+        world."""
+        if self._tier_key is None:
+            return None
+        with _cid_lock:
+            self._create_seq += 1
+            seq = self._create_seq
+        return multictl.child_key(self._tier_key, seq)
 
     def controller_of(self, rank: int) -> int:
         """The controller process that holds rank ``rank``'s row."""
@@ -1069,12 +1097,15 @@ class Communicator:
             raise
         return c
 
-    def split(self, colors: Sequence[int], keys: Optional[Sequence[int]] = None
+    def split(self, colors: Sequence[int], keys: Optional[Sequence[int]] = None,
+              *, _key: Optional[str] = None
               ) -> List[Optional["Communicator"]]:
         """MPI_Comm_split (comm.c:749). ``colors[r]``/``keys[r]`` are rank
         r's arguments; returns one entry per rank — the new communicator
         containing that rank (shared object) or None (MPI_COMM_NULL) for
-        color == UNDEFINED. Children are parent-row subsets."""
+        color == UNDEFINED. Children are parent-row subsets. ``_key``
+        replaces the call's tier key (``coll/han``'s hidden comms, which
+        draw no creation ordinal)."""
         self._check()
         if keys is None:
             keys = [0] * self.size
@@ -1085,6 +1116,8 @@ class Communicator:
             if c != UNDEFINED:
                 by_color.setdefault(c, []).append(r)
         out: List[Optional[Communicator]] = [None] * self.size
+        # one creation call: one ordinal, each child keyed by its color
+        base = _key or self._child_key()
         # Deterministic order over colors = identical CID allocation on
         # every rank (the agreement property of comm_cid.c).
         for c in sorted(by_color):
@@ -1093,7 +1126,9 @@ class Communicator:
             devs = [self.devices[r] for r in members]
             newc = self.__class__(
                 g, devs, name=f"{self.name}.split({c})",
-                parent=self, errhandler=self.errhandler)
+                parent=self, errhandler=self.errhandler,
+                tier_key=None if base is None
+                else multictl.child_key(base, c))
             for r in members:
                 out[r] = newc
         return out
@@ -1124,8 +1159,10 @@ class Communicator:
             return [None] * self.size
         return self.split(colors, keys)
 
-    def create(self, group: Group) -> Optional["Communicator"]:
-        """MPI_Comm_create: new communicator over a subgroup."""
+    def create(self, group: Group, *, _key: Optional[str] = None
+               ) -> Optional["Communicator"]:
+        """MPI_Comm_create: new communicator over a subgroup (``_key``:
+        its tier key, as ``split``'s)."""
         self._check()
         ranks = []
         for wr in group.world_ranks:
@@ -1135,7 +1172,8 @@ class Communicator:
             ranks.append(lr)
         devs = [self.devices[r] for r in ranks]
         return self.__class__(group, devs, name=f"{self.name}.create",
-                              parent=self, errhandler=self.errhandler)
+                              parent=self, errhandler=self.errhandler,
+                              tier_key=_key)
 
     def compare(self, other: "Communicator") -> int:
         from ompi_tpu_torch.core.group import (CONGRUENT, IDENT, SIMILAR,
@@ -1149,6 +1187,16 @@ class Communicator:
 
     def free(self) -> None:
         fire_delete_attrs(self)
+        # the comm's controller tier (its worker runs what is pending
+        # first, still on a live comm: a held bucket drain is released),
+        # then its hidden sub-comms
+        # (coll/han's tiers, which that work may use): MPI_Comm_free is
+        # collective, so every controller releases them here, in order
+        if self._tier_key is not None:
+            multictl.free_tiers(self._tier_key)
+        for sub in self.__dict__.pop("_inner_comms", ()):
+            if not sub._freed:
+                sub.free()
         self._freed = True
         # pvar session semantics: instruments owned by this cid
         # (telemetry histograms, trace_skew_c<cid>) retire with it — a

@@ -13,11 +13,27 @@ processes* (the fact that turns on the hier rows of ``coll/decision``).
 
 The port's controllers talk over the per-rank tier: the controllers of a
 communicator form a hidden ``RankCommunicator`` (one member per
-controller, CID ``("mc", controllers)``, wired through
-``pml/perrank.Router`` and the job's ``TCPStore``), and a tensor payload
-crosses through that tier's device slots (CUDA IPC on the card, shared
-memory segments on the CPU) without touching the host. The hidden CID
-keeps its traffic apart from any user communicator.
+controller, wired through ``pml/perrank.Router`` and the job's
+``TCPStore``), and a tensor payload crosses through that tier's device
+slots (CUDA IPC on the card, shared memory segments on the CPU) without
+touching the host. Every spanning communicator has a tier of its own,
+CID ``("mc", key, controllers)``: its own round sequence, collective
+worker and slots, so its rounds meet only its own rounds on the other
+controllers (MPI orders collectives per communicator, not across
+communicators), and two comms' nonblocking collectives started in
+opposite orders run side by side instead of waiting on each other.
+
+The *tier key* names a communicator alike on every controller without a
+round: the world's and every parentless comm's is a function of its
+world ranks, a tag and how many comms this process made over the same
+(ranks, tag) (:func:`root_key`); a child's is a function of its
+parent's key, the ordinal of the creation call on the parent and, for a
+split, the color (:func:`child_key`). MPI orders the creation calls on
+one communicator alike on every member, so the ordinal agrees; a
+communicator's ``cid`` is a process-local counter and does not (a
+controller may create comms that the others do not). A tier is made at
+the comm's first crossing and freed with the comm (``Communicator.free``)
+or at Finalize (:func:`close`).
 
 A multiprocess communicator's stacked buffers are :class:`Rows`: this
 controller's rows of the global ``(N, *local)`` stack, in rank order,
@@ -30,6 +46,8 @@ controller), this controller's index and device, and the hidden tiers.
 """
 from __future__ import annotations
 
+import hashlib
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,15 +58,18 @@ _state: Dict[str, object] = {
     "me": 0,              # this controller's index
     "router": None,       # the controllers' per-rank Router
     "device": None,       # this controller's device
-    "tiers": {},          # controllers tuple -> hidden RankCommunicator
+    "tiers": {},          # (tier key, controllers) -> RankCommunicator
+    "roots": {},          # (world ranks, tag) -> parentless comms made
+    "holds": [],          # release callbacks of the held tasks (hold)
 }
+_lock = threading.Lock()
 
 
 def configure(ctl: Sequence[int], me: int, router, device) -> None:
     """Enter multi-controller mode (``runtime/init``): ``ctl[w]`` is the
     controller of world rank ``w``."""
     _state.update(ctl=tuple(int(c) for c in ctl), me=int(me), router=router,
-                  device=torch.device(device), tiers={})
+                  device=torch.device(device), tiers={}, roots={}, holds=[])
 
 
 def active() -> bool:
@@ -77,42 +98,110 @@ def controllers_of(world_ranks: Sequence[int]) -> Optional[Tuple[int, ...]]:
     return tuple(ctl[w] for w in world_ranks)
 
 
-def tier(ctrls: Tuple[int, ...]):
-    """The hidden controller tier over ``ctrls`` (sorted controller
-    indices, this one among them), made on first use. Every controller of
-    the set builds the same one: its CID is a function of the set."""
-    tiers = _state["tiers"]
-    t = tiers.get(ctrls)
-    if t is None:
-        from ompi_tpu_torch.core.group import Group
-        from ompi_tpu_torch.core.rankcomm import RankCommunicator
-        t = tiers[ctrls] = RankCommunicator(
-            Group(list(ctrls)), me(), _state["router"], _state["device"],
-            cid=("mc",) + tuple(ctrls), name=f"controllers{list(ctrls)}")
+# -- tier keys ---------------------------------------------------------------
+def child_key(parent: str, *parts) -> str:
+    """The tier key of a communicator derived from ``parent``'s by
+    ``parts`` (the creation ordinal, a split's color): a short digest,
+    alike on every controller that derives it from the same values."""
+    return hashlib.sha1(repr((parent,) + parts).encode()).hexdigest()[:16]
+
+
+def root_key(world_ranks: Sequence[int], tag: str) -> str:
+    """The tier key of a communicator made from no parent (the world, a
+    Session's ``comm_create_from_group``, an intercomm merge): its world
+    ranks, ``tag``, and how many such comms this process made before over
+    the same (ranks, tag), which agrees across controllers because every
+    controller makes them in program order (MPI-4's matching rule for
+    ``comm_create_from_group``)."""
+    k = (tuple(int(w) for w in world_ranks), str(tag))
+    with _lock:
+        roots = _state["roots"]
+        n = roots[k] = roots.get(k, -1) + 1
+    return child_key("root", k, n)
+
+
+# -- the hidden tiers ---------------------------------------------------------
+def tier(lay: "Layout"):
+    """The hidden controller tier of the communicator laid out as ``lay``
+    (its tier key and controllers, this one among them), made on first
+    use. Every controller of the comm builds the same one: its CID is a
+    function of the key and the controller set."""
+    k = (lay.key, lay.ctrls)
+    with _lock:
+        t = _state["tiers"].get(k)
+        if t is None:
+            from ompi_tpu_torch.core.group import Group
+            from ompi_tpu_torch.core.rankcomm import RankCommunicator
+            t = _state["tiers"][k] = RankCommunicator(
+                Group(list(lay.ctrls)), me(), _state["router"],
+                _state["device"], cid=("mc",) + k,
+                name=f"controllers{list(lay.ctrls)}:{lay.key}")
     return t
 
 
-def run(ctrls: Tuple[int, ...], body: str, *args):
+def run(lay: "Layout", body: str, *args):
     """``body`` (a device-slot method of ``RankCommunicator``:
     ``_device_exchange``, ``_device_allreduce``, ``_device_bcast``) of
-    the hidden tier over ``ctrls``, on the tier's collective context. The
-    tier's own entries are not the user's collectives: no SPC count, hook
-    or interposer sees them."""
-    t = tier(ctrls)
+    the comm's hidden tier, on the tier's collective context. The tier's
+    own entries are not the user's collectives: no SPC count, hook or
+    interposer sees them. Releases every held task first (:func:`hold`)."""
+    release()
+    t = tier(lay)
     t._check()
     return t._coll_serial(getattr(t, body), *args)
 
 
-def ship_rows(ctrls: Tuple[int, ...], counts: Sequence[Sequence[int]],
+def submit(lay: "Layout", fn) -> None:
+    """Queue ``fn`` on the collective worker of the comm's tier, behind
+    the comm's earlier requests (alike on every controller), after
+    releasing every held task (:func:`hold`)."""
+    release()
+    tier(lay)._coll_submit(fn)
+
+
+def hold(lay: "Layout", fn, close) -> None:
+    """Queue ``fn`` on the comm's tier worker, held: the worker waits at
+    it until :func:`release`, which every crossing (``run``, ``submit``)
+    and every wait on another controller calls first, so nothing queued
+    behind a held task waits on it, and no controller waits on a held
+    task of another. ``close()`` runs at the release, on the releasing
+    thread, and the worker then runs ``fn(close())``: what the caller
+    issued before the release (``coll/persistent``'s bucket drain)."""
+    ev = threading.Event()
+    box: List[object] = []
+
+    def rel() -> None:
+        box.append(close())
+        ev.set()
+
+    def held() -> None:
+        ev.wait()
+        fn(box[0])
+    with _lock:
+        _state["holds"].append(rel)
+    tier(lay)._coll_submit(held)
+
+
+def release() -> None:
+    """Release every held task of this controller (:func:`hold`)."""
+    if not _state["holds"]:
+        return
+    with _lock:
+        rels, _state["holds"] = _state["holds"], []
+    for rel in rels:
+        rel()
+
+
+def ship_rows(lay: "Layout", counts: Sequence[Sequence[int]],
               rows: torch.Tensor) -> List[Optional[torch.Tensor]]:
-    """Move rows between the controllers ``ctrls`` in one round of the
-    hidden tier, on the device. ``counts[g][d]`` is how many rows
-    controller ``ctrls[g]`` sends to ``ctrls[d]``, alike on every
+    """Move rows between the comm's controllers ``lay.ctrls`` in one
+    round of its hidden tier, on the device. ``counts[g][d]`` is how many
+    rows controller ``ctrls[g]`` sends to ``ctrls[d]``, alike on every
     controller (SPMD); ``rows`` are this controller's outgoing rows
     ``(sum(counts[h]), *s)``, grouped by destination in controller order.
     Returns per source g the ``(counts[g][h], *s)`` rows it sent here
     (None where it sent none)."""
-    h = ctrls.index(me())
+    h = lay.h
     s = tuple(rows.shape[1:])
     per = int(np.prod(s, dtype=np.int64))
     cap = max(sum(c) for c in counts) * per * rows.element_size()
@@ -120,7 +209,7 @@ def ship_rows(ctrls: Tuple[int, ...], counts: Sequence[Sequence[int]],
     for g, c in enumerate(counts):
         a = sum(c[:h])
         want.append((0, 0) if g == h else (a * per, (a + c[h]) * per))
-    got = run(ctrls, "_device_exchange", rows.reshape(-1), cap, want)
+    got = run(lay, "_device_exchange", rows.reshape(-1), cap, want)
     return [None if t is None else t.view((-1,) + s) for t in got]
 
 
@@ -147,7 +236,7 @@ class Take:
         dst = np.asarray(dst, dtype=np.int64).reshape(-1)
         src = np.asarray(src, dtype=np.int64).reshape(-1)
         m = len(dst)
-        self.ctrls = lay.ctrls
+        self.lay = lay
         nc = len(lay.parts)
         at = np.zeros(n, np.int64)                 # rank -> controller
         loc = np.full(n, -1, np.int64)             # rank -> local row
@@ -208,14 +297,14 @@ class Take:
         if self.cross:
             sends = [x[self.s_sel] for x in xs]
             if len(xs) == 1:
-                got = ship_rows(self.ctrls, self.counts, sends[0])
+                got = ship_rows(self.lay, self.counts, sends[0])
                 parts = [got]
             else:
                 # one round for every tensor: each slice crosses as bytes
                 k = sends[0].shape[0]
                 flat = [s.reshape(k, -1) for s in sends]
                 widths = [f.shape[1] * f.element_size() for f in flat]
-                got = ship_rows(self.ctrls, self.counts, torch.cat(
+                got = ship_rows(self.lay, self.counts, torch.cat(
                     [f.view(torch.uint8) for f in flat], 1))
                 parts = []
                 at = 0
@@ -238,29 +327,69 @@ class Take:
         return outs[0] if len(xs) == 1 else tuple(outs)
 
 
-def bcast(ctrls: Tuple[int, ...], x: torch.Tensor, root: int
-          ) -> torch.Tensor:
-    """Controller ``ctrls[root]``'s ``x`` on every controller of
-    ``ctrls`` (one round of the hidden tier, on the device); the others
-    pass a tensor of the same shape and dtype."""
-    return run(ctrls, "_device_bcast", x, root)
+def bcast(lay: "Layout", x: torch.Tensor, root: int) -> torch.Tensor:
+    """Controller ``lay.ctrls[root]``'s ``x`` on every controller of the
+    comm (one round of its hidden tier, on the device); the others pass a
+    tensor of the same shape and dtype."""
+    return run(lay, "_device_bcast", x, root)
 
 
-def close() -> None:
-    """Finalize: free the hidden tiers and leave multi-controller mode
-    (the router is closed by ``runtime/init``)."""
-    for t in list(_state["tiers"].values()):
+def _free(ts) -> None:
+    for t in ts:
         try:
             t.free()
         except Exception:                # noqa: BLE001 — teardown
             pass
+
+
+def free_tiers(key: str) -> None:
+    """Free the hidden tiers of the communicator whose tier key is
+    ``key``: each drains its worker, fences and drops its slots and
+    mappings (``RankCommunicator.free``). ``MPI_Comm_free`` is
+    collective, so every controller of the comm frees it at the same
+    point; a comm that never crossed has none."""
+    release()
+    with _lock:
+        tiers = _state["tiers"]
+        ks = sorted(k for k in tiers if k[0] == key)
+        ts = [tiers[k] for k in ks]
+    _free(ts)          # each drains its worker first: that work finds it
+    with _lock:
+        for k in ks:
+            _state["tiers"].pop(k, None)
+
+
+def live() -> Dict[str, int]:
+    """The live tiers of this controller: how many, their collective
+    workers alive, and their slots' bytes (both parity regions of this
+    controller's exported slot)."""
+    with _lock:
+        ts = list(_state["tiers"].values())
+    slots = [t._slots for t in ts if t._slots is not None]
+    return {"tiers": len(ts),
+            "workers": sum(1 for t in ts if t._cworker is not None
+                           and t._cworker.is_alive()),
+            "slot_bytes": sum(2 * s.cap for s in slots
+                              if s.buf is not None)}
+
+
+def close() -> None:
+    """Finalize: free the hidden tiers and leave multi-controller mode
+    (the router is closed by ``runtime/init``). Tiers free in key order,
+    alike on every controller, since each one's free fences."""
+    release()
+    with _lock:
+        tiers = _state["tiers"]
+        ts = [tiers[k] for k in sorted(tiers)]
+    _free(ts)
     _reset_for_tests()
 
 
 def _reset_for_tests() -> None:
     """Forget the controller table and tiers without fencing (the test
     reset closes the router)."""
-    _state.update(ctl=None, me=0, router=None, device=None, tiers={})
+    _state.update(ctl=None, me=0, router=None, device=None, tiers={},
+                  roots={}, holds=[])
 
 
 class Rows:
@@ -319,10 +448,13 @@ class Layout:
     the ascending comm ranks of its g-th controller (controllers in
     ascending order, only those holding rows), ``h`` this controller's
     position, ``ordered`` whether concatenating the parts gives rank
-    order (then a fold in controller order is a fold in rank order), and
-    ``perm`` the index that puts concatenated rows into rank order."""
+    order (then a fold in controller order is a fold in rank order),
+    ``perm`` the index that puts concatenated rows into rank order, and
+    ``key`` the comm's tier key (which hidden tier its rounds cross)."""
 
-    def __init__(self, ctl: Sequence[int], me_: int):
+    def __init__(self, ctl: Sequence[int], me_: int,
+                 key: Optional[str] = None):
+        self.key = key
         self.ctrls = tuple(sorted(set(ctl)))
         self.parts: List[Tuple[int, ...]] = [
             tuple(r for r, c in enumerate(ctl) if c == g) for g in self.ctrls]

@@ -1132,7 +1132,12 @@ class RankCommunicator:
     def _coll_serial(self, fn: Callable, *a, **kw):
         """Run a collective body on the comm's single collective context
         (see _serialized). Reentrant: a body on the worker runs
-        directly."""
+        directly. A body on another comm's worker (a spanning comm's
+        round that calls a sub-comm's collective: han's, xhc's and
+        adapt's tiers) queues behind this comm's pending requests or,
+        with its worker idle, runs inline: it never waits on its own
+        worker, and a parent's bodies call into its sub-comms but never
+        the reverse, so no two workers wait on each other."""
         w = self._cworker
         if w is not None and threading.current_thread() is w:
             return fn(*a, **kw)

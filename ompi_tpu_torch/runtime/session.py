@@ -49,6 +49,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from ompi_tpu_torch.core import multictl
 from ompi_tpu_torch.core.communicator import Communicator
 from ompi_tpu_torch.core.errhandler import ERR_ARG, ERR_OTHER, MPIError
 from ompi_tpu_torch.core.group import Group
@@ -186,7 +187,6 @@ class Session:
         # drawing CIDs from the (tag, group) ordinals. The router
         # (endpoints, modex) is the shared instance state the refcount
         # guards.
-        from ompi_tpu_torch.core import multictl
         from ompi_tpu_torch.runtime import init as _rt
         # a multi-controller world's router joins its controllers, not
         # its ranks: such a job takes the device-pset branch below
@@ -303,10 +303,15 @@ class Session:
             self._comms.append(c)
             return c
         devs = [self.devices[r] for r in group.world_ranks]
+        # across controllers the comm's tier key is (group, tag) in
+        # call order, as the per-rank CID above: the session's name is a
+        # process-local counter
         return SessionCommunicator(
             group, devs, session=self,
             name=tag or f"{self.name}.comm", info=info,
-            errhandler=self.errhandler)
+            errhandler=self.errhandler,
+            tier_key=(multictl.root_key(group.world_ranks, f"session:{tag}")
+                      if multictl.active() else None))
 
     def finalize(self) -> None:
         """``MPI_Session_finalize``: communicators created from the
