@@ -423,6 +423,36 @@ Phases, one or more lines each:
                 launches; the phase aimed under 90 s.
                 ``python3 chip_smoke.py --algorithms`` runs phases 1 and
                 8 alone.
+22. multihost — the multi-controller world across hosts, in a job of its
+                own after phase 21's: three controller processes on
+                ``cuda:0`` (``--multihost-rank``) with 4, 2 and 2 rows,
+                controllers 0 and 1 on host A and controller 2 on an
+                emulated host B (its own host identity and shared-memory
+                directory, set before ``Init``). COMM_WORLD spans hosts
+                and its controller tier runs staged (each payload off the
+                card once, raw bytes over the tier's tcp plane, the fold
+                on ``cuda:0``); the split over controllers 0 and 1 spans
+                one host and takes the slots. On both, at 1 MiB fp32 per
+                rank (nbc and the bucket at 37-39 elements): allreduce
+                SUM f32, MAX f32, SUM i32 and MINLOC, bcast, allgather,
+                alltoall, forced ring allreduce and Bruck allgather, an
+                nbc iallreduce and a bucketed pair, each bit for bit
+                against an 8-row (6-row) single-controller comm on
+                ``cuda:0`` in the controller process (the direct float
+                sums within rtol 1e-5: the controllers' partials fold in
+                another association; the bucket = its unfused calls bit
+                for bit) and against numpy as phase 4; the tiers' gates
+                (staged on the world, slots on the split, no host
+                staging across hosts); on the split's tier every device
+                body staged against its slots, bit for bit; the 32 MiB
+                allreduce SUM staged and on slots (CUDA-event ms with the
+                host fences), each controller's tier bytes against what
+                the steps owe; ``Memcpy DtoH`` records per crossing (2 on
+                the staged path: the partial, then the folded chunk; none
+                of payload size on the slots; a ``.cpu()`` control); 0
+                flash-fold launches; the phase aimed under 60 s, the job
+                limit 90 s. ``python3 chip_smoke.py --multihost`` runs
+                phases 1 and 22 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -7821,9 +7851,404 @@ def _multictl_c9(w, me: int, dev, xf, x32: np.ndarray) -> dict:
     return out
 
 
+# -- phase 22: the multi-controller world across hosts --------------------
+MH_ROWS = (4, 2, 2)            # rows of controllers 0, 1 and 2 on cuda:0
+MH_HOSTS = (0, 0, 1)           # host of each: 0 and 1 on A, 2 on B
+MH_JOB_TIMEOUT = 90            # seconds the job may take
+MH_SEED = 2200
+MH_ELEMS = 1 << 18             # 1 MiB fp32 per rank for the checked calls
+MH_NBC_ELEMS = 37              # nbc's ring rounds (under the fused round)
+MH_CASES = ("allreduce SUM f32", "allreduce MAX f32", "allreduce SUM i32",
+            "allreduce MINLOC", "bcast root 0", "allgather", "alltoall",
+            "ring allreduce SUM f32", "bruck allgather",
+            "nbc iallreduce SUM f32", "bucket 0", "bucket 1")
+# the direct float sums fold each controller's rows, then the partials:
+# not the single-controller comm's association (held to rtol 1e-5)
+MH_ASSOCIATION = ("allreduce SUM f32", "bucket 0", "bucket 1")
+
+
+def _mh_inputs(m: int) -> dict:
+    """Every case's global input for an m-rank comm, from the seed."""
+    rng = np.random.default_rng(MH_SEED + m)
+    f = rng.standard_normal((m, MH_ELEMS)).astype(np.float32)
+    val = rng.integers(0, 4, (m, MH_ELEMS // 2)).astype(np.float32)
+    idx = np.broadcast_to(np.arange(m, dtype=np.float32)[:, None],
+                          val.shape)
+    small = [rng.standard_normal((m, MH_NBC_ELEMS + k)).astype(np.float32)
+             for k in range(3)]
+    return {"f32": f, "i32": (f * 1000).astype(np.int32),
+            "pairs": np.ascontiguousarray(np.stack([val, idx], -1)),
+            "wide": np.ascontiguousarray(
+                f[:, :MH_ELEMS // m * m]).reshape(m, m, -1),
+            "nbc": small[0], "bucket 0": small[1], "bucket 1": small[2]}
+
+
+def _mh_calls(comm, xs: dict) -> dict:
+    """Every case of phase 22 on ``comm`` (a spanning comm, or the
+    single-controller oracle): {case: result}, plus the bucket's unfused
+    twins."""
+    x = {k: comm.put(v) for k, v in xs.items()}
+    out = {"allreduce SUM f32": comm.allreduce(x["f32"], MPI.SUM),
+           "allreduce MAX f32": comm.allreduce(x["f32"], MPI.MAX),
+           "allreduce SUM i32": comm.allreduce(x["i32"], MPI.SUM),
+           "allreduce MINLOC": comm.allreduce(x["pairs"], MPI.MINLOC),
+           "bcast root 0": comm.bcast(x["f32"], 0),
+           "allgather": comm.allgather(x["f32"]),
+           "alltoall": comm.alltoall(x["wide"])}
+    for case, func, alg in (("ring allreduce SUM f32", "allreduce", "ring"),
+                            ("bruck allgather", "allgather", "bruck")):
+        var.var_set(f"coll_torch_{func}_algorithm", alg)
+        out[case] = (comm.allreduce(x["f32"], MPI.SUM) if func == "allreduce"
+                     else comm.allgather(x["f32"]))
+        var.var_set(f"coll_torch_{func}_algorithm", "auto")
+    req = comm.iallreduce(x["nbc"], MPI.SUM)
+    req.wait()
+    out["nbc iallreduce SUM f32"] = req.get()
+    var.var_set("mpi_base_bucket", True)
+    reqs = [comm.iallreduce(x[f"bucket {k}"], MPI.SUM) for k in range(2)]
+    MPI.Waitall(reqs)
+    var.var_set("mpi_base_bucket", False)
+    for k in range(2):
+        out[f"bucket {k}"] = reqs[k].get()
+        out[f"unfused {k}"] = comm.allreduce(x[f"bucket {k}"], MPI.SUM)
+    return out
+
+
+def _mh_numpy(case: str, xs: dict, m: int) -> np.ndarray:
+    """The collectives row's numpy answer of one case (every rank's
+    row)."""
+    f64 = xs["f32"].astype(np.float64)
+    if case in ("allreduce SUM f32", "ring allreduce SUM f32"):
+        return np.broadcast_to(f64.sum(0), f64.shape)
+    if case == "allreduce MAX f32":
+        return np.broadcast_to(xs["f32"].max(0), f64.shape)
+    if case == "allreduce SUM i32":
+        return np.broadcast_to(xs["i32"].sum(0, dtype=np.int32),
+                               xs["i32"].shape)
+    if case == "allreduce MINLOC":
+        v = xs["pairs"][..., 0]
+        one = np.stack([v.min(0), np.argmin(v, 0).astype(np.float32)], -1)
+        return np.broadcast_to(one, xs["pairs"].shape)
+    if case == "bcast root 0":
+        return np.broadcast_to(xs["f32"][0], f64.shape)
+    if case in ("allgather", "bruck allgather"):
+        return np.broadcast_to(xs["f32"], (m,) + xs["f32"].shape)
+    if case == "alltoall":
+        return np.swapaxes(xs["wide"], 0, 1)
+    src = xs["nbc" if case.startswith("nbc") else case].astype(np.float64)
+    return np.broadcast_to(src.sum(0), src.shape)
+
+
+def _mh_check_comm(tag: str, c, dev, me: int) -> dict:
+    """Phase 22's cases on one spanning comm of one controller, against
+    the single-controller oracle and numpy; the gate and the staging
+    decision of its tier."""
+    from ompi_tpu_torch.core import multictl
+    m, mine = c.size, list(c._local)
+    xs = _mh_inputs(m)
+    got = _mh_calls(c, xs)
+    oracle = _sched_oracle(m, dev)
+    want = _mh_calls(oracle, xs)
+    bitwise, held = [], []
+    for case in MH_CASES:
+        a = got[case].local
+        b = want[case][mine]
+        check(a.device == dev and a.shape == b.shape, f"{tag} {case}: "
+              f"{a.shape} on {a.device}")
+        if case in MH_ASSOCIATION:
+            _close(a.cpu().numpy(), b.cpu().numpy(), 1e-5, 1e-5,
+                   f"controller {me} {tag} {case} against the oracle")
+            held.append(case)
+        else:
+            check(_bits(a, b), f"controller {me} {tag} {case}: not the "
+                               f"oracle's bits")
+            bitwise.append(case)
+        ref = np.ascontiguousarray(_mh_numpy(case, xs, m)[mine])
+        host = a.cpu().numpy()
+        if host.dtype.kind == "f" and ("SUM" in case or "bucket" in case):
+            check(np.allclose(host, ref, rtol=1e-5, atol=1e-5),
+                  f"controller {me} {tag} {case} differs from numpy")
+        else:
+            check(np.array_equal(host, ref.astype(host.dtype)),
+                  f"controller {me} {tag} {case} differs from numpy")
+    for k in range(2):
+        check(_bits(got[f"bucket {k}"].local, got[f"unfused {k}"].local),
+              f"controller {me} {tag}: bucket member {k} differs from its "
+              f"unfused allreduce")
+    oracle.free()
+    t = multictl.tier(c.layout)
+    return {"bitwise": bitwise, "held": held, "gate": t._slots_ok(),
+            "slots": t._slots is not None,
+            "staged_host": t._stageable(np.zeros(1 << 22, np.float32),
+                                        MPI.SUM)}
+
+
+def _mh_same_bits(s, dev, me: int) -> list:
+    """On the split's tier (controllers 0 and 1, one host): every device
+    body on its slots, then on the same inputs staged (the gate turned
+    to "another host" on both), bit for bit."""
+    from ompi_tpu_torch.core import multictl
+    t = multictl.tier(s.layout)
+    n, r = t.size, t.rank()
+    rng = np.random.default_rng(MH_SEED + 100 + r)
+    f = torch.from_numpy(rng.standard_normal(MH_ELEMS).astype(
+        np.float32)).to(dev)
+    pairs = torch.from_numpy(np.stack(
+        [rng.integers(0, 4, MH_ELEMS // 2).astype(np.float32),
+         np.full(MH_ELEMS // 2, r, np.float32)], -1)).to(dev)
+    i32 = (f * 1000).to(torch.int32)
+    chunks = list(f.view(n, -1).unbind(0))
+    want = [(0, 0) if j == r else (j * 64, (j + 1) * 64 + r)
+            for j in range(n)]
+    give = [(0, 0) if j == r else (r * 64, (r + 1) * 64 + j)
+            for j in range(n)]
+    bodies = {
+        "allreduce SUM f32": lambda: [t._device_allreduce(f, MPI.SUM)],
+        "allreduce MAX f32": lambda: [t._device_allreduce(f, MPI.MAX)],
+        "allreduce SUM i32": lambda: [t._device_allreduce(i32, MPI.SUM)],
+        "allreduce MINLOC": lambda: [t._device_allreduce(pairs,
+                                                         MPI.MINLOC)],
+        "bcast": lambda: [t._device_bcast(f, 1)],
+        "allgather": lambda: t._device_allgather(f),
+        "alltoall": lambda: t._device_alltoall(chunks),
+        "exchange": lambda: t._device_exchange(f, MH_ELEMS * 4, want,
+                                               give)}
+    same = []
+    for name, body in bodies.items():
+        slots = t._coll_serial(body)
+        t._one_host = False
+        try:
+            staged = t._coll_serial(body)
+        finally:
+            t._one_host = True
+        check(len(slots) == len(staged) and all(
+            (a is None and b is None) or _bits(a, b)
+            for a, b in zip(slots, staged)),
+              f"controller {me}: the staged {name} differs from its slots")
+        check(all(a is None or a.device == dev for a in staged),
+              f"controller {me}: a staged {name} result off cuda:0")
+        same.append(name)
+    return same
+
+
+def _multihost_rank(t_launch: float, shm_b: str, report: str) -> int:
+    """One controller of phase 22 (run by ``mpirun --coordinator``).
+    Controller 2 is host B: another host identity and shared-memory
+    directory before ``Init``."""
+    from ompi_tpu_torch.accelerator import framework
+    from ompi_tpu_torch.btl import bml
+    from ompi_tpu_torch.core import multictl, rankcomm
+    from ompi_tpu_torch.core.rankcomm import chunk_bounds
+    t0 = time.perf_counter()
+    me = int(os.environ["OMPI_TPU_TORCH_MCA_mpi_base_process_id"])
+    if MH_HOSTS[me]:
+        ident = f"{bml._host_identity()}/host{MH_HOSTS[me]}"
+        bml._host_identity = lambda: ident
+        framework.SHM_DIR = shm_b
+    dev = torch.device("cuda", 0)
+    MPI.Init(devices=[dev] * MH_ROWS[me])
+    up_s = time.time() - t_launch
+    w = MPI.get_comm_world()
+    n = w.size
+    mine = list(w._local)
+    check(n == sum(MH_ROWS) and w.spans_processes, f"world of {n} rows")
+    colors = [MH_HOSTS[w.controller_of(r)] for r in range(n)]
+    s = w.split(colors)[mine[0]]
+    comms = [("world", w)] + ([("split", s)] if s.spans_processes else [])
+    check(s.spans_processes == (MH_HOSTS[me] == 0), "the split's layout")
+    fl0 = FA.launches
+    nums = {"controller": me, "up_s": up_s, "comms": {}, "ms": {},
+            "bytes": {}}
+    for tag, c in comms:
+        nums["comms"][tag] = _mh_check_comm(tag, c, dev, me)
+    check(nums["comms"]["world"]["gate"] is False
+          and not nums["comms"]["world"]["slots"]
+          and nums["comms"]["world"]["staged_host"] is False,
+          f"the world's tier: {nums['comms']['world']}")
+    if "split" in nums["comms"]:
+        check(nums["comms"]["split"]["gate"] is True
+              and nums["comms"]["split"]["slots"],
+              f"the split's tier: {nums['comms']['split']}")
+        nums["same_bits"] = _mh_same_bits(s, dev, me)
+    # the 32 MiB-per-rank allreduce SUM, staged (world) and on slots
+    # (split): CUDA-event span with the host fences; tier bytes of one
+    # call against what its steps owe; numpy
+    rng = np.random.default_rng(MH_SEED)
+    xs = rng.random((n, LOCAL_ELEMS), dtype=np.float32)
+    nbytes = LOCAL_ELEMS * 4
+    big = {}
+    for tag, c in comms:
+        ranks = list(c._local)
+        # the split's ranks are world ranks 0-5, in order
+        x = c.put(xs[:c.size])
+        b0 = dict(rankcomm.tier_bytes)
+        y = c.allreduce(x, MPI.SUM)
+        moved = {k: rankcomm.tier_bytes[k] - b0[k] for k in b0}
+        ref = xs[:c.size].astype(np.float64).sum(0)
+        check(np.allclose(y.local[0].cpu().numpy(), ref, rtol=1e-5,
+                          atol=1e-5) and all(
+            torch.equal(y.local[a], y.local[0]) for a in range(len(ranks))),
+              f"controller {me}: 32 MiB {tag} allreduce against numpy")
+        del y
+        lay = c.layout
+        H, h = len(lay.parts), lay.h
+        b = chunk_bounds(LOCAL_ELEMS, H)
+        own = (b[h + 1] - b[h]) * 4
+        owe = ({"out": nbytes - own + (H - 1) * own,
+                "in": (H - 1) * own + nbytes - own} if tag == "world" else
+               {"out": nbytes + own, "in": (H - 1) * own + nbytes - own})
+        check(moved == owe, f"controller {me}: {tag} tier bytes {moved}, "
+                            f"owed {owe}")
+        nums["bytes"][tag] = (moved, owe)
+        _, ms, us = _pr_timed(lambda c=c, x=x: c.allreduce(x, MPI.SUM),
+                              iters=5)
+        nums["ms"][tag] = (ms, us)
+        big[tag] = (c, x, own)
+    calls = {f"{tag} allreduce": (lambda c=c, x=x: c.allreduce(x, MPI.SUM))
+             for tag, (c, x, _own) in big.items()}
+    xw = big["world"][1]
+    calls["control .cpu()"] = lambda: xw.local.cpu()
+    dtoh = _dtoh_split(calls)
+    for name, (cnt, nb) in dtoh.items():
+        if name == "control .cpu()":
+            check(cnt >= 1 and nb >= MH_ROWS[me] * nbytes,
+                  f"the .cpu() control saw {cnt} DtoH records, {nb} bytes")
+        elif name == "world allreduce":
+            # staged: this controller's partial off the card, then its
+            # folded chunk
+            own = big["world"][2]
+            check(cnt == 2 and nb == nbytes + own,
+                  f"staged allreduce: {cnt} DtoH records, {nb} bytes, "
+                  f"designed 2, {nbytes + own}")
+        else:
+            check(cnt == 0 or nb < nbytes,
+                  f"{name}: {cnt} DtoH records, {nb} bytes")
+    nums["dtoh"] = dtoh
+    nums["flash_fold"] = FA.launches - fl0
+    check(nums["flash_fold"] == 0, "a flash-fold launch in phase 22")
+    nums["live"] = multictl.live()
+    del big, calls, xw
+    MPI.Finalize()
+    nums["seconds"] = time.perf_counter() - t0
+    with open(report, "w") as f:
+        json.dump(nums, f)
+    print(f"OK multihost controller={me}", flush=True)
+    return 0
+
+
+def phase_multihost(smi: str) -> int:
+    """Launch the three controllers (host B emulated by controller 2),
+    relay their numbers; returns the flash-fold launches (0)."""
+    import signal
+    import tempfile
+    from ompi_tpu_torch.accelerator import SHM_DIR, tag_for
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    mpirun = os.path.join(root, "ompi_tpu_torch", "tools", "mpirun.py")
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        shm_b = os.path.join(tmp, "shm_host_b")
+        os.makedirs(shm_b)
+        reports = [os.path.join(tmp, f"c{h}.json")
+                   for h in range(len(MH_ROWS))]
+        t_launch = time.time()
+        procs = [subprocess.Popen(
+            [sys.executable, mpirun, "--coordinator", f"127.0.0.1:{port}",
+             "--num-hosts", str(len(MH_ROWS)), "--host-id", str(h), "-n",
+             str(rows), os.path.abspath(__file__), "--multihost-rank",
+             repr(t_launch), shm_b, reports[h]],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root, start_new_session=True)
+            for h, rows in enumerate(MH_ROWS)]
+        deadline = time.monotonic() + MH_JOB_TIMEOUT
+        outs = []
+        for p in procs:
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                out, err = "", "killed at the phase's limit"
+            outs.append((out, err))
+        for p in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+        job_s = time.perf_counter() - t0
+        for h, (p, (out, err)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"OK multihost controller={h}" not in out:
+                sys.stderr.write(err[-6000:])
+                check(False, f"controller {h} rc={p.returncode}:\n"
+                      f"{out[-3000:]}")
+        nums = []
+        for r in reports:
+            with open(r) as f:
+                nums.append(json.load(f))
+        left_b = os.listdir(shm_b)
+    tag = tag_for(f"127.0.0.1:{port}")
+    left = [f for f in os.listdir(SHM_DIR)
+            if f.startswith("otpt") and f"_{tag}_" in f] + left_b
+    check(not left, f"files left behind: {left}")
+    check(job_s <= MH_JOB_TIMEOUT, f"the job took {job_s:.1f} s")
+    mib = LOCAL_ELEMS * 4 / 2 ** 20
+    layout = "3 controllers x (4, 2, 2) rows on cuda:0, hosts A {0, 1}, B {2}"
+    for c in nums:
+        for tag, d in c["comms"].items():
+            m = sum(MH_ROWS) if tag == "world" else MH_ROWS[0] + MH_ROWS[1]
+            phase("multihost", f"controller {c['controller']} {tag} "
+                  f"({'staged' if not d['gate'] else 'slots'}): "
+                  f"{len(d['bitwise'])} cases bit for bit against the "
+                  f"{m}-row single-controller comm on cuda:0 "
+                  f"({', '.join(d['bitwise'])}); {', '.join(d['held'])} "
+                  f"within rtol 1e-5 of it (the controllers' partials fold "
+                  f"in another association) and the bucket = its unfused "
+                  f"calls bit for bit; all = numpy as the collectives row; "
+                  f"gate {d['gate']}, slots made {d['slots']}, a 16 MiB "
+                  f"numpy buffer staged onto the tier {d['staged_host']}")
+        if "same_bits" in c:
+            phase("multihost", f"controller {c['controller']}: the staged "
+                  f"bodies = the slot bodies bit for bit on the split's "
+                  f"tier, 1 MiB per member, results on cuda:0: "
+                  f"{', '.join(c['same_bits'])}")
+    c0 = nums[0]
+    for tag in ("world", "split"):
+        ms, us = c0["ms"][tag]
+        tier = ", ".join(
+            f"c{c['controller']} {c['bytes'][tag][0]['out'] / 1e6:.3f}/"
+            f"{c['bytes'][tag][0]['in'] / 1e6:.3f} MB (owed "
+            f"{c['bytes'][tag][1]['out'] / 1e6:.3f}/"
+            f"{c['bytes'][tag][1]['in'] / 1e6:.3f})"
+            for c in nums if tag in c["bytes"])
+        how = ("staged, 3 controllers on 2 hosts" if tag == "world"
+               else "slots, controllers 0 and 1 on host A")
+        phase("multihost", f"allreduce SUM f32 {mib:.0f} MiB per rank on "
+              f"the {tag} ({how}): "
+              f"{ms:.3f} ms call (controller 0, CUDA-event span with the "
+              f"host fences), {us:.0f} us host; tier bytes out/in per "
+              f"controller {tier} | {layout} | {smi}")
+    for c in nums:
+        d = c["dtoh"]
+        phase("multihost", f"controller {c['controller']}: Memcpy DtoH "
+              f"records (count, bytes) in one profiler session: "
+              + "; ".join(f"{k} {tuple(v)}" for k, v in d.items())
+              + f" (staged: the partial off the card, then the folded "
+              f"chunk; slots: none of payload size); launch to Init done "
+              f"{c['up_s']:.2f} s; flash-fold launches {c['flash_fold']}; "
+              f"live tiers {c['live']['tiers']}")
+    phase("multihost", f"phase 22 took {time.perf_counter() - t0:.1f} s "
+          f"(limit {MH_JOB_TIMEOUT}; controllers "
+          + ", ".join(f"{c['seconds']:.1f}" for c in nums)
+          + f" s) | {smi}")
+    return sum(c["flash_fold"] for c in nums)
+
+
 def main() -> int:
     if "--multictl-rank" in sys.argv:
         return _multictl_rank(float(sys.argv[-2]), sys.argv[-1])
+    if "--multihost-rank" in sys.argv:
+        return _multihost_rank(float(sys.argv[-3]), sys.argv[-2],
+                               sys.argv[-1])
     if "--perrank-rank" in sys.argv:
         return _perrank_rank(sys.argv[-1])
     if "--dataplane-rank" in sys.argv:
@@ -7916,6 +8341,15 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--multihost" in sys.argv:
+        smi, kind = phase_device()
+        mh_launches = phase_multihost(smi)
+        check(mh_launches == 0, "flash-fold launches in phase 22")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--tools" in sys.argv:
         smi, kind = phase_device()
         MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
@@ -7977,6 +8411,7 @@ def main() -> int:
     phase_tools_job(smi, tls_s)
     cab_launches = phase_cabi_job(smi, cab)
     mc_launches = phase_multictl(smi)
+    mh_launches = phase_multihost(smi)
     main = kern[("entry", "1")]        # the main path's fold
     record = {"kernels": [{
         "name": "flash_fold", "route": "cuda",
@@ -7985,6 +8420,7 @@ def main() -> int:
         "launches": launches,
         "launches_cabi": cab_launches,     # phase 19, controller process
         "launches_multictl": mc_launches,  # phase 20, both controllers
+        "launches_multihost": mh_launches,  # phase 22, three controllers
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         "shapes": list(kern.values()),

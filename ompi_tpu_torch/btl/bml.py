@@ -162,7 +162,8 @@ class BmlEndpoint:
                  kv_set: Callable[[str, str], None],
                  kv_get: Callable[[str], str],
                  sink: Callable[[dict, bytes], None],
-                 on_peer_lost: Optional[Callable[[int], None]] = None):
+                 on_peer_lost: Optional[Callable[[int], None]] = None,
+                 bind: str = "127.0.0.1"):
         register_params()
         # bind the injection plane to this process's world rank and
         # (re)compile the fault specs — a no-op leaving the gate cold
@@ -180,7 +181,8 @@ class BmlEndpoint:
         self._draining: Dict[int, bool] = {}
         self._order_lock = threading.Lock()
         self.tcp = TcpEndpoint(rank, nprocs, kv_set, kv_get,
-                               self._ordered_sink, on_peer_lost=on_peer_lost)
+                               self._ordered_sink, on_peer_lost=on_peer_lost,
+                               bind=bind)
         kv_set(f"ompi_tpu_torch/btl/host/{rank}", _host_identity())
         self.sm: Optional[SmEndpoint] = None
         # OMPI_TPU_TORCH_DISABLE_SM (the reference's OMPI_TPU_DISABLE_SM)

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import telemetry as _tele
-from ompi_tpu_torch.accelerator import SHM_DIR, job_tag
+from ompi_tpu_torch.accelerator import framework as _fw
+from ompi_tpu_torch.accelerator import job_tag
 from ompi_tpu_torch.mca import pvar as _pvar
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.trace import core as _trace
@@ -139,7 +140,7 @@ class _PoolFile:
 
     def __init__(self, name: str, size: int, slot_bytes: int,
                  create: bool):
-        path = os.path.join(SHM_DIR, name)
+        path = os.path.join(_fw.SHM_DIR, name)
         if create:
             try:                         # a crashed same-tag job's file
                 os.unlink(path)

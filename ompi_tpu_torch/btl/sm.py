@@ -32,7 +32,8 @@ import time
 import traceback
 from typing import Callable, Dict, Optional
 
-from ompi_tpu_torch.accelerator import SHM_DIR, job_tag
+from ompi_tpu_torch.accelerator import framework as _fw
+from ompi_tpu_torch.accelerator import job_tag
 from ompi_tpu_torch.btl.tcp import _LEN, MAGIC
 from ompi_tpu_torch.ft import inject as _inject
 from ompi_tpu_torch.trace import core as _trace
@@ -59,12 +60,12 @@ class Ring:
         if create:
             name = name or f"{RING_PREFIX}__{os.getpid():x}_" \
                            f"{os.urandom(6).hex()}"
-            path = os.path.join(SHM_DIR, name)
+            path = os.path.join(_fw.SHM_DIR, name)
             self._fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_RDWR,
                                0o600)
             os.ftruncate(self._fd, size)
         else:
-            path = os.path.join(SHM_DIR, name)
+            path = os.path.join(_fw.SHM_DIR, name)
             self._fd = os.open(path, os.O_RDWR)
         self.name = name
         self._path = path
@@ -184,7 +185,7 @@ class SmEndpoint:
             name = f"{RING_PREFIX}_{tag}_{rank}_{src}" if tag else None
             if name:
                 try:                     # a crashed same-tag job's
-                    os.unlink(os.path.join(SHM_DIR, name))   # leftover
+                    os.unlink(os.path.join(_fw.SHM_DIR, name))   # leftover
                 except OSError:
                     pass
             ring = Ring(name, ring_bytes, create=True)

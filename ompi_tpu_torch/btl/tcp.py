@@ -111,6 +111,17 @@ def decode_payload(desc: dict, raw) -> Any:
     return pickle.loads(raw)
 
 
+def coordinator_facing(coord: str) -> str:
+    """The address of this host's interface toward ``coord``
+    (``host:port``, the job's store): the local address the kernel picks
+    for a datagram socket connected there. Connecting a datagram socket
+    sends nothing; it only routes."""
+    host, port = coord.rsplit(":", 1)
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.connect((host.strip("[]"), int(port)))
+        return s.getsockname()[0]
+
+
 def register_params() -> None:
     var.var_register(
         "btl", "tcp", "sim_gbps", vtype="float", default=0.0,
@@ -125,13 +136,17 @@ class TcpEndpoint:
     ``sink(header, payload)`` is called from reader threads for every
     arriving frame; it must be thread-safe. ``on_peer_lost(rank)`` is
     called when an identified inbound connection dies before ``close``.
+    The listener binds ``bind`` and publishes it: loopback for the ranks
+    of one host, the coordinator-facing interface for controllers that
+    may sit on other hosts (``runtime/init``).
     """
 
     def __init__(self, rank: int, nprocs: int,
                  kv_set: Callable[[str, str], None],
                  kv_get: Callable[[str], str],
                  sink: Callable[[dict, bytes], None],
-                 on_peer_lost: Optional[Callable[[int], None]] = None):
+                 on_peer_lost: Optional[Callable[[int], None]] = None,
+                 bind: str = "127.0.0.1"):
         self.rank = rank
         self.nprocs = nprocs
         self._kv_get = kv_get
@@ -171,7 +186,7 @@ class TcpEndpoint:
 
         self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._listener.bind(("127.0.0.1", 0))
+        self._listener.bind((bind, 0))
         self._listener.listen(max(nprocs, 8))
         host, port = self._listener.getsockname()
         kv_set(f"ompi_tpu_torch/btl/{rank}", f"{host}:{port}")

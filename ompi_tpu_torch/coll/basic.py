@@ -97,7 +97,10 @@ class BasicCollModule:
         acc = x[0].copy()
         out[0] = acc
         for i in range(1, x.shape[0]):
-            acc = np.asarray(fn(acc, x[i]), dtype=x.dtype)
+            # a user combiner may return its element as a 1-element array:
+            # shape it as the row, never convert an array to a scalar
+            acc = np.asarray(fn(acc, x[i]), dtype=x.dtype).reshape(
+                x.shape[1:])
             out[i] = acc
         return out
 

@@ -1598,10 +1598,11 @@ class TorchCollModule:
         (``multictl.run``)."""
         return multictl.run(self.comm.layout, body, *args)
 
-    def _mc_exchange(self, flat: torch.Tensor, cap: int, want):
+    def _mc_exchange(self, flat: torch.Tensor, cap: int, want, give):
         """One ragged round over the controller tier: write ``flat``,
-        read ``want[g]`` of controller g's payload."""
-        return self._mc_run("_device_exchange", flat, cap, want)
+        read ``want[g]`` of controller g's payload; controller g reads
+        ``give[g]`` of ``flat`` (what a tier across hosts ships it)."""
+        return self._mc_run("_device_exchange", flat, cap, want, give)
 
     def _mc_allreduce(self, part: torch.Tensor, op) -> torch.Tensor:
         """The controllers' partials folded in controller order."""
@@ -1633,8 +1634,10 @@ class TorchCollModule:
         esz = X.element_size()
         want = [(0, 0) if g == lay.h else (0, lay.sizes[g] * per)
                 for g in range(len(lay.parts))]
+        give = [(0, 0) if g == lay.h else (0, lay.sizes[lay.h] * per)
+                for g in range(len(lay.parts))]
         got = self._mc_exchange(X.reshape(-1), max(lay.sizes) * per * esz,
-                                want)
+                                want, give)
         blocks = [X if g == lay.h
                   else got[g].view((lay.sizes[g],) + tuple(X.shape[1:]))
                   for g in range(len(lay.parts))]
@@ -1703,10 +1706,16 @@ class TorchCollModule:
                 flat = X.new_empty((0,))
             per = int(np.prod(s, dtype=np.int64))
             want = [(0, 0)] * len(lay.parts)
+            give = [(0, 0)] * len(lay.parts)
             if lay.h != g_root:
                 want[g_root] = (int(lay.offs[lay.h]) * per,
                                 int(lay.offs[lay.h + 1]) * per)
-            got = self._mc_exchange(flat, n * per * X.element_size(), want)
+            else:
+                give = [(0, 0) if g == g_root else
+                        (int(lay.offs[g]) * per, int(lay.offs[g + 1]) * per)
+                        for g in range(len(lay.parts))]
+            got = self._mc_exchange(flat, n * per * X.element_size(), want,
+                                    give)
             if lay.h == g_root:
                 return R[self._idx(list(lay.mine))].clone()
             return got[g_root].view((X.shape[0],) + s)
@@ -1725,18 +1734,22 @@ class TorchCollModule:
         # block g: my rows' chunks for controller g's ranks
         send = torch.cat([X[:, self._idx(list(lay.parts[g]))].reshape(-1)
                           for g in others]) if others else X.new_empty(0)
-        want = []
+        want, give = [], []
         for g in range(G):
             # controller g's block for me follows its blocks for the
-            # controllers before me
+            # controllers before me; my block for g, my blocks for the
+            # others before g
             before = sum(lay.sizes[d] for d in range(G)
                          if d != g and d < lay.h)
             a = lay.sizes[g] * before * per
             want.append((0, 0) if g == lay.h
                         else (a, a + lay.sizes[g] * L * per))
+            at = L * per * sum(lay.sizes[d] for d in others if d < g)
+            give.append((0, 0) if g == lay.h
+                        else (at, at + L * lay.sizes[g] * per))
         cap = max(lg * (n - lg) for lg in lay.sizes) * per * \
             X.element_size()
-        got = self._mc_exchange(send, cap, want)
+        got = self._mc_exchange(send, cap, want, give)
         # my rows' chunks for my own ranks, as the receivers see them
         mine = X[:, self._idx(list(lay.mine))].transpose(0, 1)
         blocks = [mine if g == lay.h else
@@ -1762,8 +1775,11 @@ class TorchCollModule:
                     (int(lay.offs[lay.h]) * per,
                      int(lay.offs[lay.h + 1]) * per)
                     for g in range(len(lay.parts))]
+            give = [(0, 0) if g == lay.h else
+                    (int(lay.offs[g]) * per, int(lay.offs[g + 1]) * per)
+                    for g in range(len(lay.parts))]
             got = self._mc_exchange(self._mc_concat(P).reshape(-1),
-                                    n * per * X.element_size(), want)
+                                    n * per * X.element_size(), want, give)
             parts = torch.stack([P[mine] if g == lay.h
                                  else got[g].view((len(lay.mine),) + s)
                                  for g in range(len(lay.parts))])
@@ -1784,8 +1800,10 @@ class TorchCollModule:
         per = int(np.prod(X.shape[1:], dtype=np.int64))
         want = [(0, per) if g < lay.h else (0, 0)
                 for g in range(len(lay.parts))]
+        give = [(0, per) if g > lay.h else (0, 0)
+                for g in range(len(lay.parts))]
         got = self._mc_exchange(pre[-1].reshape(-1),
-                                per * X.element_size(), want)
+                                per * X.element_size(), want, give)
         incl = pre
         if lay.h > 0:
             before = got[0].view(X.shape[1:])

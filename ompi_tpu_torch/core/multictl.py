@@ -16,12 +16,16 @@ communicator form a hidden ``RankCommunicator`` (one member per
 controller, wired through ``pml/perrank.Router`` and the job's
 ``TCPStore``), and a tensor payload crosses through that tier's device
 slots (CUDA IPC on the card, shared memory segments on the CPU) without
-touching the host. Every spanning communicator has a tier of its own,
-CID ``("mc", key, controllers)``: its own round sequence, collective
-worker and slots, so its rounds meet only its own rounds on the other
-controllers (MPI orders collectives per communicator, not across
-communicators), and two comms' nonblocking collectives started in
-opposite orders run side by side instead of waiting on each other.
+touching the host. Slots need one host: a tier whose controllers sit on
+more than one host runs the same bodies staged, each payload copied off
+the card once and shipped raw over the tier's tcp plane
+(``RankCommunicator._slots_ok``), with the same bits. Every spanning
+communicator has a tier of its own, CID ``("mc", key, controllers)``:
+its own round sequence, collective worker and slots, so its rounds
+meet only its own rounds on the other controllers (MPI orders
+collectives per communicator, not across communicators), and two comms'
+nonblocking collectives started in opposite orders run side by side
+instead of waiting on each other.
 
 The *tier key* names a communicator alike on every controller without a
 round: the world's and every parentless comm's is a function of its
@@ -200,7 +204,9 @@ def ship_rows(lay: "Layout", counts: Sequence[Sequence[int]],
     controller (SPMD); ``rows`` are this controller's outgoing rows
     ``(sum(counts[h]), *s)``, grouped by destination in controller order.
     Returns per source g the ``(counts[g][h], *s)`` rows it sent here
-    (None where it sent none)."""
+    (None where it sent none). ``counts`` also says what each controller
+    reads of this one's rows, so a tier across hosts ships each exactly
+    its rows, with no round of want lists."""
     h = lay.h
     s = tuple(rows.shape[1:])
     per = int(np.prod(s, dtype=np.int64))
@@ -209,7 +215,11 @@ def ship_rows(lay: "Layout", counts: Sequence[Sequence[int]],
     for g, c in enumerate(counts):
         a = sum(c[:h])
         want.append((0, 0) if g == h else (a * per, (a + c[h]) * per))
-    got = run(lay, "_device_exchange", rows.reshape(-1), cap, want)
+    mine = counts[h]
+    give = [(0, 0) if d == h else (sum(mine[:d]) * per,
+                                   sum(mine[:d + 1]) * per)
+            for d in range(len(counts))]
+    got = run(lay, "_device_exchange", rows.reshape(-1), cap, want, give)
     return [None if t is None else t.view((-1,) + s) for t in got]
 
 

@@ -35,6 +35,15 @@ it). Two tiers:
   every peer reaches only after its reads of this one are done. No byte of
   the payload touches the host. Host numpy buffers of at least
   ``coll_tuned_stage_min_bytes`` are staged onto the device tier.
+  Slots are mapped memory, so they serve a communicator only when every
+  member sits on this host (the host identities of the bml's modex,
+  decided once per communicator, alike on every member). A communicator
+  that spans hosts runs the same bodies *staged*: each member copies its
+  payload off the device once (into pinned memory), the bytes that each
+  peer needs ride the hidden channel's host plane raw, and the receiver
+  copies them onto its device; the allreduce then folds the same chunks
+  in the same rank order as the slots do, so both paths give the same
+  bits. Host buffers are not staged onto such a communicator.
 
 Internal collective traffic rides a hidden CID channel (``("c", cid)``),
 so it never matches user point-to-point tags. Communicator creation is
@@ -86,7 +95,8 @@ from ompi_tpu_torch.utils import hooks as _hooks_mod
 # what ran, by path: read by tests and the chip smoke; each bump is an
 # SPC count too (``spc_<path>``), as the reference records them
 counters: Dict[str, int] = dict.fromkeys((
-    "coll_device", "coll_staged_device", "coll_small_combine",
+    "coll_device", "coll_device_wire", "coll_staged_device",
+    "coll_small_combine",
     "coll_compress_direct", "coll_shm_fold", "coll_pipelined_ring",
     "coll_pipelined_chain"), 0)
 
@@ -98,8 +108,9 @@ def _ran(path: str) -> None:
 
 # bytes of the device tier, per process: "out" is what this process wrote
 # into its own slot for its peers, "in" what it read from its peers'
-# slots; read by tests and the chip smoke (the multi-controller world
-# counts its crossing bytes here)
+# slots (on the staged bodies: what it shipped to its peers, and what it
+# took from them); read by tests and the chip smoke (the multi-controller
+# world counts its crossing bytes here)
 tier_bytes: Dict[str, int] = {"out": 0, "in": 0}
 
 
@@ -344,6 +355,7 @@ class RankCommunicator:
         self._create_seq = itertools.count(1)   # comm-creation sequence
         self._small_fold: Dict[Any, Callable] = {}  # op.uid -> fold
         self._slots: Optional[_SharedSlots] = None
+        self._one_host: Optional[bool] = None     # _slots_ok, decided once
         self._lock = threading.Lock()
         self._cq: Optional["queue.Queue"] = None   # serial collective
         self._cworker: Optional[threading.Thread] = None  # executor
@@ -504,7 +516,7 @@ class RankCommunicator:
             return False                 # pair ops stay on the host fold
         if getattr(op, "_c_callback", None) is not None:
             return False                 # a C fn pointer reads host memory
-        return True
+        return self._slots_ok()          # across hosts: the host tier
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
@@ -1279,6 +1291,8 @@ class RankCommunicator:
         n, r = self.size, self._rank
         nbytes = flat.numel() * flat.element_size()
         rec = x.shape[-1] if op.is_loc and x.dim() else 1
+        if not self._slots_ok():
+            return self._wire_allreduce(flat, op, rec).view(x.shape)
         slots, p = self._shared(nbytes)
         mine = slots.view(r, p, nbytes, flat.dtype)
         mine.copy_(flat)
@@ -1300,6 +1314,8 @@ class RankCommunicator:
     def _device_bcast(self, x: torch.Tensor, root: int) -> torch.Tensor:
         flat = self._local(x)
         nbytes = flat.numel() * flat.element_size()
+        if not self._slots_ok():
+            return self._wire_bcast(flat, root).view(x.shape)
         slots, p = self._shared(nbytes)
         if self._rank == root:
             slots.view(root, p, nbytes, flat.dtype).copy_(flat)
@@ -1313,6 +1329,9 @@ class RankCommunicator:
         flat = self._local(x)
         n = self.size
         nbytes = flat.numel() * flat.element_size()
+        if not self._slots_ok():
+            g = self._wire_allgather(flat)
+            return list(g.view((n,) + tuple(x.shape)).unbind(0))
         slots, p = self._shared(nbytes)
         slots.view(self._rank, p, nbytes, flat.dtype).copy_(flat)
         self._fence()
@@ -1329,6 +1348,9 @@ class RankCommunicator:
         flat = flat.reshape(-1)
         per = flat.numel() // n
         nbytes = flat.numel() * flat.element_size()
+        if not self._slots_ok():
+            g = self._wire_alltoall(flat, per)
+            return list(g.view((n,) + shape).unbind(0))
         slots, p = self._shared(nbytes)
         slots.view(r, p, nbytes, flat.dtype).copy_(flat)
         self._fence()
@@ -1338,17 +1360,23 @@ class RankCommunicator:
         return list(g.view((n,) + shape).unbind(0))
 
     def _device_exchange(self, flat: torch.Tensor, cap: int,
-                         want: Sequence[Tuple[int, int]]
+                         want: Sequence[Tuple[int, int]],
+                         give: Sequence[Tuple[int, int]]
                          ) -> List[Optional[torch.Tensor]]:
         """One round of the device tier with ragged contributions: write
         ``flat`` (this member's 1-D payload) into its slot, fence, and
         read the element range ``want[j] = (start, stop)`` of member j's
-        slot (this member's own too). ``cap`` is the largest payload in
-        bytes any member writes, alike on every member (slot growth is
-        collective). An empty range reads nothing (None). The reads are
-        copies: the next device collective may rewrite the slots."""
+        slot (this member's own too). ``give[j]`` is the range of
+        ``flat`` that member j reads (its ``want[me]``, known to every
+        member from the same global plan): the staged body ships exactly
+        it. ``cap`` is the largest payload in bytes any member writes,
+        alike on every member (slot growth is collective). An empty range
+        reads nothing (None). The reads are copies: the next device
+        collective may rewrite the slots."""
         flat = flat.detach().reshape(-1)
         r = self._rank
+        if not self._slots_ok():
+            return self._wire_exchange(flat, want, give)
         slots, p = self._shared(max(int(cap), 1))
         esz = flat.element_size()
         if flat.numel():
@@ -1364,6 +1392,149 @@ class RankCommunicator:
             if j != r:
                 got += (b - a) * esz
         _moved(flat.numel() * esz, got)
+        return out
+
+    # -- the staged bodies: members on more than one host ----------------
+    def _slots_ok(self) -> bool:
+        """Rank-symmetric gate of the device slots: every member on this
+        host, by the host identities the bml published at wire-up (the
+        test of ``_shm_fold_ok``). Decided once per communicator; every
+        member reads the same identities, so all decide alike. The staged
+        bodies run only where it says no: a same-host slot that fails to
+        open still raises."""
+        ok = self._one_host
+        if ok is None:
+            ep = self.router.endpoint
+            ok = self._one_host = all(
+                ep._is_same_host(self.world_rank_of(i))
+                for i in range(self.size) if i != self._rank)
+        return ok
+
+    @staticmethod
+    def _wire_out(t: torch.Tensor) -> np.ndarray:
+        """``t``'s bytes in host memory: one copy off the card into
+        pinned memory; a host tensor's own bytes."""
+        b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        if b.device.type != "cpu":
+            h = torch.empty(b.numel(), dtype=torch.uint8, pin_memory=True)
+            h.copy_(b)
+            b = h
+        return b.numpy()
+
+    def _wire_in(self, raw: np.ndarray, dtype) -> torch.Tensor:
+        """Bytes from the host plane as a flat ``dtype`` tensor on this
+        member's device."""
+        if not raw.flags.writeable:
+            raw = raw.copy()
+        return torch.from_numpy(raw).to(self.device).view(dtype)
+
+    def _wire_round(self, sends: Dict[int, np.ndarray],
+                    recvs: Dict[int, int]) -> Dict[int, np.ndarray]:
+        """One round of the staged tier on the hidden channel's host
+        plane: ``sends[j]`` (host bytes) to member j, ``recvs[j]`` bytes
+        from member j, raw (an array payload is never pickled). A failed
+        member's bytes are never waited for: the registry is checked
+        before the receive is posted, as a slot read checks it."""
+        _ran("coll_device_wire")
+        t = self._tag()
+        reqs = {}
+        for j in recvs:
+            if ft.is_failed(self.world_rank_of(j)):
+                raise MPIError(ERR_PROC_FAILED,
+                               f"staged device tier: rank {j} belongs to a "
+                               f"failed process")
+            reqs[j] = self._coll_pml.irecv(j, t)
+        for j, raw in sends.items():
+            self._csend(j, t, raw)
+        got = {j: np.asarray(req.get()).reshape(-1).view(np.uint8)
+               for j, req in reqs.items()}
+        _moved(sum(v.nbytes for v in sends.values()), sum(recvs.values()))
+        return got
+
+    def _wire_allreduce(self, flat: torch.Tensor, op: op_mod.Op,
+                        rec: int) -> torch.Tensor:
+        """The slots' allreduce over the host plane: chunk j of every
+        member's payload goes to member j, which folds the chunks in
+        rank order (the slots' ``chunk_bounds`` and ``reduce_tree``, so
+        the same bits) and sends its folded chunk to every member."""
+        n, r = self.size, self._rank
+        esz = flat.element_size()
+        b = chunk_bounds(flat.numel(), n, rec)
+        lo, hi = b[r], b[r + 1]
+        others = [j for j in range(n) if j != r]
+        host = self._wire_out(flat)
+        got = self._wire_round(
+            {j: host[b[j] * esz:b[j + 1] * esz] for j in others
+             if b[j + 1] > b[j]},
+            {j: (hi - lo) * esz for j in others if hi > lo})
+        out = torch.empty_like(flat)
+        mine: Dict[int, np.ndarray] = {}
+        if hi > lo:
+            parts = flat.new_empty((n, hi - lo))
+            for j in range(n):
+                parts[j].copy_(flat[lo:hi] if j == r
+                               else self._wire_in(got[j], flat.dtype))
+            red = op.reduce_tree(parts.view(n, -1, rec), 0).reshape(-1)
+            out[lo:hi] = red
+            raw = self._wire_out(red)
+            mine = {j: raw for j in others}
+        got = self._wire_round(
+            mine, {j: (b[j + 1] - b[j]) * esz for j in others
+                   if b[j + 1] > b[j]})
+        for j, raw in got.items():
+            out[b[j]:b[j + 1]] = self._wire_in(raw, flat.dtype)
+        return out
+
+    def _wire_bcast(self, flat: torch.Tensor, root: int) -> torch.Tensor:
+        if self._rank == root:
+            raw = self._wire_out(flat)
+            self._wire_round({j: raw for j in range(self.size)
+                              if j != root}, {})
+            return flat.clone()
+        got = self._wire_round({}, {root: flat.numel() * flat.element_size()})
+        return self._wire_in(got[root], flat.dtype)
+
+    def _wire_allgather(self, flat: torch.Tensor) -> torch.Tensor:
+        n, r = self.size, self._rank
+        others = [j for j in range(n) if j != r]
+        raw = self._wire_out(flat)
+        got = self._wire_round({j: raw for j in others},
+                               {j: raw.nbytes for j in others})
+        return torch.stack([flat if j == r
+                            else self._wire_in(got[j], flat.dtype)
+                            for j in range(n)])
+
+    def _wire_alltoall(self, flat: torch.Tensor, per: int) -> torch.Tensor:
+        n, r = self.size, self._rank
+        pb = per * flat.element_size()
+        others = [j for j in range(n) if j != r]
+        raw = self._wire_out(flat)
+        got = self._wire_round({j: raw[j * pb:(j + 1) * pb] for j in others},
+                               {j: pb for j in others})
+        return torch.stack([flat[r * per:(r + 1) * per] if j == r
+                            else self._wire_in(got[j], flat.dtype)
+                            for j in range(n)])
+
+    def _wire_exchange(self, flat: torch.Tensor,
+                       want: Sequence[Tuple[int, int]],
+                       give: Sequence[Tuple[int, int]]
+                       ) -> List[Optional[torch.Tensor]]:
+        r = self._rank
+        esz = flat.element_size()
+        gives = {j: g for j, g in enumerate(give) if j != r and g[1] > g[0]}
+        raw = self._wire_out(flat) if gives else None
+        got = self._wire_round(
+            {j: raw[a * esz:b * esz] for j, (a, b) in gives.items()},
+            {j: (b - a) * esz for j, (a, b) in enumerate(want)
+             if j != r and b > a})
+        out: List[Optional[torch.Tensor]] = []
+        for j, (a, b) in enumerate(want):
+            if b <= a:
+                out.append(None)
+            elif j == r:
+                out.append(flat[a:b].clone())
+            else:
+                out.append(self._wire_in(got[j], flat.dtype))
         return out
 
     # ==================================================================

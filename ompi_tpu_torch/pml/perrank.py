@@ -85,10 +85,11 @@ def _send(router: "Router", wdest: int, header: dict, raw) -> None:
 
 class Router:
     """Process-wide frame router: CID -> engine, the ack table, the
-    endpoint (bml over tcp and sm) and the device payload plane."""
+    endpoint (bml over tcp and sm) and the device payload plane. The tcp
+    listener binds ``bind`` (loopback unless Init gives another)."""
 
     def __init__(self, rank: int, nprocs: int, kv_set, kv_get,
-                 device=None):
+                 device=None, bind: str = "127.0.0.1"):
         self.rank = rank
         self.nprocs = nprocs
         self.kv_set = kv_set
@@ -128,7 +129,7 @@ class Router:
         self.pipes = _pipeline.PipeStore()
         self.endpoint = BmlEndpoint(rank, nprocs, kv_set, kv_get,
                                     self._deliver,
-                                    on_peer_lost=self._peer_lost)
+                                    on_peer_lost=self._peer_lost, bind=bind)
         # the ctl flush-window counters ride the MPI_T pvar plumbing
         pvar.pvar_register_dict(
             "btl_ctl", self.endpoint.tcp.ctl_stats,

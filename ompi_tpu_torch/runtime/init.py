@@ -32,7 +32,8 @@ Host 0 hosts the job's ``TCPStore`` at the coordinator address and every
 host opens a client on it (the role of ``jax.distributed.initialize``);
 each controller publishes its rows' devices, waits at the init fence, and
 the controllers wire up the per-rank tier among themselves
-(``pml/perrank.Router``, rank = host id), over which the collectives of a
+(``pml/perrank.Router``, rank = host id, listening on the interface
+that faces the coordinator), over which the collectives of a
 communicator spanning controllers cross (``core/multictl``). World rank
 order is controller order. ``finalize`` fences, closes the tier and, on
 host 0, sweeps the job's shared-memory files once every host has left.
@@ -205,6 +206,7 @@ def _init_controllers(local: List[torch.device]):
     every controller publishes its rows' devices, fences, and wires the
     controller tier. Returns the world's devices in rank order and this
     controller's first world rank."""
+    from ompi_tpu_torch.btl.tcp import coordinator_facing
     from ompi_tpu_torch.core import multictl
     from ompi_tpu_torch.pml.perrank import Router
     me = int(var.var_get("mpi_base_process_id", -1))
@@ -228,7 +230,11 @@ def _init_controllers(local: List[torch.device]):
            json.dumps([str(d) for d in local]))
     if local[0].type == "cuda":
         torch.cuda.set_device(local[0])
-    router = Router(me, hosts, kv.set, kv.get, local[0])
+    # controllers may sit on other hosts: the tier listens on, and
+    # publishes, the interface through which this host reaches the
+    # coordinator (loopback when the coordinator is this host's)
+    router = Router(me, hosts, kv.set, kv.get, local[0],
+                    bind=coordinator_facing(addr))
     kv.fence("init", hosts)
     router.wire_up()
     rows = [json.loads(kv.get(f"ompi_tpu_torch/mc/rows/{h}"))

@@ -12,7 +12,18 @@ process placement. The port of ``ompi_tpu/tools/mpirun.py``.
   this controller's row count; each host runs its own ``mpirun``, which
   execs the program once. Host 0's ``Init`` hosts the job's store at the
   coordinator address, and the H controllers form one world
-  (``runtime/init``, ``core/multictl``).
+  (``runtime/init``, ``core/multictl``). On separate hosts, give every
+  host the same ``--coordinator <host 0's routable address>:<port>`` and
+  ``--num-hosts H``, and each its own ``--host-id`` (0 on host 0)::
+
+      mpirun.py --coordinator 10.0.0.5:29500 --num-hosts 2 --host-id 0
+          -n 4 prog.py                               # on host 0
+      mpirun.py --coordinator 10.0.0.5:29500 --num-hosts 2 --host-id 1
+          -n 4 prog.py                               # on host 1
+
+  Each controller's tier then listens on the interface that reaches the
+  coordinator, and the collectives of a comm spanning hosts cross
+  through host memory over it (``core/rankcomm``'s staged bodies).
 - Per-rank: ``mpirun --per-rank -n N prog.py`` takes the PRRTE daemon's
   role itself: it hosts the job's ``torch.distributed.TCPStore`` (the PMIx
   coordination service; every rank opens a client on it), fork/execs N
@@ -177,13 +188,14 @@ def sweep_shm(coord: str) -> None:
     segments, named with the job's tag."""
     if _PKG_ROOT not in sys.path:
         sys.path.insert(0, _PKG_ROOT)
-    from ompi_tpu_torch.accelerator import SEG_PREFIX, SHM_DIR, tag_for
+    from ompi_tpu_torch.accelerator import SEG_PREFIX, framework, tag_for
     from ompi_tpu_torch.btl.shmseg import POOL_PREFIX
     from ompi_tpu_torch.btl.sm import RING_PREFIX
     from ompi_tpu_torch.osc.shm import WIN_PREFIX
     tag = tag_for(coord)
     for prefix in (RING_PREFIX, SEG_PREFIX, POOL_PREFIX, WIN_PREFIX):
-        for path in glob.glob(os.path.join(SHM_DIR, f"{prefix}_{tag}_*")):
+        for path in glob.glob(os.path.join(framework.SHM_DIR,
+                                           f"{prefix}_{tag}_*")):
             try:
                 os.unlink(path)
             except OSError:
