@@ -146,7 +146,8 @@ Phases, one or more lines each:
                 scatter, alltoall,
                 reduce_scatter_block, scan and barrier at 32 MB fp32 per
                 rank, twice: bit for bit the plain world's result, one
-                ``coll_<func>`` span per call (the dup's cid, seq 0 and 1),
+                ``coll_<func>`` span per call (the dup's cid, seq 0 and 1)
+                and a ``coll.body`` per call with a body on either comm,
                 a Perfetto export that loads as JSON, monitoring bytes equal
                 to the payloads, SPC counts equal to the calls; a ring of 64
                 under 1000 calls counting its drops; host µs per 8 B
@@ -3298,7 +3299,12 @@ def _obs_tracing(w, dev, elems: int) -> list:
             check(_obs_same(got, want), f"traced {func} differs from the "
                   f"untraced call")
     torch.cuda.synchronize()
-    spans = trace.spans()
+    # the shims' coll_<func> spans, and a coll.body span inside
+    # coll/torch_ per call of a collective with a body (every one but
+    # barrier) on either comm, since the tracer is armed for both
+    every = trace.spans()
+    bodies = [s for s in every if s.name == "coll.body"]
+    spans = [s for s in every if s.name != "coll.body"]
     for func in OBS_COLLS:
         mine = [s for s in spans if s.name == f"coll_{func}"]
         check([s.seq for s in mine] == [0, 1]
@@ -3306,6 +3312,9 @@ def _obs_tracing(w, dev, elems: int) -> list:
               f"coll_{func} spans {[(s.cid, s.seq) for s in mine]}")
     check(all(s.name.startswith("coll_") for s in spans),
           f"unexpected spans {sorted({s.name for s in spans})}")
+    check(sorted(s.args["func"] for s in bodies)
+          == sorted([f for f in OBS_COLLS if f != "barrier"] * 4),
+          f"coll.body spans {sorted(s.args['func'] for s in bodies)}")
     export = json.loads(json.dumps(trace.perfetto.export(spans)))
     check(len([e for e in export["traceEvents"] if e["ph"] == "X"])
           == 2 * len(OBS_COLLS), "perfetto export")
@@ -3324,7 +3333,8 @@ def _obs_tracing(w, dev, elems: int) -> list:
     lines = [f"tracing: 10 collectives x 2 rounds at {elems * 4 >> 20} MB "
              f"fp32 per rank on a dup with monitoring and tracing on = the "
              f"plain world bit for bit; one coll_<func> span per call, cid "
-             f"{d.cid}, seq 0, 1; Perfetto export loads as JSON; monitoring "
+             f"{d.cid}, seq 0, 1, and one coll.body per call but barrier's "
+             f"on either comm; Perfetto export loads as JSON; monitoring "
              f"bytes = payloads; SPC coll_<func> +4 per function (2 traced, "
              f"2 untraced calls)"]
     d.free()
@@ -3335,17 +3345,22 @@ def _obs_tracing(w, dev, elems: int) -> list:
     for _ in range(1000):
         dt.allreduce(small, MPI.SUM)
     st = trace.stats()
-    check(st["spans"] == 64 and st["dropped"] == 936
-          and pvar.pvar_read("trace_dropped") == 936,
+    # two spans a call: the shim's coll_allreduce and coll.body
+    check(st["spans"] == 64 and st["dropped"] == 1936
+          and pvar.pvar_read("trace_dropped") == 1936,
           f"ring of 64 under 1000 calls: {st}")
-    lines.append(f"ring of 64 under 1000 allreduces: trace_spans "
+    lines.append(f"ring of 64 under 1000 allreduces (2 spans each): "
+                 f"trace_spans "
                  f"{pvar.pvar_read('trace_spans')}, trace_dropped "
                  f"{pvar.pvar_read('trace_dropped')}")
-    # host µs per 8 B allreduce, tracing off (the plain world, unwrapped)
-    # and on (the traced dup), in turns a b b a
-    trace.enable(capacity=1 << 16)
+    # host µs per 8 B allreduce, tracing off (the plain world, unwrapped,
+    # with the tracer disarmed) and on (the traced dup), in turns a b b a
     us = {"off": [], "on": []}
     for mode in ("off", "on", "on", "off"):
+        if mode == "off":
+            trace.disable()
+        else:
+            trace.enable(capacity=1 << 16)
         trace.reset()
         us[mode].append(_obs_8b_us(w if mode == "off" else dt))
     dt.free()
@@ -3467,7 +3482,7 @@ def _observe_rank(report: str) -> int:
     w = MPI.get_comm_world()
     r, n = w.rank(), w.size
     dev = w.device
-    check(trace.is_active() and w._coll_interposers == ["trace"],
+    check(trace.core.active and w._coll_interposers == ["trace"],
           f"rank {r}: tracing not armed ({w._coll_interposers})")
     lines = []
     out_dir = os.path.dirname(report)

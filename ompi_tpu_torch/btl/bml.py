@@ -40,6 +40,8 @@ import uuid
 from collections import deque
 from typing import Callable, Dict, Optional, Tuple
 
+from torch.autograd import profiler as _prof
+
 from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.btl import shmseg as _shmseg
 from ompi_tpu_torch.btl.sm import Ring, SmEndpoint
@@ -466,7 +468,7 @@ class BmlEndpoint:
             t0 = time.perf_counter()
             tok = (_trace.begin("btl.rail", rail=rail, peer=peer,
                                 bytes=len(payload))
-                   if _trace.active else None)
+                   if _trace.active or _prof._is_profiler_enabled else None)
             if _tele.active:
                 # telemetry: payload bytes per rail frame — the stripe
                 # width the rendezvous scheduler actually produced

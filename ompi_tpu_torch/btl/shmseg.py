@@ -37,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.accelerator import framework as _fw
@@ -255,7 +256,7 @@ class SegPlane:
             # lazy attach always finds it
             self._kv_set(*publish)
         tok = (_trace.begin("btl.shm_seg", peer=peer, bytes=n)
-               if _trace.active else None)
+               if _trace.active or _prof._is_profiler_enabled else None)
         ok = False
         try:
             off = idx * self.slot_bytes

@@ -32,6 +32,8 @@ import time
 import traceback
 from typing import Callable, Dict, Optional
 
+from torch.autograd import profiler as _prof
+
 from ompi_tpu_torch.accelerator import framework as _fw
 from ompi_tpu_torch.accelerator import job_tag
 from ompi_tpu_torch.btl.tcp import _LEN, MAGIC
@@ -202,7 +204,7 @@ class SmEndpoint:
                  else list(self._in.values()))
         n = 0
         tok = (_trace.begin("btl_sm_drain", src=src)
-               if _trace.active else None)
+               if _trace.active or _prof._is_profiler_enabled else None)
         try:
             with self._drain_lock:
                 for ring in rings:

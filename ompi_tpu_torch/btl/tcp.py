@@ -28,6 +28,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.ft import inject as _inject
@@ -432,7 +433,7 @@ class TcpEndpoint:
             # blocked behind a big sendall shows there.
             tok = (_trace.begin("btl_ctl_flush", peer=peer,
                                 frames=len(batch), bytes=cost)
-                   if _trace.active else None)
+                   if _trace.active or _prof._is_profiler_enabled else None)
             if _tele.active:
                 # telemetry: flush-window width — frames coalesced per
                 # sendall; a widening histogram means the ctl sender is

@@ -76,8 +76,11 @@ def _wrap_span(comm, funcs) -> None:
     tier). Only the outermost frame of this layer records — rankcomm
     collectives COMPOSE (allreduce = reduce + bcast), and the span must
     describe the application operation, not its internal schedule. The
-    live ``trace.core.active`` gate is re-read per call, so disabling
-    tracing mid-run drops the overhead back to one attribute read."""
+    live gate (``trace.core.active`` or a recording profiler) is re-read
+    per call, so disarming the tracer mid-run drops the overhead back to
+    two attribute reads."""
+    from torch.autograd import profiler as _prof
+
     from ompi_tpu_torch.trace import core as _trace
     cid = comm.cid
 
@@ -85,7 +88,8 @@ def _wrap_span(comm, funcs) -> None:
         event = f"coll_{func}"
 
         def call(*args, **kw):
-            if not _trace.active or getattr(_tls, "trace_depth", 0):
+            if (not (_trace.active or _prof._is_profiler_enabled)
+                    or getattr(_tls, "trace_depth", 0)):
                 return inner(*args, **kw)
             tok = _trace.begin(event, cid=cid)
             _tls.trace_depth = 1

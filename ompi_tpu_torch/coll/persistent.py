@@ -36,7 +36,11 @@ never from the progress engine's idle sweep.
 
 Observability: pvars ``coll_persistent_starts``, ``coll_bucket_flushes``,
 ``coll_bucket_fused_members``, ``coll_bucket_flush_<reason>`` and the
-level ``coll_bucket_occupancy``.
+level ``coll_bucket_occupancy``; spans (``trace/core``, armed by its
+var, ``enable()`` or a recording profiler) ``coll.startall``,
+``coll.bucket_flush`` with its children ``coll.bucket_pack``,
+``coll.fused_allreduce`` and ``coll.bucket_unpack``, and
+``coll.request_wait`` around each wait on a start that blocks.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch.coll import decision
 from ompi_tpu_torch.coll.nbc import NbcModule, ScheduleRequest
@@ -236,7 +241,11 @@ class PersistentCollRequest(Request):
                 # completion state — no inner request
                 y = p._call()
                 self._result = y
-                self._event = event_after(y)
+                ev = event_after(y)
+                if ev is not None and (_trace.active
+                                       or _prof._is_profiler_enabled):
+                    ev = _WaitSpanEvent(ev)
+                self._event = ev
                 self._inner_req = None
             else:
                 self._inner_req = self._persistent_start()
@@ -245,6 +254,40 @@ class PersistentCollRequest(Request):
             # start raising, so a waitall over a plan batch surfaces it
             self.fail(e)
         return self
+
+
+class _WaitSpanEvent:
+    """A direct plan's completion event, started while the tracer is
+    armed: the base wait's ``synchronize`` goes through
+    ``_wait_traced``, so the untraced wait keeps its own frame."""
+
+    __slots__ = ("_ev",)
+
+    def __init__(self, ev):
+        self._ev = ev
+
+    def query(self) -> bool:
+        return self._ev.query()
+
+    def synchronize(self) -> None:
+        if _trace.active or _prof._is_profiler_enabled:
+            _wait_traced(self._ev)
+        else:
+            self._ev.synchronize()
+
+
+def _wait_traced(ev) -> None:
+    """Block on a start's completion event for the armed tracer: a
+    ``coll.request_wait`` span when the wait will block, none when the
+    event has been reached (so the members of one bucket, which share
+    its event, give one span)."""
+    if ev.query():
+        return
+    tok = _trace.begin("coll.request_wait")
+    try:
+        ev.synchronize()
+    finally:
+        _trace.end(tok)
 
 
 def _crosses(comm) -> bool:
@@ -498,8 +541,12 @@ class _BucketMemberReq(Request):
         self._delivered.set()
 
     def _settle(self) -> None:
-        if self._event is not None:
-            self._event.synchronize()
+        ev = self._event
+        if ev is not None:
+            if _trace.active or _prof._is_profiler_enabled:
+                _wait_traced(ev)
+            else:
+                ev.synchronize()
         self._event = None
         self._complete = True
 
@@ -694,9 +741,9 @@ class BucketFuser:
                             cid=getattr(self.comm, "cid", None),
                             reason=reason, members=len(items),
                             nbytes=total)
-               if _trace.active else None)
+               if _trace.active or _prof._is_profiler_enabled else None)
         try:
-            self._launch_fused(items, op)
+            self._launch_fused(items, op, tok is not None)
         except Exception as e:  # noqa: BLE001 — each member raises it
             for req, _pf, _ep, _nb in items:
                 req._fail(e)
@@ -704,7 +751,11 @@ class BucketFuser:
             if tok is not None:
                 _trace.end(tok)
 
-    def _launch_fused(self, items: List[Tuple], op) -> None:
+    def _launch_fused(self, items: List[Tuple], op, traced: bool) -> None:
+        """The fused allreduce of ``items``; on the stacked tier, while
+        ``traced``, its three phases are the flush's child spans
+        (``coll.bucket_pack``, ``coll.fused_allreduce``,
+        ``coll.bucket_unpack``)."""
         if self._per_rank:
             from ompi_tpu_torch.core.rankcomm import RankCommunicator as RC
             flats = [pf() for _req, pf, _ep, _nb in items]
@@ -717,20 +768,35 @@ class BucketFuser:
                 req._deliver(ep(fused[off:off + ln]), None)
                 off += ln
             return
-        parts = [pf() for _req, pf, _ep, _nb in items]     # (L, w_i)
         comm = self.comm
-        fused = comm._local_rows(comm._coll("allreduce").allreduce(
-            comm._as_buffer(parts[0] if len(parts) == 1
-                            else torch.cat(parts, dim=1)), op))
-        outs, off = [], 0
-        for (_req, _pf, ep, _nb), part in zip(items, parts):
-            w = part.shape[1]
-            outs.append(ep(fused if len(parts) == 1
-                           else _own(fused[:, off:off + w])))
-            off += w
-        ev = event_after(outs)              # after the slices' copies
-        for (req, _pf, _ep, _nb), out in zip(items, outs):
-            req._deliver(out, ev)
+        t_pack = _trace.begin("coll.bucket_pack") if traced else None
+        try:
+            parts = [pf() for _req, pf, _ep, _nb in items]     # (L, w_i)
+            flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        finally:
+            if t_pack is not None:
+                _trace.end(t_pack)
+        t_red = _trace.begin("coll.fused_allreduce") if traced else None
+        try:
+            fused = comm._local_rows(comm._coll("allreduce").allreduce(
+                comm._as_buffer(flat), op))
+        finally:
+            if t_red is not None:
+                _trace.end(t_red)
+        t_unpack = _trace.begin("coll.bucket_unpack") if traced else None
+        try:
+            outs, off = [], 0
+            for (_req, _pf, ep, _nb), part in zip(items, parts):
+                w = part.shape[1]
+                outs.append(ep(fused if len(parts) == 1
+                               else _own(fused[:, off:off + w])))
+                off += w
+            ev = event_after(outs)              # after the slices' copies
+            for (req, _pf, _ep, _nb), out in zip(items, outs):
+                req._deliver(out, ev)
+        finally:
+            if t_unpack is not None:
+                _trace.end(t_unpack)
 
 
 def fuser_of(comm) -> BucketFuser:
@@ -760,17 +826,23 @@ def startall(requests) -> Any:
     accumulate) and any remainder flushes once at the startall boundary
     — K bucketable allreduces of b bytes launch ceil(K*b/bucket_bytes)
     fused collectives."""
-    touched: List[BucketFuser] = []
-    for r in requests:
-        r.start()
-        inner = getattr(r, "_inner_req", None)
-        if isinstance(inner, _BucketMemberReq) and not inner._complete:
-            touched.append(inner._fuser)
-    seen: set = set()
-    for f in touched:
-        if id(f) not in seen:
-            seen.add(id(f))
-            f.flush("startall")
+    tok = (_trace.begin("coll.startall")
+           if _trace.active or _prof._is_profiler_enabled else None)
+    try:
+        touched: List[BucketFuser] = []
+        for r in requests:
+            r.start()
+            inner = getattr(r, "_inner_req", None)
+            if isinstance(inner, _BucketMemberReq) and not inner._complete:
+                touched.append(inner._fuser)
+        seen: set = set()
+        for f in touched:
+            if id(f) not in seen:
+                seen.add(id(f))
+                f.flush("startall")
+    finally:
+        if tok is not None:
+            _trace.end(tok)
     return requests
 
 

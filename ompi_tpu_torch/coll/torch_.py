@@ -85,6 +85,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch.coll import decision, tuned
 from ompi_tpu_torch.coll.framework import coll_framework
@@ -93,6 +94,7 @@ from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.core.multictl import Rows
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.mca.base import Component
+from ompi_tpu_torch.trace import core as _trace
 
 # The reference's enumerators (coll/xla.py:1664-1759), per collective:
 # "auto", then the symmetric lowering ("direct", or reduce's and gather's
@@ -406,6 +408,7 @@ class TorchCollModule:
         self.comm = comm
         self._cache: Dict[Tuple, Callable] = _LruCache()
         self._fast: Dict[Tuple, Tuple] = _LruCache()
+        self._builds = 0                 # _entry's memo misses
         self._barrier_tokens: Dict[str, Tuple] = {}
         self._rows_t: Optional[torch.Tensor] = None
         # the comm's rows are fixed when it is built: a multiprocess
@@ -496,12 +499,13 @@ class TorchCollModule:
         predefined op on uint16/32/64 plans the schedule for the signed
         twin and runs it between the twin's ``into`` and ``back`` maps
         (``op.unsigned_route``): every schedule below sees only types
-        torch reduces."""
+        torch reduces. A memo miss counts in ``_builds``."""
         fk = (plan, func, x.shape, x.dtype,
               None if op is None else op.uid, root)
         ep = var.epoch()
         hit = self._fast.get(fk)
         if hit is None or hit[0] != ep:
+            self._builds += 1
             route = op_mod.unsigned_route(x.dtype, op)
             if route is None:
                 alg, fn = getattr(self, plan + func)(x, op, root)
@@ -845,12 +849,11 @@ class TorchCollModule:
         elif alg == "rabenseifner_root" and op.xla_prim == "sum" and n > 1:
             def build():
                 return self._rabenseifner_root_reduce_inner(n, root, shape)
-        elif self._mc:
-            # the alias: every row gets the reduction, root's among them
-            return "alias", self._entry("allreduce", x, op)[1]
         else:
-            # the alias, a demotion, or an unknown name: allreduce
-            return "alias", lambda b: self.allreduce(b, op)
+            # the alias, a demotion, or an unknown name: allreduce's
+            # schedule, bound here (every row gets the reduction, root's
+            # among them)
+            return "alias", self._entry("allreduce", x, op)[1]
         return alg, self._built(("reduce", alg, shape, op.uid, root), build)
 
     # -- bcast schedules --------------------------------------------------
@@ -1224,10 +1227,8 @@ class TorchCollModule:
         n = self.comm.size
         alg = self._algorithm("gather", x.nbytes // n)
         if alg != "binomial" or n == 1:
-            # alias (and unknown names)
-            if self._mc:
-                return "allgather", self._entry("allgather", x)[1]
-            return "allgather", self.allgather
+            # alias (and unknown names): allgather's schedule, bound here
+            return "allgather", self._entry("allgather", x)[1]
         return alg, self._built(
             ("gather", alg, tuple(x.shape[1:]), None, root),
             lambda: self._binomial_gather_inner(n, root))
@@ -1828,11 +1829,29 @@ class TorchCollModule:
             t._coll_serial(lambda: t._dissemination(t._tag()))
 
     # -- collectives ------------------------------------------------------
-    def allreduce(self, x, op):
+    def _call(self, func: str, x, op=None, root: Optional[int] = None):
+        """Select ``func``'s schedule for ``x`` and run it; traced, the
+        run is a ``coll.body`` span (the launches of the schedule), with
+        ``built=True`` where the selection built a schedule."""
         if self._mc:
-            return self._mc_call("allreduce", x, op)
+            return self._mc_call(func, x, op, root)
         x = self._to_dev(x)
-        return self._entry("allreduce", x, op)[1](x)
+        if not (_trace.active or _prof._is_profiler_enabled):
+            return self._entry(func, x, op, root)[1](x)
+        builds = self._builds
+        hit = self._entry(func, x, op, root)
+        args = {"func": func, "algorithm": hit[2], "root": root,
+                "bytes": x.numel() * x.element_size()}
+        if self._builds != builds:
+            args["built"] = True
+        tok = _trace.begin("coll.body", **args)
+        try:
+            return hit[1](x)
+        finally:
+            _trace.end(tok)
+
+    def allreduce(self, x, op):
+        return self._call("allreduce", x, op)
 
     def allreduce_dtype(self, x, op, dt, count: int, preserve_gaps: bool):
         """Derived-datatype allreduce (``coll/xla.py:1266-1310``): gather
@@ -1876,58 +1895,31 @@ class TorchCollModule:
         return lambda buf: fn(self._to_dev(buf))
 
     def reduce(self, x, op, root: int):
-        if self._mc:
-            return self._mc_call("reduce", x, op, root)
-        x = self._to_dev(x)
-        return self._entry("reduce", x, op, root)[1](x)
+        return self._call("reduce", x, op, root)
 
     def bcast(self, x, root: int):
-        if self._mc:
-            return self._mc_call("bcast", x, None, root)
-        x = self._to_dev(x)
-        return self._entry("bcast", x, None, root)[1](x)
+        return self._call("bcast", x, None, root)
 
     def allgather(self, x):
-        if self._mc:
-            return self._mc_call("allgather", x)
-        x = self._to_dev(x)
-        return self._entry("allgather", x)[1](x)
+        return self._call("allgather", x)
 
     def gather(self, x, root: int):
-        if self._mc:
-            return self._mc_call("gather", x, None, root)
-        x = self._to_dev(x)
-        return self._entry("gather", x, None, root)[1](x)
+        return self._call("gather", x, None, root)
 
     def scatter(self, x, root: int):
-        if self._mc:
-            return self._mc_call("scatter", x, None, root)
-        x = self._to_dev(x)
-        return self._entry("scatter", x, None, root)[1](x)
+        return self._call("scatter", x, None, root)
 
     def alltoall(self, x):
-        if self._mc:
-            return self._mc_call("alltoall", x)
-        x = self._to_dev(x)
-        return self._entry("alltoall", x)[1](x)
+        return self._call("alltoall", x)
 
     def reduce_scatter_block(self, x, op):
-        if self._mc:
-            return self._mc_call("reduce_scatter_block", x, op)
-        x = self._to_dev(x)
-        return self._entry("reduce_scatter_block", x, op)[1](x)
+        return self._call("reduce_scatter_block", x, op)
 
     def scan(self, x, op):
-        if self._mc:
-            return self._mc_call("scan", x, op)
-        x = self._to_dev(x)
-        return self._entry("scan", x, op)[1](x)
+        return self._call("scan", x, op)
 
     def exscan(self, x, op):
-        if self._mc:
-            return self._mc_call("exscan", x, op)
-        x = self._to_dev(x)
-        return self._entry("exscan", x, op)[1](x)
+        return self._call("exscan", x, op)
 
     def barrier(self) -> None:
         self._barrier_arrays()

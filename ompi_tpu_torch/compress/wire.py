@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import numpy as np
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch.compress import codecs as _codecs
 from ompi_tpu_torch.compress import feedback as _feedback
@@ -104,7 +105,7 @@ def encode(arr: np.ndarray, stream_key: Any = None) -> CompressedWire:
         key = (stream_key, arr.shape, arr.dtype.name)
         arr = _feedback.default.compensate(key, arr)
     tok = (_trace.begin(_stats.EV_QUANT, nbytes=int(arr.nbytes))
-           if _trace.active else None)
+           if _trace.active or _prof._is_profiler_enabled else None)
     try:
         codes, scales = codec.encode(arr, block)
     finally:
@@ -134,7 +135,7 @@ def decode(w: CompressedWire) -> np.ndarray:
     codec = _codecs.get_codec(w.codec)
     tok = (_trace.begin(_stats.EV_DEQUANT,
                         nbytes=int(getattr(w.codes, "nbytes", 0)))
-           if _trace.active else None)
+           if _trace.active or _prof._is_profiler_enabled else None)
     try:
         out = codec.decode(w.codes, w.scales, w.shape, np.dtype(w.dtype),
                            w.block)

@@ -39,6 +39,8 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
+from torch.autograd import profiler as _prof
+
 from ompi_tpu_torch.mca import var as _var
 from ompi_tpu_torch.trace import core as _trace
 
@@ -199,7 +201,8 @@ class Detector:
             else:
                 self._misses += 1
                 self.stats["suspects"] = 1
-                if self._misses == 1 and _trace.active:
+                if self._misses == 1 and (
+                        _trace.active or _prof._is_profiler_enabled):
                     self._suspect_tok = _trace.begin(
                         "ft.suspect", rank=pred, by=self.rank)
                 if self._misses >= self.miss:
@@ -211,7 +214,7 @@ class Detector:
         if end_tok is not None:
             _trace.end(end_tok, declared=declared is not None)
         if declared is not None:
-            if _trace.active:
+            if _trace.active or _prof._is_profiler_enabled:
                 _trace.instant("ft.declare", rank=declared,
                                by=self.rank)
             self._reg.fail_rank(declared, "heartbeat timeout")

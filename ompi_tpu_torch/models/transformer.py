@@ -50,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch.core import op as _op
 from ompi_tpu_torch.core.request import startall
@@ -59,6 +60,7 @@ from ompi_tpu_torch.parallel import moe as _moe
 from ompi_tpu_torch.parallel.mesh import tree_leaves, tree_map
 from ompi_tpu_torch.parallel.pipeline import pipeline_apply
 from ompi_tpu_torch.parallel.ring_attention import ring_attention
+from ompi_tpu_torch.trace import core as _trace
 
 
 @dataclass(frozen=True)
@@ -389,7 +391,11 @@ class BucketedGradSync:
     package's way), a tensor leaf on the rank's device. The JAX package
     stages every leaf through host numpy buffers; on the card that would
     be a D2H and an H2D copy per leaf per step, so the port stages tensors
-    on the device and returns tensors on the comm's device."""
+    on the device and returns tensors on the comm's device.
+
+    Traced (``trace/core``: its var, ``enable()`` or a recording
+    profiler), a call is a ``ddp.sync`` span over ``ddp.copy_in``,
+    ``coll.startall`` and ``ddp.finish`` (the waits and the means)."""
 
     def __init__(self, comm, grads_example):
         leaves = tree_leaves(grads_example)
@@ -412,6 +418,7 @@ class BucketedGradSync:
         self.n = comm.size
         self._stages = [self._zeros(shape, dtype)
                         for shape, dtype in self._local]
+        self._nbytes = sum(int(s.nbytes) for s in self._stages)
         self._reqs = [comm.allreduce_init(s, _op.SUM) for s in self._stages]
         self._scalar_req = None          # lazily rebuilt on the comm
 
@@ -427,13 +434,31 @@ class BucketedGradSync:
 
     def __call__(self, grads):
         leaves = tree_leaves(grads)
+        if _trace.active or _prof._is_profiler_enabled:
+            return self._traced_call(grads, leaves)
+        self._copy_in(leaves)
+        startall(self._reqs)
+        return self._finish(grads)
+
+    def _traced_call(self, grads, leaves):
+        with _trace.span("ddp.sync", leaves=len(leaves),
+                         bytes=self._nbytes):
+            with _trace.span("ddp.copy_in"):
+                self._copy_in(leaves)
+            startall(self._reqs)
+            with _trace.span("ddp.finish"):
+                return self._finish(grads)
+
+    def _copy_in(self, leaves) -> None:
         with torch.no_grad():
             for stage, g in zip(self._stages, leaves):
                 if isinstance(stage, np.ndarray):
                     np.copyto(stage, np.asarray(g))
                 else:
                     stage.copy_(torch.as_tensor(g))
-        startall(self._reqs)
+
+    def _finish(self, grads):
+        """Each leaf's mean, in the tree of ``grads``."""
         out = iter([r.get() / self.n for r in self._reqs])
         return tree_map(lambda _: next(out), grads)
 

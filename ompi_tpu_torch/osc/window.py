@@ -37,6 +37,7 @@ from typing import Any, Optional, Set
 import numpy as np
 
 import torch
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.core.datatype import numpy_dtype
@@ -179,7 +180,7 @@ class RmaWindow:
                       thunk):
         tok = (_trace.begin(f"osc.{kind}", target=target,
                             bytes=nbytes)
-               if _trace.active else None)
+               if _trace.active or _prof._is_profiler_enabled else None)
         t0 = _time.perf_counter() if _tele.active else 0.0
         ok = False
         try:
@@ -323,7 +324,7 @@ class RmaWindow:
     def _epoch_span(self, phase: str, thunk):
         tok = (_trace.begin("osc.epoch", phase=phase,
                             win=self.name)
-               if _trace.active else None)
+               if _trace.active or _prof._is_profiler_enabled else None)
         ok = False
         try:
             out = thunk()

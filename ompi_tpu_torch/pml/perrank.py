@@ -46,6 +46,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch import telemetry as _tele
 from ompi_tpu_torch.btl import shmseg as _shmseg
@@ -659,7 +660,7 @@ class PerRankEngine:
         # tracing gate: one attribute read when off (the hooks event name
         # "pml_send"); the cid rides in args, so pt2pt spans stay out of
         # the collective sequence space the attribution groups on
-        if _trace.active:
+        if _trace.active or _prof._is_profiler_enabled:
             tok = _trace.begin("pml_send", cid=None,
                                cc=str(self.comm.cid), dest=dest, tag=tag)
             try:
@@ -735,7 +736,7 @@ class PerRankEngine:
         return self._send_small_traced(data, dests, tag)
 
     def _send_small_traced(self, data: Any, dests, tag: int) -> None:
-        if _trace.active:
+        if _trace.active or _prof._is_profiler_enabled:
             tok = _trace.begin("pml_send", cid=None,
                                cc=str(self.comm.cid), tag=tag,
                                ndest=(len(dests)
@@ -906,7 +907,7 @@ class PerRankEngine:
                      ) -> Tuple[Any, Status]:
         # the span covers post-to-completion: its duration is the time a
         # late sender costs this rank
-        if _trace.active:
+        if _trace.active or _prof._is_profiler_enabled:
             tok = _trace.begin("pml_recv", cid=None,
                                cc=str(self.comm.cid), src=source, tag=tag)
             try:

@@ -40,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _prof
 
 from ompi_tpu_torch import accelerator
 from ompi_tpu_torch import telemetry as _tele
@@ -424,7 +425,7 @@ def maybe_send_pipelined(engine, data: Any, dest: int, tag: int,
             raise MPIError(ERR_PENDING, "pipelined send window never "
                                         "drained")
         tok = (_trace.begin("pml.segment", idx=i, pipe=uid, dest=dest)
-               if _trace.active else None)
+               if _trace.active or _prof._is_profiler_enabled else None)
         t0 = time.perf_counter()
         nraw = 0
         try:

@@ -21,6 +21,8 @@ from __future__ import annotations
 import threading
 from typing import Callable, List
 
+from torch.autograd import profiler as _prof
+
 from ompi_tpu_torch.trace import core as _trace
 
 _callbacks: List[Callable[[], int]] = []
@@ -120,9 +122,10 @@ def wake_end() -> None:
         _wake_stats["completions"] += completions
         _wake_stats["frames"] += frames
         _wake_stats["batches"] += 1
-    # a timeline marker per flushed batch; one attribute read when
-    # tracing is off
-    if (events or frames) and _trace.active:
+    # a timeline marker per flushed batch; two attribute reads when the
+    # tracer is disarmed
+    if (events or frames) and (_trace.active
+                               or _prof._is_profiler_enabled):
         _trace.instant("pml_wakeup_flush", wakeups=len(events),
                        completions=completions, frames=frames)
 

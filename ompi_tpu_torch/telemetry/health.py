@@ -45,6 +45,8 @@ import time
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional
 
+from torch.autograd import profiler as _prof
+
 from ompi_tpu_torch.mca import var as _var
 from ompi_tpu_torch.trace import core as _trace
 
@@ -178,7 +180,7 @@ class HealthMonitor:
         info = {"rank": peer, "by": self.rank, "score": score,
                 "threshold": self.threshold}
         _hooks.fire(event, None, info)
-        if _trace.active:
+        if _trace.active or _prof._is_profiler_enabled:
             _trace.instant(event, rank=peer, by=self.rank, score=score)
         if event == "telemetry.straggler":
             from ompi_tpu_torch.telemetry import flightrec as _flightrec

@@ -14,9 +14,19 @@ A span on a CUDA path ends when the call returns: at enqueue on the
 single-controller tier, after the host fences on the per-rank device
 tier. No instrumentation point synchronizes the card.
 
-Hot-path contract: everything is gated on ``core.active`` (one module
-attribute read when off — no span allocation, no locking beyond the
-existing SPC path).
+Armed by the MCA var ``mpi_base_trace_enable``, by ``enable()``, or by
+a recording ``torch.profiler`` session, for its length; while a
+profiler records, every span is mirrored as a profiler range of its
+name, on the profiler's clock beside the device operations. The spans
+inside the data-parallel sync and the device collectives (``ddp.*``,
+``coll.startall``, ``coll.bucket_*``, ``coll.fused_allreduce``,
+``coll.request_wait``, ``coll.body``) are recorded
+whichever way it is armed.
+
+Hot-path contract: every point is gated on ``core.active or
+torch.autograd.profiler._is_profiler_enabled`` (two module-attribute
+reads when both are off: no span allocation, no range, no locking
+beyond the existing SPC path).
 """
 from ompi_tpu_torch.trace import attribution, perfetto    # noqa: F401
 from ompi_tpu_torch.trace.core import (                    # noqa: F401
@@ -25,9 +35,3 @@ from ompi_tpu_torch.trace.core import (                    # noqa: F401
     span_dicts, spans, stats, tracing_enabled, wrap_coll_vtable,
 )
 from ompi_tpu_torch.trace.ring import Span, SpanRing      # noqa: F401
-
-
-def is_active() -> bool:
-    """Live gate (hot paths read ``trace.core.active`` directly)."""
-    from ompi_tpu_torch.trace import core
-    return core.active

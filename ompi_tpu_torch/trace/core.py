@@ -1,24 +1,36 @@
-"""The tracer — per-rank span recording behind one MCA switch (the port
-of ``ompi_tpu/trace/core.py``).
+"""The tracer — per-rank span recording (the port of
+``ompi_tpu/trace/core.py``).
 
 Design contract:
 
-- **Off by default, free when off.** Every instrumentation point guards
-  on the module-level ``active`` flag — one attribute read, no span
-  allocation, no locking beyond the pre-existing SPC path. Enable with
-  the MCA var ``mpi_base_trace_enable`` (env
-  ``OMPI_TPU_TORCH_MCA_mpi_base_trace_enable=1``) or ``trace.enable()``.
+- **Armed three ways, free when off.** The tracer records while the
+  MCA var ``mpi_base_trace_enable`` is on (env
+  ``OMPI_TPU_TORCH_MCA_mpi_base_trace_enable=1``), after
+  ``trace.enable()``, or while a ``torch.profiler`` session records
+  (torch's module attribute
+  ``torch.autograd.profiler._is_profiler_enabled``, set for the length
+  of a session, the gate of DDP's and c10d's ``record_function``
+  ranges). Every instrumentation point guards on ``_trace.active or
+  _prof._is_profiler_enabled``: two module-attribute reads, and no
+  call, no span allocation and no range when both are off.
+- **Mirrored as profiler ranges while one records.** ``begin`` also
+  opens a profiler range of the span's name (``_Range``) and ``end``
+  closes it, so the spans sit in the profiler's timeline on its clock,
+  each kernel launch correlated with its innermost span, and
+  ``export_chrome_trace`` shows both. Instants open no range.
 - **Bounded when on.** Spans land in a fixed-capacity
   :class:`~ompi_tpu_torch.trace.ring.SpanRing`
-  (``mpi_base_trace_buffer_spans``); overflow drops-and-counts, never
+  (``mpi_base_trace_buffer_spans``), made with the first span where
+  ``enable()`` has not made it; overflow drops-and-counts, never
   blocks.
 - **One event namespace.** Span names reuse the ``utils/hooks`` event
   names (``coll_allreduce``, ``pml_send``, ...), so the PERUSE/MPI_T
   event stream and the trace describe the same operations.
-- **One timebase.** Timestamps are ``time.perf_counter()`` — exactly
-  ``CLOCK_MONOTONIC``, which every process of one host shares, so
-  per-rank dumps from one host align with zero offsets, and dumps from
-  different hosts by subtracting a measured offset.
+- **One timebase.** Ring timestamps are ``time.perf_counter()`` —
+  exactly ``CLOCK_MONOTONIC``, which every process of one host shares,
+  so per-rank dumps from one host align with zero offsets, and dumps
+  from different hosts by subtracting a measured offset. The mirrored
+  ranges carry the profiler's own stamps.
 
 Counters ride the MPI_T pvar plumbing: ``trace_spans`` (accepted),
 ``trace_dropped`` (ring-full refusals); the attribution layer adds
@@ -32,16 +44,25 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import torch
+from torch.autograd import profiler as _prof
+
 from ompi_tpu_torch.mca import pvar as _pvar
 from ompi_tpu_torch.mca import var as _var
 from ompi_tpu_torch.trace.ring import Span, SpanRing
 
 DEFAULT_CAPACITY = 65536
 
-# THE hot-path gate: instrumentation points read this module attribute
-# and do nothing else when tracing is off. Rebound (never mutated in
-# place) by enable()/disable(), so readers need no lock.
+# THE hot-path gate, with torch's ``_prof._is_profiler_enabled``:
+# instrumentation points read the two module attributes and do nothing
+# else when both are off. Rebound (never mutated in place) by
+# enable()/disable(), so readers need no lock.
 active: bool = False
+
+# The profiler range a span opens while a profiler records: one C++
+# RecordFunction behind a Python object, without the op dispatch that
+# ``torch.profiler.record_function`` makes on enter and on exit.
+_Range = torch._C._profiler._RecordFunctionFast
 
 _ring: Optional[SpanRing] = None
 _ring_lock = threading.Lock()
@@ -79,19 +100,28 @@ def enable(capacity: Optional[int] = None) -> None:
     """Turn tracing on (idempotent): sets the MCA var and arms the
     ring. Call BEFORE ``MPI.Init`` for collective-entry spans — the
     coll composer wraps vtables at communicator construction."""
-    global active, _ring
+    global active
     _register_vars()
     try:
         _var.var_set("mpi_base_trace_enable", True)
     except KeyError:                     # var store reset mid-session
         pass
+    _arm_ring(capacity)
+    active = True
+
+
+def _arm_ring(capacity: Optional[int] = None) -> SpanRing:
+    """The ring, made anew at ``capacity`` (or the var's) when there is
+    none or a capacity is given."""
+    global _ring
     with _ring_lock:
         if _ring is None or capacity is not None:
+            _register_vars()
             cap = capacity if capacity is not None else int(
                 _var.var_get("mpi_base_trace_buffer_spans",
                              DEFAULT_CAPACITY))
             _ring = SpanRing(cap)
-    active = True
+        return _ring
 
 
 def disable() -> None:
@@ -137,34 +167,41 @@ def _next_seq(cid: str, name: str) -> int:
 # -- recording --------------------------------------------------------------
 def begin(name: str, cid: Any = None, rank: Optional[int] = None,
           **args) -> tuple:
-    """Open a span; returns the token ``end`` consumes. Callers guard
-    with ``if trace.active:`` — this function assumes tracing is on."""
+    """Open a span, and its profiler range while a profiler records;
+    returns the token ``end`` consumes. Callers guard with ``if
+    _trace.active or _prof._is_profiler_enabled:`` — this function
+    assumes the tracer is armed."""
+    rng = None
+    if _prof._is_profiler_enabled:
+        rng = _Range(name)
+        rng.__enter__()
     scid = None if cid is None else str(cid)
     seq = None if scid is None else _next_seq(scid, name)
     return (name, time.perf_counter(),
             _process_rank if rank is None else rank,
-            scid, seq, args or None)
+            scid, seq, args or None, rng)
 
 
 def end(token: tuple, **extra) -> None:
-    ring = _ring
-    if ring is None or token is None:
+    if token is None:
         return
-    name, t0, rank, cid, seq, args = token
+    name, t0, rank, cid, seq, args, rng = token
     dur = time.perf_counter() - t0
+    if rng is not None:
+        rng.__exit__(None, None, None)
     if extra:
         args = dict(args) if args else {}
         args.update(extra)
+    ring = _ring if _ring is not None else _arm_ring()
     ring.push(Span(name, t0, dur, threading.get_ident(), rank, cid,
                    seq, "span", args))
 
 
 def instant(name: str, cid: Any = None, rank: Optional[int] = None,
             **args) -> None:
-    """A zero-duration event (wakeup flushes, ctl flushes, sm drains)."""
-    ring = _ring
-    if ring is None:
-        return
+    """A zero-duration event (wakeup flushes, ctl flushes, sm drains);
+    it opens no profiler range."""
+    ring = _ring if _ring is not None else _arm_ring()
     ring.push(Span(name, time.perf_counter(), 0.0,
                    threading.get_ident(),
                    _process_rank if rank is None else rank,
@@ -173,7 +210,8 @@ def instant(name: str, cid: Any = None, rank: Optional[int] = None,
 
 
 class span:
-    """Context-manager form, for non-hot-path call sites."""
+    """Context-manager form, for call sites where a call and an
+    allocation per use, armed or not, cost nothing that matters."""
 
     __slots__ = ("_name", "_cid", "_args", "_tok")
 
@@ -184,7 +222,7 @@ class span:
         self._tok = None
 
     def __enter__(self):
-        if active:
+        if active or _prof._is_profiler_enabled:
             self._tok = begin(self._name, cid=self._cid, **self._args)
         return self
 
@@ -248,7 +286,11 @@ class _TracedSlot:
     """Wraps ONE selected coll slot: the slot's own function records a
     ``coll_<func>`` span; every other attribute (``allreduce_dtype``,
     ``_ibarrier_arrays``, ...) delegates to the real winner so fused
-    fast paths keep working under tracing."""
+    fast paths keep working under tracing. The shims exist only on a
+    communicator built while the MCA var was on (an operator's
+    ``--mca mpi_base_trace_enable 1`` before ``Init``); a profiler
+    session alone sees the span inside the collectives instead
+    (``coll.body``)."""
 
     def __init__(self, cid: Any, func: str, inner: Any):
         self._inner = inner
@@ -256,7 +298,7 @@ class _TracedSlot:
         event = f"coll_{func}"
 
         def call(*a, **kw):
-            if not active:               # tracing turned off after wrap
+            if not (active or _prof._is_profiler_enabled):   # disarmed
                 return target(*a, **kw)
             tok = begin(event, cid=cid)
             try:
@@ -271,10 +313,11 @@ class _TracedSlot:
 
 
 def wrap_coll_vtable(comm, vtable: Dict[str, Any]) -> Dict[str, Any]:
-    """Called by the selection composer (coll/framework) when tracing
-    is enabled: each selected slot is served through a span-recording
-    shim that delegates to that slot's winner (monitoring's wrap runs
-    beneath, so spans measure the app-visible call)."""
+    """Called by the selection composer (coll/framework) when the MCA
+    var is on at the communicator's construction: each selected slot
+    is served through a span-recording shim that delegates to that
+    slot's winner (monitoring's wrap runs beneath, so spans measure the
+    app-visible call)."""
     cid = getattr(comm, "cid", None)
     return {f: _TracedSlot(cid, f, m) for f, m in vtable.items()}
 

@@ -240,7 +240,7 @@ from ompi_tpu_torch import trace
 from ompi_tpu_torch.mca import var
 out_dir = sys.argv[1]
 MPI.Init()
-assert trace.is_active()
+assert trace.core.active
 w = MPI.get_comm_world()
 r, n = w.rank(), w.size
 assert w._coll_interposers == ["trace"], w._coll_interposers

@@ -393,10 +393,12 @@ def test_live_stacked_collectives_are_traced(pworld, world):
                 np.asarray(rc.allreduce(x)), untraced.numpy(), rtol=1e-6)
         rc.barrier()
         # xla_compile spans time the reference's per-collective XLA
-        # compile, which the port has no counterpart of
+        # compile, which the port has no counterpart of; the port's
+        # coll.body spans inside coll/torch_ have none in the reference
         rnames = [(s.name, s.seq) for s in r_core.spans()
                   if s.name != "xla_compile"]
-        assert [(s.name, s.seq) for s in spans] == rnames
+        assert [(s.name, s.seq) for s in spans
+                if s.name != "coll.body"] == rnames
         rc.free()
     finally:
         r_core.disable()
