@@ -454,6 +454,17 @@ Phases, one or more lines each:
                 flash-fold launches; the phase aimed under 60 s, the job
                 limit 90 s. ``python3 chip_smoke.py --multihost`` runs
                 phases 1 and 22 alone.
+23. bucketfold — right after phase 3: the bucket fold
+                (``ops/bucket_fold``, ``csrc/bucket_fold.cu``) on a bucket
+                of the DDP cell (GPT-2 medium's gradients at DDP's 25 MiB
+                cap: 10 members, 32 MiB a rank, 8 rank rows, each member
+                a tensor of its own): bit for bit against the plain fold;
+                device ms (CUDA events, median of 30) of the kernel, of the
+                plain fold and of the flush's old pack, direct allreduce
+                and unpack on the same members; the bound (``fold_bytes``
+                at 3.35 TB/s) and the kernel's bytes per second as a share
+                of it. ``python3 chip_smoke.py --bucketfold`` runs phases
+                1, 2 and 23 alone.
 
 Then a JSON line with one record per kernel, the ``nvidia-smi`` line, and
 as the last line ``{"ok": true, "device": {...}}``. Any failure raises:
@@ -489,6 +500,7 @@ from ompi_tpu_torch.entry import CONFIG, entry
 from ompi_tpu_torch.models import transformer as T
 from ompi_tpu_torch.ops import _build
 from ompi_tpu_torch.mca import pvar, var
+from ompi_tpu_torch.ops import bucket_fold as BF
 from ompi_tpu_torch.ops import flash_attention as FA
 from ompi_tpu_torch.parallel import InGraphComm, Mesh, P
 from ompi_tpu_torch.parallel.mesh import tree_leaves, tree_map
@@ -783,6 +795,67 @@ def phase_kernels() -> tuple:
     check(covered == want, f"instantiations checked {sorted(covered)}, "
           f"want {sorted(want)}")
     return out, checked
+
+
+# -- phase 23 ----------------------------------------------------------
+# a bucket of the DDP cell: GPT-2 medium's gradients in DDP's reverse
+# order at its 25 MiB cap (layer 23's attention, then layer 22's
+# LayerNorms and MLP), per-rank widths
+FOLD_BUCKET = [1024, 1024, 1024, 1024 * 1024, 3072, 1024 * 3072, 1024, 1024,
+               1024, 1024 * 4096]
+
+
+def _flush_before(parts):
+    """The flush as it ran before the fold: pack, the direct allreduce
+    (sum over the rank rows, expanded to every row), unpack."""
+    flat = torch.cat(parts, dim=1)
+    red = torch.sum(flat, dim=0, dtype=flat.dtype).expand(flat.shape)
+    fused = red.contiguous()
+    outs, off = [], 0
+    for p in parts:
+        outs.append(fused[:, off:off + p.shape[1]].contiguous())
+        off += p.shape[1]
+    return outs
+
+
+def phase_bucketfold() -> dict:
+    """The fold against the plain fold, bit for bit (both sum the rows in
+    rank order in float32), and its device time beside its bound."""
+    n = N_RANKS
+    g = torch.Generator(device="cuda").manual_seed(23)
+    parts = [torch.randn((n, w), device="cuda", generator=g)
+             for w in FOLD_BUCKET]
+    table = BF.Table(parts, "sum")
+    out = torch.empty(n * table.total, device="cuda")
+    before = BF.launches
+    BF.fold(parts, table, out)
+    want = BF.fold_plain(parts, "sum", torch.empty_like(out))
+    torch.cuda.synchronize()
+    check(BF.launches == before + 1, "the fold did not launch its kernel")
+    check(torch.equal(out, want), f"bucket_fold differs from the plain "
+          f"fold: max abs {(out - want).abs().max().item():.3g}")
+    old = torch.cat(_flush_before(parts), dim=1).reshape(-1)
+    ref = torch.cat([v.reshape(n, -1) for v in table.views(out)], dim=1)
+    diff = (ref.reshape(-1) - old).abs().max().item()
+    check(diff <= 1e-4, f"bucket_fold against the old flush: {diff:.3g}")
+    nbytes = BF.fold_bytes(n, table.total, 4)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ms = device_ms(lambda: BF.fold(parts, table, out))
+    plain_ms = device_ms(lambda: BF.fold_plain(parts, "sum", want))
+    old_ms = device_ms(lambda: _flush_before(parts))
+    rec = {"name": "bucket_fold", "members": len(parts), "rows": n,
+           "bytes_per_rank": 4 * table.total, "bytes": nbytes, "ms": ms,
+           "plain_ms": plain_ms, "before_ms": old_ms, "bound_ms": bound_ms,
+           "hbm_share": bound_ms / ms, "max_abs_err": 0.0,
+           "against_before": diff}
+    phase("bucketfold", f"bucket_fold ({len(parts)} members, "
+          f"{4 * table.total} B a rank, {n} rows, {table.blocks} blocks): "
+          f"bit for bit against the plain fold; |fold - old flush| "
+          f"{diff:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, old "
+          f"pack + direct allreduce + unpack {old_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({nbytes} B at 3.35 TB/s); "
+          f"{nbytes / ms / 1e6:.1f} GB/s, {bound_ms / ms:.1%} of HBM")
+    return rec
 
 
 # -- phase 4 -----------------------------------------------------------
@@ -8377,6 +8450,16 @@ def main() -> int:
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
+    if "--bucketfold" in sys.argv:
+        smi, kind = phase_device()
+        phase_build()
+        rec = phase_bucketfold()
+        print(json.dumps({"kernels": [rec]}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--perrank" in sys.argv:
         smi, _ = phase_device()
         phase_perrank(smi)
@@ -8393,6 +8476,7 @@ def main() -> int:
     smi, kind = phase_device()
     phase_build()
     kern, checked = phase_kernels()
+    bucket_rec = phase_bucketfold()
     MPI.Init(devices=[torch.device("cuda", 0)] * N_RANKS)
     world = MPI.get_comm_world()
     phase_collectives(world)
@@ -8440,7 +8524,7 @@ def main() -> int:
                                 "bound_by", "library_ms")},
         "shapes": list(kern.values()),
         "checks": checked,
-    }]}
+    }, bucket_rec]}
     phase("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(record))
     print(smi)

@@ -18,9 +18,11 @@ persistent-collective family (``MPI_Allreduce_init`` …):
    progress engine spins with the bucket idle. Off by default: with
    ``mpi_base_bucket`` off every result is the unfused path's.
 
-Every result is a materialized tensor, never a view that a later flush
-or start could write. A start's completion is the CUDA event recorded
-after its launch (``core/request``).
+No later flush or start writes a result: an unfused start's result is a
+tensor of its own, and so is a fused member's, except where its flush
+took the fold (``BucketFuser``), which makes each member's result a view
+of that flush's own output. A start's completion is the CUDA event
+recorded after its launch (``core/request``).
 
 On the per-rank tier (``_perrank_plan``) an allreduce plan binds its
 route at init, as the reference's does: ``staged_device`` (a numpy
@@ -35,8 +37,9 @@ only at program points every rank reaches alike (bytes, Startall, wait),
 never from the progress engine's idle sweep.
 
 Observability: pvars ``coll_persistent_starts``, ``coll_bucket_flushes``,
-``coll_bucket_fused_members``, ``coll_bucket_flush_<reason>`` and the
-level ``coll_bucket_occupancy``; spans (``trace/core``, armed by its
+``coll_bucket_fused_members``, ``coll_bucket_flush_<reason>``,
+``coll_bucket_folds``, ``coll_bucket_fold_tables`` and the level
+``coll_bucket_occupancy``; spans (``trace/core``, armed by its
 var, ``enable()`` or a recording profiler) ``coll.startall``,
 ``coll.bucket_flush`` with its children ``coll.bucket_pack``,
 ``coll.fused_allreduce`` and ``coll.bucket_unpack``, and
@@ -47,6 +50,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import weakref
+from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -61,6 +65,7 @@ from ompi_tpu_torch.core.datatype import torch_dtype
 from ompi_tpu_torch.core.errhandler import MPIError
 from ompi_tpu_torch.core.request import Request, event_after
 from ompi_tpu_torch.mca import pvar, var
+from ompi_tpu_torch.ops import bucket_fold
 from ompi_tpu_torch.runtime import progress as prog
 from ompi_tpu_torch.runtime import spc
 from ompi_tpu_torch.trace import core as _trace
@@ -73,6 +78,8 @@ PERSISTENT_FUNCS = ("allreduce", "bcast", "allgather",
 FUSED_FUNCS = ("allreduce",)
 
 DEFAULT_BUCKET_BYTES = 1 << 20
+# fold tables a fuser keeps (one per bucket shape and member addresses)
+FOLD_TABLES_MAX = 64
 
 
 # -- config (MCA vars) ------------------------------------------------------
@@ -108,7 +115,8 @@ def bucket_bytes() -> int:
 _COUNTERS = ("coll_persistent_starts", "coll_bucket_flushes",
              "coll_bucket_fused_members", "coll_bucket_flush_bytes",
              "coll_bucket_flush_startall", "coll_bucket_flush_idle",
-             "coll_bucket_flush_explicit")
+             "coll_bucket_flush_explicit", "coll_bucket_folds",
+             "coll_bucket_fold_tables")
 _counts: Dict[str, int] = dict.fromkeys(_COUNTERS, 0)
 _live_fusers: "weakref.WeakSet[BucketFuser]" = weakref.WeakSet()
 
@@ -143,6 +151,13 @@ def _register_pvars() -> None:
         pvar.pvar_register(f"coll_bucket_flush_{reason}",
                            reader(f"coll_bucket_flush_{reason}"),
                            help=f"Bucket flushes triggered by: {reason}")
+    pvar.pvar_register("coll_bucket_folds", reader("coll_bucket_folds"),
+                       help="Bucket flushes whose fused allreduce ran as "
+                            "one bucket fold (ops/bucket_fold)")
+    pvar.pvar_register("coll_bucket_fold_tables",
+                       reader("coll_bucket_fold_tables"),
+                       help="Bucket fold tables built (one per bucket "
+                            "shape and member addresses)")
     pvar.pvar_register("coll_bucket_occupancy", _occupancy_bytes,
                        unit="bytes", var_class=pvar.CLASS_LEVEL,
                        help="Bytes currently pending in unflushed "
@@ -342,8 +357,15 @@ def _bucket_spec(comm, data, op) -> Optional[Tuple]:
         return ((op.uid, str(dt)), payload, epilogue,
                 int(data.nbytes) // max(n, 1))
 
-    def payload():
-        return torch.as_tensor(data, device=dev).reshape(n, -1)
+    if (isinstance(data, torch.Tensor) and data.device == dev
+            and data.is_contiguous()):
+        rows = data.view(n, -1)          # a view: read when it flushes
+
+        def payload():
+            return rows
+    else:
+        def payload():
+            return torch.as_tensor(data, device=dev).reshape(n, -1)
 
     def epilogue(flat):
         return flat.reshape(shape)
@@ -583,6 +605,20 @@ def _own(x):
     return np.ascontiguousarray(x)
 
 
+def _rows_signature(parts, n: int, dev) -> Optional[Tuple]:
+    """``((data_ptr, w), ...)`` of the parts where every part is a
+    contiguous ``(n, w)`` tensor of one dtype on ``dev``, else None."""
+    dt = parts[0].dtype
+    sig = []
+    for p in parts:
+        if not (isinstance(p, torch.Tensor) and p.ndim == 2
+                and p.shape[0] == n and p.dtype == dt and p.device == dev
+                and p.is_contiguous()):
+            return None
+        sig.append((p.data_ptr(), p.shape[1]))
+    return tuple(sig)
+
+
 class BucketFuser:
     """Per-communicator small-collective fuser (DDP-style gradient
     bucketing): members on the same (op, dtype) key accumulate until a
@@ -604,7 +640,19 @@ class BucketFuser:
     every controller holds (one MIN round of the tier), so the fused
     allreduces meet alike whatever each controller's release points,
     and every member is fused before the comm's next crossing runs.
-    These flushes count as ``idle``."""
+    These flushes count as ``idle``.
+
+    On a stacked comm whose rows all sit in this process, a flush takes
+    the bucket fold (``ops/bucket_fold``) where the fused allreduce would
+    run ``direct`` in ``coll/torch_`` on a predefined SUM, MAX or MIN of a
+    float dtype the fold takes, with every member a contiguous ``(n,
+    w_i)`` tensor on the comm's device: one pass reads every member's
+    rows in place and writes each result once into every rank's row of
+    one output per flush, so a member's result (persistent start,
+    one-shot ``iallreduce``, the C ABI's ``pcoll_startall``) is a view
+    of that output and not a tensor of its own. The fold's table is
+    built once per bucket shape and member addresses and kept here.
+    Every other flush packs, runs the selected allreduce and unpacks."""
 
     def __init__(self, comm):
         self.comm = comm
@@ -625,6 +673,9 @@ class BucketFuser:
         # waits on the comm's tier (a member's ``_seq`` is its ordinal)
         self._seq = 0
         self._held = False
+        # fold tables by (member addresses and widths, dtype, op, rows),
+        # each beside the var epoch at which the fold was last chosen
+        self._tables: "OrderedDict[Tuple, Tuple]" = OrderedDict()
         _live_fusers.add(self)
 
     def pending_bytes(self) -> int:
@@ -754,8 +805,11 @@ class BucketFuser:
     def _launch_fused(self, items: List[Tuple], op, traced: bool) -> None:
         """The fused allreduce of ``items``; on the stacked tier, while
         ``traced``, its three phases are the flush's child spans
-        (``coll.bucket_pack``, ``coll.fused_allreduce``,
-        ``coll.bucket_unpack``)."""
+        (``coll.bucket_pack``: the members' parts, and the fold's table
+        and output where it takes the fold, else their concatenation;
+        ``coll.fused_allreduce``: the fold's launch, or the selected
+        allreduce; ``coll.bucket_unpack``: the members' results, the
+        flush's event and the deliveries)."""
         if self._per_rank:
             from ompi_tpu_torch.core.rankcomm import RankCommunicator as RC
             flats = [pf() for _req, pf, _ep, _nb in items]
@@ -772,31 +826,79 @@ class BucketFuser:
         t_pack = _trace.begin("coll.bucket_pack") if traced else None
         try:
             parts = [pf() for _req, pf, _ep, _nb in items]     # (L, w_i)
-            flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+            mod = comm._coll("allreduce")
+            fold = self._fold_of(mod, parts, op) if self._sweep else None
+            if fold is None:
+                flat = (parts[0] if len(parts) == 1
+                        else torch.cat(parts, dim=1))
         finally:
             if t_pack is not None:
                 _trace.end(t_pack)
         t_red = _trace.begin("coll.fused_allreduce") if traced else None
         try:
-            fused = comm._local_rows(comm._coll("allreduce").allreduce(
-                comm._as_buffer(flat), op))
+            if fold is None:
+                fused = comm._local_rows(mod.allreduce(comm._as_buffer(flat),
+                                                       op))
+            else:
+                mod.allreduce_members(parts, *fold)
+                _count("coll_bucket_folds")
         finally:
             if t_red is not None:
                 _trace.end(t_red)
         t_unpack = _trace.begin("coll.bucket_unpack") if traced else None
         try:
-            outs, off = [], 0
-            for (_req, _pf, ep, _nb), part in zip(items, parts):
-                w = part.shape[1]
-                outs.append(ep(fused if len(parts) == 1
-                               else _own(fused[:, off:off + w])))
-                off += w
-            ev = event_after(outs)              # after the slices' copies
-            for (req, _pf, _ep, _nb), out in zip(items, outs):
-                req._deliver(out, ev)
+            if fold is not None:
+                table, out = fold
+                outs = [ep(v) for (_req, _pf, ep, _nb), v
+                        in zip(items, table.views(out))]
+            else:
+                outs, off = [], 0
+                for (_req, _pf, ep, _nb), part in zip(items, parts):
+                    w = part.shape[1]
+                    outs.append(ep(fused if len(parts) == 1
+                                   else _own(fused[:, off:off + w])))
+                    off += w
+            ev = event_after(outs)        # after the fold or the copies
+            for (req, _pf, _ep, _nb), out_i in zip(items, outs):
+                req._deliver(out_i, ev)
         finally:
             if t_unpack is not None:
                 _trace.end(t_unpack)
+
+    def _fold_of(self, mod, parts, op) -> Optional[Tuple]:
+        """``(table, out)`` where this flush takes the bucket fold (the
+        class docstring's conditions; ``mod`` is the comm's allreduce
+        module), else None. The table comes from the fuser's cache or is
+        built and kept; ``out`` is the flush's new output."""
+        if getattr(type(mod), "allreduce_members", None) is None:
+            return None
+        n, dev = self.comm.size, self.comm.device
+        sig = _rows_signature(parts, n, dev)
+        if sig is None:
+            return None
+        dt = parts[0].dtype
+        key = (sig, dt, op.uid, n)
+        ep = var.epoch()
+        with self._lock:
+            hit = self._tables.get(key)
+            if hit is not None:
+                self._tables.move_to_end(key)
+        if hit is None or hit[0] != ep:
+            # the decision is the vars' (algorithm, module): asked again
+            # once they change; the table, once built, is kept
+            if not mod.folds(n, sum(w for _p, w in sig), dt, op):
+                return None
+            table = None if hit is None else hit[1]
+            if table is None:
+                table = bucket_fold.Table(parts, op.name)
+                _count("coll_bucket_fold_tables")
+            with self._lock:
+                self._tables[key] = (ep, table)
+                if len(self._tables) > FOLD_TABLES_MAX:
+                    self._tables.popitem(last=False)
+        else:
+            table = hit[1]
+        return table, torch.empty(n * table.total, dtype=dt, device=dev)
 
 
 def fuser_of(comm) -> BucketFuser:

@@ -94,6 +94,7 @@ from ompi_tpu_torch.core import op as op_mod
 from ompi_tpu_torch.core.multictl import Rows
 from ompi_tpu_torch.mca import var
 from ompi_tpu_torch.mca.base import Component
+from ompi_tpu_torch.ops import bucket_fold
 from ompi_tpu_torch.trace import core as _trace
 
 # The reference's enumerators (coll/xla.py:1664-1759), per collective:
@@ -1852,6 +1853,34 @@ class TorchCollModule:
 
     def allreduce(self, x, op):
         return self._call("allreduce", x, op)
+
+    def folds(self, n: int, total: int, dtype, op) -> bool:
+        """Whether ``allreduce_members`` computes the allreduce of an
+        ``(n, total)`` bucket of ``dtype`` under ``op``: this process
+        holds every row, the allreduce selected at that size is
+        ``direct``, and the fold takes the op and dtype
+        (``bucket_fold.takes``)."""
+        if self._mc or not bucket_fold.takes(dtype, op):
+            return False
+        x = torch.empty((n, total), dtype=dtype, device="meta")
+        return self._entry("allreduce", x, op)[2] == "direct"
+
+    def allreduce_members(self, parts, table, out):
+        """The direct allreduce of a bucket's members in one pass
+        (``bucket_fold.fold``, under the op ``table`` was built for): each
+        ``(n, w_i)`` part read in place, its reduction written into every
+        rank's row of its block of ``out`` (``table.views``). The caller
+        has asked ``folds``. Traced, one ``coll.body`` span, as ``_call``
+        records."""
+        if not (_trace.active or _prof._is_profiler_enabled):
+            return bucket_fold.fold(parts, table, out)
+        tok = _trace.begin("coll.body", func="allreduce", algorithm="direct",
+                           root=None,
+                           bytes=out.numel() * out.element_size())
+        try:
+            return bucket_fold.fold(parts, table, out)
+        finally:
+            _trace.end(tok)
 
     def allreduce_dtype(self, x, op, dt, count: int, preserve_gaps: bool):
         """Derived-datatype allreduce (``coll/xla.py:1266-1310``): gather

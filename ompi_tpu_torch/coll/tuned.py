@@ -371,6 +371,13 @@ class TunedCollModule:
     def selected(self, func: str, x=None, op=None, root=None) -> str:
         return self.device.selected(func, x, op, root)
 
+    # a bucket of tensors runs on the device
+    def folds(self, *args) -> bool:
+        return self.device.folds(*args)
+
+    def allreduce_members(self, *args):
+        return self.device.allreduce_members(*args)
+
     def barrier(self) -> None:
         self.device.barrier()
 

@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"flash_fold": CSRC / "flash_fold.cu"}
+SOURCES = {"flash_fold": CSRC / "flash_fold.cu",
+           "bucket_fold": CSRC / "bucket_fold.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -50,3 +50,8 @@ def pytest_configure(config):
         "slow: multi-process / long-running jobs excluded from the "
         "tier-1 '-m \"not slow\"' run (tools/checkparity audits that "
         "subprocess-spawning compress tests carry this)")
+    config.addinivalue_line(
+        "markers",
+        "chip: needs a CUDA card and skips without one; its files import "
+        "no JAX and run on the card with 'python -m pytest --noconftest "
+        "-m chip <file>'")

@@ -488,6 +488,10 @@ def test_bucketed_grad_sync_matches_jax(world, buckets, bucket):
             torch.from_numpy(tree[k]).dtype
         np.testing.assert_allclose(out[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-6)
+    # the bucket fold is the port's own: both flushes take it here
+    folds = {k: ours.pop(k) for k in ("coll_bucket_folds",
+                                      "coll_bucket_fold_tables")}
+    assert folds == dict.fromkeys(folds, 2 if bucket else 0)
     assert ours == theirs
     assert ours["coll_bucket_flushes"] == (2 if bucket else 0)
     sync = TT.BucketedGradSync(comm, tree_map(comm.put, tree))
